@@ -1,0 +1,69 @@
+"""Model configuration: the dense-decoder part of the JAX package's
+``ModelConfig`` (``repro/configs/base.py``), copied so the port imports
+nothing of ``repro``.  Field names and defaults are the reference's, so a
+config built here describes the same model as its JAX twin.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Literal
+
+Activation = Literal["silu", "geglu", "gelu"]
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str = "tiny"
+    arch_type: str = "dense"
+    source: str = ""                  # citation: arXiv id / model card
+
+    n_layers: int = 2
+    d_model: int = 128
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    head_dim: int = 0                 # 0 -> d_model // n_heads
+    d_ff: int = 512
+    vocab: int = 256
+
+    activation: Activation = "silu"
+    qk_norm: bool = False
+    attn_bias: bool = False           # qwen1.5-style qkv bias
+    tie_embeddings: bool = False
+    embed_scale: bool = False         # gemma: scale embeddings by sqrt(d)
+    rmsnorm_one_plus: bool = False    # gemma: (1 + w) * normed
+    norm_eps: float = 1e-6
+    rope_theta: float = 10_000.0
+    logit_softcap: float = 0.0
+
+    sliding_window: int = 0           # 0 = full attention; >0 = SWA window
+    attn_temperature: float = 0.0     # 0 -> 1/sqrt(head_dim)
+
+    dtype: str = "bfloat16"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding-table vocab padded to a multiple of 256 (the
+        reference's layout; logits beyond ``vocab`` are masked)."""
+        return -(-self.vocab // 256) * 256
+
+
+REGISTRY: dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    if cfg.name in REGISTRY:
+        raise ValueError(f"duplicate config {cfg.name}")
+    REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    from repro_torch import configs as _  # noqa: F401  (registration)
+
+    if name not in REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(REGISTRY)}")
+    return REGISTRY[name]

@@ -1,0 +1,34 @@
+"""Tiny configs for CPU tests (copies of ``repro/configs/tiny.py``)."""
+from repro_torch.configs.base import ModelConfig, register
+
+TINY = register(
+    ModelConfig(
+        name="tiny",
+        arch_type="dense",
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=2,
+        head_dim=16,
+        d_ff=128,
+        vocab=64,
+        qk_norm=True,
+        dtype="float32",
+    )
+)
+
+TINY_REASONER = register(
+    ModelConfig(
+        name="tiny-reasoner",
+        arch_type="dense",
+        n_layers=3,
+        d_model=96,
+        n_heads=6,
+        n_kv_heads=2,
+        head_dim=16,
+        d_ff=256,
+        vocab=64,
+        tie_embeddings=True,
+        dtype="float32",
+    )
+)

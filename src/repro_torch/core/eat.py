@@ -1,0 +1,41 @@
+"""EAT — Entropy After ``</think>`` (port of ``repro/core/eat.py``; paper
+§4.1).  The probe is a forward over the probe-token suffix against the live
+decode cache that commits nothing (``Model.probe_entropy``); the entropy is
+the fused ``entropy_probe`` kernel."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ProbeSpec:
+    """The token suffix appended (virtually) for an EAT evaluation:
+    ``tokens[0]`` is ``</think>``, the rest the optional answer prefix
+    (paper Eq. 13)."""
+
+    tokens: tuple[int, ...]
+
+    def __len__(self) -> int:
+        return len(self.tokens)
+
+
+def make_probe(end_think_id: int, prefix_ids: Sequence[int] = ()) -> ProbeSpec:
+    return ProbeSpec(tokens=(end_think_id, *prefix_ids))
+
+
+def eval_eat(model, cache, probe: ProbeSpec, next_pos: torch.Tensor, *,
+             entropy_impl: str = "auto") -> torch.Tensor:
+    """Batched EAT for every sequence sharing the cache.  (B,) float32.
+    The probe tokens take positions next_pos + [0..m); nothing is
+    committed."""
+    B = next_pos.shape[0]
+    m = len(probe)
+    toks = torch.tensor(probe.tokens, dtype=torch.long,
+                        device=next_pos.device).expand(B, m)
+    pos1d = (next_pos[:, None]
+             + torch.arange(m, dtype=torch.int32, device=next_pos.device)[None, :])
+    return model.probe_entropy(toks, pos1d, pos1d, cache,
+                               entropy_impl=entropy_impl)

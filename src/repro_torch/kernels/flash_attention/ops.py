@@ -1,0 +1,138 @@
+"""Masked GQA attention with explicit integer positions (port of
+``repro/kernels/flash_attention/ops.py`` and ``kernel.py``).
+
+* ``attention_plain`` — the plain PyTorch version: the reference's
+  ``_xla_attention``, an online softmax over kv chunks (position < 0 is invalid,
+  causal and sliding-window masks, GQA via ``h // g``, Dv may differ from
+  Dk, 0 output where no key is valid; q scaled and the probabilities cast
+  in the storage dtype before the two products, float32 statistics).
+* ``flash_attention_cuda`` — the hand-written kernel
+  (``csrc/flash_attention.cu``, replacing ``flash_attention_pallas``).
+* ``attention`` — the dispatcher: ``impl="auto"`` picks the kernel for
+  CUDA tensors and the plain version for CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+
+_NEG_INF = -1e30
+# keys per step of the plain version; every caller uses this one size, which
+# is what keeps its output bitwise independent of trailing masked slots
+_KV_CHUNK = 128
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {"flash_attention": [_I, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]}
+
+
+def softmax_block_step(carry, qf, kb, vb, qp, kp, *, causal: bool, window: int):
+    """One block of the float32 online softmax shared by the plain
+    versions of both attention kernels.
+
+    carry = (m, l, acc) over (B, Hkv, g, Sq[, Dv]); qf (B, Sq, Hkv, g, Dk)
+    float32, already scaled; kb/vb (B, blk, Hkv, D*) in the storage dtype;
+    qp (B, 1, 1, Sq, 1) and kp (B, 1, 1, 1, blk) positions.  Masked
+    probabilities are exactly 0, so a fully masked block returns the carry
+    unchanged, bit for bit."""
+    m_run, l_run, acc = carry
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb.float())
+    valid = kp >= 0
+    if causal:
+        valid = valid & (kp <= qp)
+    if window:
+        valid = valid & ((qp - kp) < window)
+    s = torch.where(valid, s, _NEG_INF)
+    m_new = torch.maximum(m_run, s.amax(dim=-1))
+    p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
+    alpha = torch.exp(m_run - m_new)
+    l_run = l_run * alpha + p.sum(dim=-1)
+    pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(vb.dtype).float(), vb.float())
+    return m_new, l_run, acc * alpha[..., None] + pv
+
+
+def softmax_init(B, Hkv, g, Sq, Dv, device):
+    return (torch.full((B, Hkv, g, Sq), _NEG_INF, device=device),
+            torch.zeros((B, Hkv, g, Sq), device=device),
+            torch.zeros((B, Hkv, g, Sq, Dv), device=device))
+
+
+def softmax_finish(carry, dtype):
+    """(m, l, acc) -> (B, Sq, Hq, Dv): acc / l, 0 where no key was valid."""
+    _, l_run, acc = carry
+    B, Hkv, g, Sq, Dv = acc.shape
+    l_run = l_run[..., None]
+    out = torch.where(l_run > 0, acc / l_run.clamp_min(1e-30), 0.0)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hkv * g, Dv).to(dtype)
+
+
+def attention_plain(q, k, v, q_pos, kv_pos, *, causal: bool = True,
+                    window: int = 0, scale: float) -> torch.Tensor:
+    """Online softmax over fixed ``_KV_CHUNK``-key blocks (the last one
+    padded with masked slots).  Fixed blocks make the result independent of
+    trailing masked slots: a ring cache larger than the prompt and a
+    prompt-sized cache give bitwise equal outputs."""
+    B, Sq, Hq, Dk = q.shape
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = Hq // Hkv
+    qs = q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    qf = qs.float().reshape(B, Sq, Hkv, g, Dk)
+    qp = q_pos[:, None, None, :, None]
+    carry = softmax_init(B, Hkv, g, Sq, Dv, q.device)
+    for j0 in range(0, Skv, _KV_CHUNK):
+        kb, vb = k[:, j0:j0 + _KV_CHUNK], v[:, j0:j0 + _KV_CHUNK]
+        kp = kv_pos[:, j0:j0 + _KV_CHUNK]
+        pad = _KV_CHUNK - kb.shape[1]
+        if pad:
+            kb = F.pad(kb, (0, 0, 0, 0, 0, pad))
+            vb = F.pad(vb, (0, 0, 0, 0, 0, pad))
+            kp = F.pad(kp, (0, pad), value=-1)
+        carry = softmax_block_step(carry, qf, kb, vb, qp,
+                                   kp[:, None, None, None, :],
+                                   causal=causal, window=window)
+    return softmax_finish(carry, q.dtype)
+
+
+def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, causal: bool = True,
+                         window: int = 0, scale: float) -> torch.Tensor:
+    B, Sq, Hq, Dk = q.shape
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    for x, name in ((q, "q"), (k, "k"), (v, "v")):
+        _build.expect(x, q.dtype, 4, name)
+    _build.expect(q_pos, torch.int32, 2, "q_pos")
+    _build.expect(kv_pos, torch.int32, 2, "kv_pos")
+    if (k.shape[0], k.shape[3]) != (B, Dk) or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)}")
+    if Hq % Hkv or tuple(q_pos.shape) != (B, Sq) or tuple(kv_pos.shape) != (B, Skv):
+        raise ValueError("flash_attention: bad heads or position shapes")
+    lib = _build.load("flash_attention", _SIGNATURES)
+    out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
+    err = lib.flash_attention(
+        _build.dtype_code(q), _build.ptr(q), _build.ptr(k), _build.ptr(v),
+        _build.ptr(q_pos), _build.ptr(kv_pos), _build.ptr(out),
+        B, Sq, Skv, Hq, Hkv, Dk, Dv, int(causal), int(window), float(scale),
+        _build.stream_ptr(q))
+    _build.check(err, "flash_attention")
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0
+
+
+def attention(q, k, v, q_pos, kv_pos, *, causal: bool = True, window: int = 0,
+              scale: float | None = None, impl: str = "auto") -> torch.Tensor:
+    """q: (B, Sq, Hq, Dk); k: (B, Skv, Hkv, Dk); v: (B, Skv, Hkv, Dv);
+    q_pos: (B, Sq), kv_pos: (B, Skv) int32 (negative = invalid slot).
+    Returns (B, Sq, Hq, Dv) in q's dtype."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if _build.resolve_impl(impl, q) == "cuda":
+        return flash_attention_cuda(q, k, v, q_pos, kv_pos, causal=causal,
+                                    window=window, scale=scale)
+    return attention_plain(q, k, v, q_pos, kv_pos, causal=causal,
+                           window=window, scale=scale)

@@ -1,0 +1,111 @@
+"""Serving launcher: batched EAT-monitored reasoning serving on the port.
+
+  python -m repro_torch.launch.serve --arch tiny --requests 10 --batch 4 \\
+      --cache paged --attn-impl auto --budget 48            # on the GPU
+  python -m repro_torch.launch.serve --device cpu --arch tiny --requests 6 \\
+      --batch 2 --cache paged --attn-impl auto --budget 16   # on the CPU
+
+Random weights from a fixed seed (there is no checkpoint loader in the
+port yet), so verify mechanics — token counts, exits, slot recycling — not
+accuracy.  ``--attn-impl``: ``gather`` materialises the paged cache's
+logical view; ``auto``/``cuda``/``plain`` read K/V off the page pools
+(``auto`` = the CUDA kernels on the GPU, the plain versions on the CPU).
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import get_config
+from repro_torch.core.eat import make_probe
+from repro_torch.core.monitor import ReasoningMonitor
+from repro_torch.core.stopping import EATStopper
+from repro_torch.data.synthetic import ChainTask, Tokens
+from repro_torch.device import resolve_device
+from repro_torch.models.model import Model, init_params
+from repro_torch.serving.cache import ATTN_IMPLS, CacheConfig
+from repro_torch.serving.engine import EngineConfig, ReasoningEngine
+from repro_torch.serving.sampler import SamplerConfig
+from repro_torch.serving.scheduler import SlotScheduler
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tiny-reasoner")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; cuda without a GPU raises")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--delta", type=float, default=1e-3)
+    ap.add_argument("--alpha", type=float, default=0.2)
+    ap.add_argument("--budget", type=int, default=96)
+    ap.add_argument("--chunk", type=int, default=32,
+                    help="decode steps per host round trip")
+    ap.add_argument("--requests", type=int, default=0,
+                    help="serve N queued requests through --batch slots "
+                         "with continuous batching (0 = single batch)")
+    ap.add_argument("--cache", choices=["ring", "paged"], default="ring")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="paged backend: page-pool size (0 = auto)")
+    ap.add_argument("--attn-impl", choices=list(ATTN_IMPLS), default="gather")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = Model(cfg, init_params(cfg, gen, device=dev))
+    print("WARNING: no checkpoint — random weights")
+
+    ecfg = EngineConfig(
+        max_reasoning_tokens=args.budget, capacity=args.budget + 128,
+        pad_id=Tokens.PAD, end_think_id=Tokens.END_THINK,
+        newline_id=Tokens.NEWLINE, eos_id=Tokens.EOS, chunk_len=args.chunk,
+        sampler=SamplerConfig(temperature=0.6, top_p=0.95),
+        cache=CacheConfig(attn_impl=args.attn_impl),
+    )
+    monitor = ReasoningMonitor(
+        stopper=EATStopper(alpha=args.alpha, delta=args.delta),
+        probe=make_probe(Tokens.END_THINK, (Tokens.ANS,)),
+        newline_id=Tokens.NEWLINE,
+    )
+    task = ChainTask()
+    rng = torch.Generator(device=dev).manual_seed(0)
+    if args.requests:
+        batch = task.serve_batch(np.random.default_rng(0), args.requests)
+        # the shared ring pointer advances for the whole run, so the
+        # (logical) capacity covers the batch-lifetime worst case
+        ecfg.capacity = SlotScheduler.required_capacity(
+            batch["prompts"].shape[1], args.requests, args.batch, args.budget)
+        ecfg.cache = CacheConfig(kind=args.cache, page_size=args.page_size,
+                                 num_pages=args.num_pages,
+                                 attn_impl=args.attn_impl)
+        engine = ReasoningEngine(model, ecfg, monitor)
+        results = engine.serve(batch["prompts"], batch["prompt_len"], rng,
+                               batch_size=args.batch, answer_len=4)
+        ans = np.array([ChainTask.extract_answer(r["answer_tokens"][None])[0]
+                        for r in results])
+        n = np.array([r["n_reasoning"] for r in results])
+        print(f"served {args.requests} requests through {args.batch} slots "
+              f"on {dev.type}")
+        print(f"answers: {ans}  truth: {batch['answers']}")
+        print(f"correct: {(ans == batch['answers']).mean():.2f}  "
+              f"reasoning tokens: total={n.sum()} per-q={n}")
+        return
+
+    engine = ReasoningEngine(model, ecfg, monitor)
+    batch = task.serve_batch(np.random.default_rng(0), args.batch)
+    st = engine.start(batch["prompts"], batch["prompt_len"], rng)
+    st = engine.reason(st)
+    toks, _ = engine.force_answer(st, 4)
+    ans = ChainTask.extract_answer(toks.cpu().numpy())
+    n = st.n_reasoning.cpu().numpy()
+    print(f"answers: {ans}  truth: {batch['answers']}")
+    print(f"correct: {(ans == batch['answers']).mean():.2f}  "
+          f"reasoning tokens: total={n.sum()} per-q={n}")
+    print(f"exit via EAT: {st.monitor.stop_flag.cpu().numpy()}")
+
+
+if __name__ == "__main__":
+    main()

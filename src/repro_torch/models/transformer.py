@@ -1,0 +1,189 @@
+"""The cached forward of a dense GQA decoder (port of the dense branch of
+``repro/models/transformer.py``: ``write_slots``, the paged-cache helpers,
+``page_native_ok``, ``attn_block_cached`` and ``forward_cached``).
+
+Cache layout (built in ``serving/cache.py``)::
+
+    {"layers": [ {"k", "v"} per layer ],   # ring: (B, C, Hkv, hd) each
+                                           # paged: pools (P, ps, Hkv, hd)
+     "pos": (B, C) int32 slot positions (-1 = empty),
+     "cur": int committed length (the shared ring pointer),
+     ["page_table": (B, NB) int32, "blocks": {"pages","logical","count"}]}
+
+The JAX reference is pure: a probe's forward returns a new cache that the
+caller drops.  Here K/V are written into the cache tensors in place, so a
+non-committing forward (``commit=False``) builds its ``kv_pos`` as a new
+tensor and leaves ``pos`` and ``cur`` alone, and ``preserved_slots`` puts
+back any live slot such a forward overwrites.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import attention
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.models import attention as att
+from repro_torch.models.common import mlp_apply, rmsnorm
+
+
+def write_slots(cur: int, m: int, capacity: int, device) -> torch.Tensor:
+    """Slot indices (m,) for the next ``m`` tokens (ring when capacity is
+    exceeded) — the slot convention ``forward_cached`` expects."""
+    return (cur + torch.arange(m, device=device)) % capacity
+
+
+# ------------------------------------------------------------ paged KV cache
+
+
+def gather_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Physical pages (P, ps, ...) -> the logical ring view (B, NB*ps, ...)."""
+    B, NB = table.shape
+    g = pool[table.long()]
+    return g.reshape((B, NB * pool.shape[1]) + tuple(pool.shape[2:]))
+
+
+def _page_index(table, slots, ps):
+    pages = table[:, slots // ps].long()                    # (B, m)
+    offs = (slots % ps)[None, :].expand_as(pages)
+    return pages, offs
+
+
+def scatter_pages(pool, table, slots, new) -> None:
+    """Write ``new`` (B, m, ...) at logical ``slots`` (m,) through the page
+    table, in place.  Rows whose block is unmapped land in the trash page —
+    a don't-care, since their ``pos`` stays -1."""
+    pages, offs = _page_index(table, slots, pool.shape[1])
+    pool[pages, offs] = new.to(pool.dtype)
+
+
+def page_native_ok(cfg: ModelConfig, m: int) -> bool:
+    """True when the page-native decode attention serves this call:
+    decode/probe-sized query widths.  The SAME predicate gates the ring and
+    the paged branches, so both backends pick the same implementation."""
+    return m <= 8
+
+
+def _slot_views(cache, slots):
+    """(read, write) closures over the K/V of logical ``slots`` of every row."""
+    if "page_table" in cache:
+        ps = cache["pos"].shape[1] // cache["page_table"].shape[1]
+        idx = _page_index(cache["page_table"], slots, ps)
+    else:
+        idx = (slice(None), slots)
+
+    def read(t):
+        return t[idx].clone()
+
+    def write(t, val):
+        t[idx] = val
+
+    return read, write
+
+
+@contextlib.contextmanager
+def preserved_slots(cache, slots):
+    """Run a non-committing forward that writes K/V at ``slots``: on exit,
+    every such slot that was live (``pos >= 0``) in some row gets its K/V
+    back.  Slots with ``pos == -1`` are invisible to every later read, so
+    only a ring wrap (a probe or rollout past the capacity, onto slot 0 and
+    the prompt) costs a save and a restore."""
+    if not bool((cache["pos"][:, slots] >= 0).any()):
+        yield
+        return
+    read, write = _slot_views(cache, slots)
+    saved = [(read(e["k"]), read(e["v"])) for e in cache["layers"]]
+    try:
+        yield
+    finally:
+        for e, (k, v) in zip(cache["layers"], saved):
+            write(e["k"], k)
+            write(e["v"], v)
+
+
+# ===================================================================== blocks
+
+
+def attn_block_cached(p, x, positions, pos1d, cfg: ModelConfig, entry: dict,
+                      kv_pos, slots, *, window: int, attn_impl: str,
+                      paged: tuple | None, native: bool, paged_impl: str,
+                      page_block: int):
+    """One cached decoder block.  New K/V are written into ``entry`` at
+    ``slots`` before the attention read.  ``paged = (table, ps, blocks,
+    bpos)`` when the entry holds page pools; ``native`` selects the
+    page-native read (pools + compacted page list for paged caches, the
+    same block algorithm over the dense ring otherwise)."""
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps, cfg.rmsnorm_one_plus)
+    q, k_new, v_new = att.gqa_qkv(p["attn"], h, positions, cfg)
+    scale = att.attn_scale(cfg)
+    if paged is not None:
+        table, ps, blocks, bpos = paged
+        scatter_pages(entry["k"], table, slots, k_new)
+        scatter_pages(entry["v"], table, slots, v_new)
+        if native:
+            o = paged_ops.paged_decode_attention(
+                q, entry["k"], entry["v"], blocks["pages"], blocks["count"],
+                bpos, pos1d, window=window, scale=scale, impl=paged_impl)
+        else:
+            o = attention(q, gather_pages(entry["k"], table),
+                          gather_pages(entry["v"], table), pos1d, kv_pos,
+                          causal=True, window=window, scale=scale,
+                          impl=attn_impl)
+    else:
+        entry["k"][:, slots] = k_new.to(entry["k"].dtype)
+        entry["v"][:, slots] = v_new.to(entry["v"].dtype)
+        if native:
+            o = paged_ops.ring_decode_attention(
+                q, entry["k"], entry["v"], pos1d, kv_pos,
+                page_size=page_block, window=window, scale=scale,
+                impl=paged_impl)
+        else:
+            o = attention(q, entry["k"], entry["v"], pos1d, kv_pos,
+                          causal=True, window=window, scale=scale,
+                          impl=attn_impl)
+    x = x + att.gqa_out(p["attn"], o)
+    h2 = rmsnorm(x, p["norm2"], cfg.norm_eps, cfg.rmsnorm_one_plus)
+    return x + mlp_apply(p["ffn"], h2, cfg)
+
+
+def forward_cached(layers, final_norm, x, positions, pos1d, slots, cache,
+                   cfg: ModelConfig, *, commit: bool = True,
+                   attn_impl: str = "auto", window: int = 0,
+                   paged_impl: str = "gather", page_block: int = 16):
+    """Unified prefill (m = S) / decode / probe forward against a cache.
+
+    Returns the final-normed hidden states (B, m, d).  With ``commit`` the
+    cache's ``pos`` and ``cur`` advance over the new tokens; without it they
+    are left as they were (the K/V writes still land in ``slots`` — wrap
+    them in ``preserved_slots``)."""
+    m = x.shape[1]
+    kv_pos = cache["pos"] if commit else cache["pos"].clone()
+    kv_pos[:, slots] = pos1d
+    native = paged_impl != "gather" and page_native_ok(cfg, m)
+    paged = None
+    if "page_table" in cache:
+        table = cache["page_table"]
+        ps = cache["pos"].shape[1] // table.shape[1]
+        blocks = cache.get("blocks")
+        bpos = None
+        if native:
+            if blocks is None:
+                # a silent gather here would split the per-impl paged == ring
+                # pairing (the ring side WOULD run the block algorithm)
+                raise ValueError(
+                    f"paged_impl={paged_impl!r} needs the compacted page "
+                    f"list: allocate the cache with "
+                    f"serving.cache.alloc_paged_template(..., native=True)")
+            bpos = paged_ops.block_positions(kv_pos, blocks["pages"],
+                                             blocks["logical"], ps)
+        paged = (table, ps, blocks, bpos)
+    for p, entry in zip(layers, cache["layers"]):
+        x = attn_block_cached(
+            p, x, positions, pos1d, cfg, entry, kv_pos, slots, window=window,
+            attn_impl=attn_impl, paged=paged, native=native,
+            paged_impl=paged_impl, page_block=page_block)
+    if commit:
+        cache["cur"] += m
+    return rmsnorm(x, final_norm, cfg.norm_eps, cfg.rmsnorm_one_plus)

@@ -1,0 +1,203 @@
+"""Decode-state allocation for the dense GQA decoder: the ring KV cache and
+the block-paged variant (port of ``repro/serving/cache.py``).
+
+Layout (consumed by ``models.transformer.forward_cached``)::
+
+    cache = {"layers": [{"k", "v"} per layer],
+             "pos": (B, C) int32 — absolute position held in each slot, -1 = empty,
+             "cur": int — committed length (the shared ring pointer)}
+
+Ring: each layer's ``k``/``v`` is (B, C, Hkv, hd).  Paged: the same logical
+addressing, but ``k``/``v`` are page POOLS (num_pages, page_size, Hkv, hd)
+shared by all rows, plus a ``page_table`` (B, NB) int32 mapping each row's
+logical block ``slot // page_size`` to a physical page; page 0 is the trash
+page whose every read is position-masked.  Page-native reads additionally
+carry the compacted mapped-page list ``blocks`` (``blocks_arrays``).
+
+Where the reference returns new caches, these functions update the cache
+they are given in place (the reference donated it) and return it.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import torch_dtype
+
+#: physical page id reserved as the trash page — never handed out by the
+#: allocator; unmapped page-table entries point here
+PAGE_TRASH = 0
+
+ATTN_IMPLS = ("gather", "auto", "plain", "cuda")
+
+
+def page_align(n_slots: int, page_size: int) -> int:
+    """Round a slot count up to a whole number of pages."""
+    return -(-n_slots // page_size) * page_size
+
+
+@dataclasses.dataclass
+class CacheConfig:
+    """KV-cache backend for the serving stack.
+
+    ``kind="ring"``: a dense ring of ``capacity`` logical slots per row.
+    ``kind="paged"``: the same logical addressing backed by a pool of
+    ``num_pages`` pages of ``page_size`` slots (0 = ring-equivalent auto
+    sizing).  ``attn_impl`` is the decode/probe attention: ``gather``
+    materialises the paged cache's logical view; ``auto``/``cuda``/``plain``
+    read K/V straight off the pools through the compacted page list (the
+    ring runs the same block algorithm, keeping paged == ring bit-exact per
+    impl).
+    """
+
+    kind: str = "ring"
+    page_size: int = 16
+    num_pages: int = 0
+    attn_impl: str = "gather"
+
+    def __post_init__(self):
+        if self.kind not in ("ring", "paged"):
+            raise ValueError(f"CacheConfig.kind must be 'ring' or 'paged', "
+                             f"got {self.kind!r}")
+        if self.page_size < 1:
+            raise ValueError("CacheConfig.page_size must be >= 1")
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"CacheConfig.attn_impl must be one of "
+                             f"{'/'.join(ATTN_IMPLS)}, got {self.attn_impl!r}")
+
+
+def _kv(cfg: ModelConfig, lead: tuple, dtype, device) -> dict:
+    shape = lead + (cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def alloc_cache(cfg: ModelConfig, batch: int, capacity: int, *, device,
+                dtype=None) -> dict:
+    """An empty ring cache with ``capacity`` kv slots per sequence."""
+    dtype = dtype or torch_dtype(cfg.dtype)
+    return {
+        "pos": torch.full((batch, capacity), -1, dtype=torch.int32, device=device),
+        "cur": 0,
+        "layers": [_kv(cfg, (batch, capacity), dtype, device)
+                   for _ in range(cfg.n_layers)],
+    }
+
+
+def blocks_arrays(pages, logical, counts, *, device) -> dict:
+    """Device form of the allocator's compacted mapped-page list: pages /
+    logical (B, NBK) int32 (trash/0-padded past ``counts``), counts (B,)."""
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.int32), device=device)
+
+    return {"pages": t(pages), "logical": t(logical), "count": t(counts)}
+
+
+def alloc_paged_cache(cfg: ModelConfig, batch: int, capacity: int,
+                      page_size: int, num_pages: int, *, device, dtype=None,
+                      block_bucket: int = 0) -> dict:
+    """An empty block-paged cache: ``capacity`` LOGICAL slots per row (a
+    page multiple), ``num_pages`` physical pages shared by all rows, the
+    page table all-trash.  ``block_bucket`` > 0 adds all-trash ``blocks``
+    arrays of that width for the page-native read."""
+    dtype = dtype or torch_dtype(cfg.dtype)
+    if capacity % page_size:
+        raise ValueError(f"paged capacity {capacity} must be a multiple of "
+                         f"page_size {page_size}")
+    if num_pages < 2:
+        raise ValueError("num_pages must be >= 2 (page 0 is the trash page)")
+    NB = capacity // page_size
+    cache = {
+        "pos": torch.full((batch, capacity), -1, dtype=torch.int32, device=device),
+        "cur": 0,
+        "page_table": torch.full((batch, NB), PAGE_TRASH, dtype=torch.int32,
+                                 device=device),
+        "layers": [_kv(cfg, (num_pages, page_size), dtype, device)
+                   for _ in range(cfg.n_layers)],
+    }
+    if block_bucket:
+        z = np.zeros((batch, block_bucket), np.int32)
+        cache["blocks"] = blocks_arrays(z, z, np.zeros((batch,), np.int32),
+                                        device=device)
+    return cache
+
+
+def alloc_paged_template(cfg: ModelConfig, batch: int, capacity: int,
+                         page_size: int, num_pages: int, *, device,
+                         alloc=None, native: bool = False, dtype=None) -> dict:
+    """The empty paged cache every paged serve starts from; in page-native
+    mode the allocator's current compacted page list is baked in (later
+    refreshes ride ``Executor.put_page_table``)."""
+    if not native:
+        return alloc_paged_cache(cfg, batch, capacity, page_size, num_pages,
+                                 device=device, dtype=dtype)
+    width = alloc.bucket_width()
+    cache = alloc_paged_cache(cfg, batch, capacity, page_size, num_pages,
+                              device=device, dtype=dtype, block_bucket=width)
+    cache["blocks"] = blocks_arrays(*alloc.block_buckets(width), device=device)
+    return cache
+
+
+def pack_paged_cache(paged: dict, dense: dict, table) -> dict:
+    """Scatter a freshly prefilled DENSE cache (capacity C_pre, a page
+    multiple) into the empty paged cache ``paged`` through ``table`` (the
+    allocator's (B, NB) table with the prompt blocks mapped).  Blocks of
+    ``dense`` past a row's mapped prompt land in the trash page."""
+    dev = paged["pos"].device
+    table = torch.as_tensor(np.asarray(table, np.int32), device=dev)
+    NB = table.shape[1]
+    ps = paged["pos"].shape[1] // NB
+    C_pre = dense["pos"].shape[1]
+    nbp = C_pre // ps
+    paged["page_table"] = table
+    paged["pos"][:, :C_pre] = dense["pos"]
+    paged["cur"] = dense["cur"]
+    idx = table[:, :nbp].long()
+    for pe, de in zip(paged["layers"], dense["layers"]):
+        for name in ("k", "v"):
+            src = de[name]
+            B = src.shape[0]
+            pe[name][idx] = src.reshape((B, nbp, ps) + tuple(src.shape[2:])).to(
+                pe[name].dtype)
+    return paged
+
+
+def merge_paged_row(cache: dict, one: dict, row: int, row_table) -> dict:
+    """Paged slot admission: write the single-sequence DENSE cache ``one``
+    (batch 1, prefill capacity C_pre) into batch row ``row`` through
+    ``row_table`` (the allocator's fresh mapping for the row).  The row's
+    ``pos`` is replaced (tail -1) and ``cur`` becomes ``max(cur, one_cur)``
+    — the ring's semantics, so the admitted stream matches the ring's."""
+    dev = cache["pos"].device
+    row_table = torch.as_tensor(np.asarray(row_table, np.int32), device=dev)
+    C = cache["pos"].shape[1]
+    ps = C // cache["page_table"].shape[1]
+    C_pre = one["pos"].shape[1]
+    nbp = C_pre // ps
+    cache["page_table"][row] = row_table
+    row_pos = torch.full((C,), -1, dtype=torch.int32, device=dev)
+    row_pos[:C_pre] = one["pos"][0]
+    cache["pos"][row] = row_pos
+    cache["cur"] = max(cache["cur"], one["cur"])
+    idx = row_table[:nbp].long()
+    for pe, oe in zip(cache["layers"], one["layers"]):
+        for name in ("k", "v"):
+            src = oe[name][0]
+            pe[name][idx] = src.reshape((nbp, ps) + tuple(src.shape[1:])).to(
+                pe[name].dtype)
+    return cache
+
+
+def merge_cache_row(cache: dict, one: dict, row: int) -> dict:
+    """Ring slot admission: replace batch row ``row`` wholesale with the
+    single-sequence cache ``one`` (batch 1, same capacity); the shared ring
+    pointer advances to ``max(cur, one_cur)``."""
+    cache["pos"][row] = one["pos"][0]
+    cache["cur"] = max(cache["cur"], one["cur"])
+    for ce, oe in zip(cache["layers"], one["layers"]):
+        ce["k"][row] = oe["k"][0]
+        ce["v"][row] = oe["v"][0]
+    return cache

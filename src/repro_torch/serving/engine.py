@@ -1,0 +1,279 @@
+"""Reasoning-serving facade (port of ``repro/serving/engine.py``, self-EAT
+monitor, synchronous loop).
+
+``ReasoningEngine`` drives the three layers: ``request`` (lifecycle),
+``scheduler`` (slots, pages) and ``executor`` (device work).  ``serve``
+runs continuous batching over a request queue: sequences that exit early
+(EAT stop, natural ``</think>``, or budget) free their slot, the next
+queued prompt is prefilled and merged into it, and decoding resumes with
+the batch still full.  With ``EngineConfig.cache.kind == "paged"`` the KV
+store is the block-paged pool and a request's pages return to the free
+list the moment it exits; the token streams, exit steps and EAT traces are
+bitwise those of the ring backend.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+import time
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from repro_torch.core.eat import ProbeSpec
+from repro_torch.core.monitor import ReasoningMonitor
+from repro_torch.core.stopping import EATStopper
+from repro_torch.serving.cache import (
+    CacheConfig,
+    alloc_cache,
+    alloc_paged_template,
+    page_align,
+)
+from repro_torch.serving.executor import Executor, ServeState
+from repro_torch.serving.request import Request
+from repro_torch.serving.sampler import SamplerConfig, sample
+from repro_torch.serving.scheduler import PageAllocator, SlotScheduler
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    max_reasoning_tokens: int = 1024
+    capacity: int = 2048                 # cache slots (logical, when paged)
+    pad_id: int = 0
+    end_think_id: int = 1
+    newline_id: int = 2
+    eos_id: int = 3
+    chunk_len: int = 32                  # decode steps per host round trip
+    sampler: SamplerConfig = dataclasses.field(default_factory=SamplerConfig)
+    cache: CacheConfig = dataclasses.field(default_factory=CacheConfig)
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    return x.cpu().numpy()
+
+
+class ReasoningEngine:
+    """Self-EAT serving: the reasoning model is also the monitor model and
+    the probe runs inline in the decode chunk."""
+
+    def __init__(self, model, ecfg: EngineConfig,
+                 monitor: ReasoningMonitor | None = None):
+        # the decode-attention impl is a cache knob (--attn-impl): give the
+        # engine its own view of the model with it baked in, and pin the
+        # ring comparator's block size to the paged page size (the per-impl
+        # paged == ring contract).  The weights are shared, not copied.
+        ccfg = ecfg.cache
+        model = copy.copy(model)
+        model.paged_attn_impl = ccfg.attn_impl
+        model.paged_attn_page = ccfg.page_size
+        self.model = model
+        self.device = model.device
+        self.ecfg = ecfg
+        if monitor is None:
+            monitor = ReasoningMonitor(stopper=EATStopper(),
+                                       probe=ProbeSpec((ecfg.end_think_id,)),
+                                       newline_id=ecfg.newline_id)
+        self.monitor = monitor
+        self.executor = Executor(model, ecfg, monitor)
+
+    # ------------------------------------------------------------- prefill
+    def start(self, prompts, prompt_len, rng: torch.Generator | None = None,
+              *, capacity: int | None = None) -> ServeState:
+        """prompts: (B, S) LEFT-padded token ids; prompt_len: (B,).
+        Positions are 0..len-1 per sequence (pad slots get -1 = masked)."""
+        model, ecfg, dev = self.model, self.ecfg, self.device
+        prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=dev)
+        plen = torch.as_tensor(np.asarray(prompt_len), dtype=torch.int32, device=dev)
+        B, S = prompts.shape
+        pos1d = (torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+                 - (S - plen)[:, None])
+        pos1d = torch.where(pos1d >= 0, pos1d, -1)
+        cache = alloc_cache(model.cfg, B, capacity or ecfg.capacity, device=dev)
+        hidden = self.executor.prefill(prompts, pos1d, pos1d, cache)
+        logits_last = model.logits(hidden[:, -1:])[:, 0]
+        first = sample(logits_last, model.cfg.vocab, ecfg.sampler, rng)
+        buf = torch.full((B, ecfg.max_reasoning_tokens + 8), ecfg.pad_id,
+                         dtype=torch.long, device=dev)
+        buf[:, 0] = first
+        return ServeState(
+            cache=cache,
+            rng=rng,
+            active=torch.ones((B,), dtype=torch.bool, device=dev),
+            next_pos=plen.clone(),
+            last_token=first,
+            n_reasoning=torch.ones((B,), dtype=torch.long, device=dev),
+            monitor=self.monitor.init(B, dev),
+            ended_think=first == ecfg.end_think_id,
+            out_tokens=buf,
+            out_len=torch.ones((B,), dtype=torch.long, device=dev),
+        )
+
+    # ------------------------------------------------------------- loop
+    def reason(self, state: ServeState, *, max_tokens: int | None = None,
+               use_monitor: bool = True,
+               chunk_len: int | None = None) -> ServeState:
+        """Run the reasoning loop until every sequence exits.  CONSUMES
+        ``state``."""
+        budget = int(max_tokens or self.ecfg.max_reasoning_tokens)
+        chunk = max(1, chunk_len or self.ecfg.chunk_len)
+        while True:
+            state = self.executor.decode_chunk(state, budget, chunk,
+                                               use_monitor=use_monitor)
+            if not bool(state.active.any()):
+                return state
+
+    def _serve_setup(self, prompts, prompt_len, rng, *, batch_size: int,
+                     max_tokens: int | None,
+                     chunk_len: int | None) -> SimpleNamespace:
+        """Parse the request list, build the scheduler / page allocator,
+        prefill + pack the initial cohort, run the setup-time capacity
+        check."""
+        prompts_np = np.asarray(prompts)
+        plen_np = np.asarray(prompt_len)
+        n_req, S = prompts_np.shape
+        B = min(batch_size, n_req)
+        budget = int(max_tokens or self.ecfg.max_reasoning_tokens)
+        chunk = max(1, chunk_len or self.ecfg.chunk_len)
+        t0 = time.perf_counter()
+        requests = [Request(rid=i, prompt=prompts_np[i],
+                            prompt_len=int(plen_np[i]), submitted_at=t0)
+                    for i in range(n_req)]
+        sched = SlotScheduler(requests, B, capacity=self.ecfg.capacity,
+                              budget=budget)
+        ccfg = self.ecfg.cache
+        paged = ccfg.kind == "paged"
+        alloc = C_pre = None
+        if paged:
+            ps = ccfg.page_size
+            C_log = page_align(self.ecfg.capacity, ps)
+            n_blocks = C_log // ps
+            num_pages = ccfg.num_pages or B * n_blocks + 1
+            alloc = PageAllocator(num_pages, ps, n_blocks, B)
+            C_pre = page_align(S, ps)      # prompt-sized prefill capacity
+
+        cohort = sched.start_batch()
+        state = self.start(prompts_np[:B], plen_np[:B], rng,
+                           capacity=C_pre if paged else None)
+        if paged:
+            for req in cohort:
+                alloc.ensure(req.slot, 0, S - 1)       # the prompt pages
+            template = alloc_paged_template(
+                self.model.cfg, B, C_log, ps, num_pages, device=self.device,
+                alloc=alloc, native=ccfg.attn_impl != "gather")
+            state = state._replace(cache=self.executor.pack_paged(
+                template, state.cache, alloc.table))
+        for req in cohort:
+            req.begin_decode()
+        sched.check_capacity(int(state.cache["cur"]), "the initial batch")
+        return SimpleNamespace(
+            requests=requests, sched=sched, state=state, alloc=alloc,
+            paged=paged, S=S, budget=budget, chunk=chunk, C_pre=C_pre,
+            tail=len(self.monitor.probe))
+
+    def serve(self, prompts, prompt_len, rng: torch.Generator | None = None, *,
+              batch_size: int, max_tokens: int | None = None,
+              use_monitor: bool = True, chunk_len: int | None = None,
+              answer_len: int = 0, record_trace: bool = False) -> list[dict]:
+        """Continuous-batching serving loop over N requests with
+        ``batch_size`` slots (synchronous chunk boundaries).
+
+        prompts: (N, S) LEFT-padded; prompt_len: (N,).  Returns one dict per
+        request, in request order: ``reasoning_tokens``, ``n_reasoning``,
+        ``ended_think``, ``exit_reason`` (eat / end_think / budget),
+        ``status``, ``slot`` (the batch slot it ran in), ``latency_s``,
+        ``eat_trace`` (chunk-boundary
+        ``(n_reasoning, n_evals, ema_var)`` with ``record_trace``) and, when
+        ``answer_len`` > 0, the greedy forced-answer ``answer_tokens``.
+        """
+        ss = self._serve_setup(prompts, prompt_len, rng, batch_size=batch_size,
+                               max_tokens=max_tokens, chunk_len=chunk_len)
+        sched, state, alloc, paged = ss.sched, ss.state, ss.alloc, ss.paged
+        S, budget, chunk, C_pre = ss.S, ss.budget, ss.chunk, ss.C_pre
+        tail = ss.tail
+
+        def ensure_pages(span: int, *, clamp_to_budget: bool = False):
+            return self.executor.ensure_chunk_pages(
+                alloc, state, [s for s, _ in sched.bound()], span, tail=tail,
+                budget=budget if clamp_to_budget else None)
+
+        while sched.running:
+            if bool(state.active.any()):
+                if paged:
+                    # a chunk writes <= chunk decode tokens (fewer near the
+                    # budget), each probe another len(probe) slots past them
+                    state = ensure_pages(chunk + tail, clamp_to_budget=True)
+                state = self.executor.decode_chunk(state, budget, chunk,
+                                                   use_monitor=use_monitor)
+            active_np = _host(state.active)
+            if record_trace:
+                n_np = _host(state.n_reasoning)
+                ev_np = _host(state.monitor.n_evals)
+                var_np = _host(self.monitor.stopper.debiased_var(
+                    state.monitor.stop_state))
+                for s, req in sched.bound():
+                    req.record_trace(n_np[s], ev_np[s], var_np[s])
+            done = sched.finished_slots(active_np)
+            if not done:
+                continue
+            # harvest (answers roll out from the still-intact cache rows)
+            # BEFORE any slot is overwritten by an admission
+            ans = None
+            if answer_len:
+                if paged:
+                    # a rollout writes </think> + answer_len slots past cur
+                    state = ensure_pages(answer_len + 1)
+                toks, _ = self.force_answer(state, answer_len, greedy=True)
+                ans = _host(toks)
+            out_tokens = _host(state.out_tokens)
+            out_len = _host(state.out_len)
+            n_reasoning = _host(state.n_reasoning)
+            ended = _host(state.ended_think)
+            eat_stop = _host(state.monitor.stop_flag)
+            for s, req in done:
+                sched.release(s)
+                req.finish(
+                    reasoning_tokens=out_tokens[s, :out_len[s]].copy(),
+                    n_reasoning=int(n_reasoning[s]),
+                    ended_think=bool(ended[s]),
+                    eat_stop=bool(eat_stop[s]),
+                    answer_tokens=ans[s].copy() if ans is not None else None,
+                )
+                if paged:
+                    alloc.free_row(s)
+            # admission sweeps EVERY free slot: a paged admission deferred
+            # earlier (pool momentarily full) left its slot empty, and the
+            # pages freed just above are what let it proceed now
+            for s in (s for s, r in enumerate(sched.slots) if r is None):
+                if sched.pending == 0:
+                    continue
+                sched.check_capacity(int(state.cache["cur"]), "another admission")
+                if paged and not alloc.can_admit(S):
+                    alloc.deferrals += 1
+                    continue
+                nxt = sched.admit_next(s)
+                one = self.start(nxt.prompt[None], [nxt.prompt_len], rng,
+                                 capacity=C_pre if paged else None)
+                if paged:
+                    row_table = alloc.admit_row(s, S, int(state.cache["cur"]))
+                    state = self.executor.admit_paged(state, one, s, row_table)
+                else:
+                    state = self.executor.admit(state, one, s)
+                nxt.begin_decode()
+            if (sched.pending and not sched.running and paged
+                    and not alloc.can_admit(S)):
+                raise RuntimeError(
+                    f"paged KV cache cannot hold a single request: "
+                    f"{alloc.free_pages} pages free with every slot empty, "
+                    f"but a prompt needs {alloc.blocks_for(S) + 1} pages. "
+                    f"Raise CacheConfig.num_pages.")
+        return [r.to_result() for r in ss.requests]
+
+    # ------------------------------------------------------------- answers
+    def force_answer(self, state: ServeState, n_tokens: int, rng=None, *,
+                     greedy: bool = False):
+        """GenTillEoS(Q, <think>, R, </think>) — Eq. (10)/Alg. 1 line 11.
+        Returns (tokens (B, n), logprobs (B, n)); the cache is untouched."""
+        rng = rng if rng is not None else state.rng
+        return self.executor.rollout(state.cache, state.next_pos, rng,
+                                     n=n_tokens, greedy=greedy)

@@ -1,0 +1,202 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``: each test asks the ``cuda`` fixture for the device and is
+skipped where there is none (no card, so no kernel can build or run).  On a
+machine with a card and ``nvcc``:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
+
+Tolerances: kernel and plain version both compute in float32 from the same
+inputs and differ only by summation order, so 2e-5 in float32 (the bar of
+the reference's attention kernel tests) and 3e-2 in bfloat16 (one output
+rounding at most); 1e-5 for the entropy, whose float32 output is computed
+in float32 from either input type.  TF32 is off.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.entropy_probe import ops as ep
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.paged_attention import ops as pa
+
+pytestmark = pytest.mark.gpu
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _tol(dtype):
+    return 2e-5 if dtype == torch.float32 else 3e-2
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the port's kernels run only on the GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(rng, shape, dtype, dev, scale=1.0):
+    return torch.as_tensor(rng.normal(size=shape) * scale, dtype=torch.float32,
+                           device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("case", [
+    # B, Sq, Skv, Hq, Hkv, Dk, Dv, window, causal
+    (1, 16, 16, 1, 1, 32, 32, 0, True),
+    (2, 33, 47, 4, 2, 64, 64, 8, True),
+    (2, 40, 40, 8, 2, 128, 128, 0, True),
+    (1, 12, 30, 4, 1, 96, 64, 0, True),
+    (2, 9, 21, 4, 4, 32, 32, 0, False),
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    B, Sq, Skv, Hq, Hkv, Dk, Dv, window, causal = case
+    rng = np.random.default_rng(0)
+    q = _randn(rng, (B, Sq, Hq, Dk), dtype, cuda)
+    k = _randn(rng, (B, Skv, Hkv, Dk), dtype, cuda)
+    v = _randn(rng, (B, Skv, Hkv, Dv), dtype, cuda)
+    qp = (torch.arange(Sq, device=cuda) + 4).expand(B, Sq).to(torch.int32).contiguous()
+    kp = torch.arange(Skv, device=cuda).expand(B, Skv).to(torch.int32).clone()
+    kp[:, -3:] = -1
+    kw = dict(causal=causal, window=window, scale=1.0 / math.sqrt(Dk))
+    out = fa.flash_attention_cuda(q, k, v, qp, kp, **kw)
+    ref = fa.attention_plain(q, k, v, qp, kp, **kw)
+    tol = _tol(dtype)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def _paged(rng, dev, dtype, *, B, m, Hq, Hkv, D, ps=16, NB=12):
+    """Pools holding rows of mapped pages with holes, the matching ring."""
+    P = B * NB + 1
+    kpool = _randn(rng, (P, ps, Hkv, D), dtype, dev)
+    vpool = _randn(rng, (P, ps, Hkv, D), dtype, dev)
+    pages = np.zeros((B, NB), np.int32)
+    logical = np.zeros((B, NB), np.int32)
+    counts = np.zeros(B, np.int32)
+    kv_pos = np.full((B, NB * ps), -1, np.int32)
+    nxt = 1
+    for b in range(B):
+        blocks = [j for j in range(NB - 2) if (j + b) % 4 != 3]   # holes
+        for r, blk in enumerate(blocks):
+            pages[b, r], logical[b, r] = nxt, blk
+            nxt += 1
+            fill = ps if blk != blocks[-1] else ps // 2 + 1
+            kv_pos[b, blk * ps:blk * ps + fill] = np.arange(blk * ps, blk * ps + fill)
+        counts[b] = len(blocks)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    pages, logical, counts, kv_pos = t(pages), t(logical), t(counts), t(kv_pos)
+    bpos = pa.block_positions(kv_pos, pages, logical, ps).contiguous()
+    kr = torch.zeros((B, NB * ps, Hkv, D), dtype=dtype, device=dev)
+    vr = torch.zeros_like(kr)
+    for b in range(B):
+        for r in range(int(counts[b])):
+            blk = int(logical[b, r])
+            kr[b, blk * ps:(blk + 1) * ps] = kpool[pages[b, r]]
+            vr[b, blk * ps:(blk + 1) * ps] = vpool[pages[b, r]]
+    C = NB * ps
+    q = _randn(rng, (B, m, Hq, D), dtype, dev)
+    qp = torch.arange(C - m, C, device=dev, dtype=torch.int32).expand(B, m).contiguous()
+    return q, kpool, vpool, pages, counts, bpos, qp, kr, vr, kv_pos
+
+
+@pytest.mark.parametrize("m,Hq,Hkv", [(1, 2, 2), (2, 4, 2), (1, 8, 2), (2, 8, 2),
+                                      (8, 4, 4), (1, 32, 8)])
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_kernel_matches_plain_and_ring(cuda, m, Hq, Hkv, window, dtype):
+    """m*g in {1, 4, 8, 8, 8, 4} over g in {1, 2, 4}; plus paged == ring
+    bitwise through the same kernel."""
+    rng = np.random.default_rng(1)
+    q, kp, vp, pages, counts, bpos, qp, kr, vr, kv_pos = _paged(
+        rng, cuda, dtype, B=3, m=m, Hq=Hq, Hkv=Hkv, D=64)
+    kw = dict(scale=0.125, window=window)
+    out = pa.paged_attention_cuda(q, kp, vp, pages, counts, bpos, qp, **kw)
+    ref = pa.paged_attention_plain(q, kp, vp, pages, counts, bpos, qp, **kw)
+    tol = _tol(dtype)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    ring = pa.ring_decode_attention(q, kr, vr, qp, kv_pos, page_size=16,
+                                    impl="cuda", **kw)
+    assert torch.equal(out, ring)
+
+
+@pytest.mark.parametrize("case", [(1, 16, 64, 64), (3, 32, 257, 200),
+                                  (5, 128, 2048, 2047), (16, 256, 4096, 4000),
+                                  (40, 128, 1024, 1000)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_entropy_kernel_matches_plain(cuda, case, dtype):
+    """B = 40 spans three row groups of the kernel (16 + 16 + 8)."""
+    B, d, Vp, vocab = case
+    rng = np.random.default_rng(2)
+    h = _randn(rng, (B, d), dtype, cuda)
+    w = _randn(rng, (d, Vp), dtype, cuda, scale=0.3)
+    out = ep.entropy_probe_cuda(h, w, vocab)
+    ref = ep.next_token_entropy_plain(h, w, vocab)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    # a tied config passes the transposed (Vp, d) table as a strided view
+    wt = w.t().contiguous().t()
+    torch.testing.assert_close(ep.entropy_probe_cuda(h, wt, vocab), out)
+
+
+def test_entropy_uniform_is_log_vocab(cuda):
+    out = ep.entropy_probe_cuda(torch.zeros((2, 8), device=cuda),
+                                torch.zeros((8, 128), device=cuda), 100)
+    torch.testing.assert_close(out, torch.full_like(out, math.log(100)),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_wrappers_refuse_bad_inputs(cuda):
+    q = torch.zeros((1, 4, 2, 16), device=cuda)
+    pos = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(q.half(), q.half(), q.half(), pos, pos, scale=1.0)
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(q, q, q, pos.long(), pos, scale=1.0)
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q, q, q, pos, pos[:, :3].contiguous(), scale=1.0)
+    with pytest.raises(ValueError):
+        ep.entropy_probe_cuda(torch.zeros((2, 8), device=cuda),
+                              torch.zeros((8, 64), device=cuda), 65)
+
+
+def test_serve_kernels_match_plain_tokens(cuda):
+    """The tiny serve on the card: kernel path and plain path give the same
+    greedy tokens and exits, and paged == ring bitwise per impl."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.eat import make_probe
+    from repro_torch.core.monitor import ReasoningMonitor
+    from repro_torch.core.stopping import EATStopper
+    from repro_torch.data.synthetic import ChainTask
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.serving.cache import CacheConfig
+    from repro_torch.serving.engine import EngineConfig, ReasoningEngine
+    from repro_torch.serving.sampler import SamplerConfig
+
+    cfg = get_config("tiny")
+    model = Model(cfg, init_params(cfg, torch.Generator(cuda).manual_seed(3),
+                                   device=cuda))
+    b = ChainTask().serve_batch(np.random.default_rng(7), 6)
+    runs = {}
+    for kind in ("ring", "paged"):
+        for impl in ("cuda", "plain"):
+            model.attn_impl = impl
+            ecfg = EngineConfig(max_reasoning_tokens=24, capacity=256, chunk_len=8,
+                                sampler=SamplerConfig(greedy=True),
+                                cache=CacheConfig(kind=kind, attn_impl=impl))
+            mon = ReasoningMonitor(stopper=EATStopper(delta=1e9),
+                                   probe=make_probe(1, (6,)), schedule="every_n",
+                                   every_n=4, min_evals=1)
+            runs[kind, impl] = ReasoningEngine(model, ecfg, mon).serve(
+                b["prompts"], b["prompt_len"], batch_size=4, answer_len=4,
+                record_trace=True)
+    for impl in ("cuda", "plain"):
+        for r, o in zip(runs["ring", impl], runs["paged", impl]):
+            np.testing.assert_array_equal(r["reasoning_tokens"], o["reasoning_tokens"])
+            assert r["eat_trace"] == o["eat_trace"]
+    for r, o in zip(runs["paged", "cuda"], runs["paged", "plain"]):
+        np.testing.assert_array_equal(r["reasoning_tokens"], o["reasoning_tokens"])
+        assert r["exit_reason"] == o["exit_reason"]
