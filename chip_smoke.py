@@ -2,7 +2,7 @@
 """On-chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py                      # from the root of a checkout
-    python3 chip_smoke.py --profile DIR        # + a torch.profiler table
+    python3 chip_smoke.py --profile DIR        # + torch.profiler tables
 
 Needs one CUDA card (an H100 for the numbers in PERF.md) and ``nvcc``; it
 imports nothing of JAX or of the JAX package.  Phases:
@@ -19,7 +19,13 @@ imports nothing of JAX or of the JAX package.  Phases:
    serve of 8 requests through 4 slots with every launch counted, and a
    ring serve of the same workload that must give bitwise identical token
    streams;
-5. one JSON line per the contract: ``{"kernels": [...]}``, the card line,
+5. ``mamba2-2.7b`` (the 8B model freed first): the SSD scan kernel against
+   its plain version at the main-path prefill shapes (zero and nonzero
+   initial state) with its times and bound; kernel path vs plain path of
+   the model (float32 cut to 4 layers, then bfloat16 at the full 64); a ring
+   self-EAT serve of 8 requests through 4 slots at full width and depth
+   with the launches of its kernels counted;
+6. one JSON line per the contract: ``{"kernels": [...]}``, the card line,
    and the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits nonzero before the result lines are printed.
@@ -28,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -57,6 +64,14 @@ TOL = {("flash_attention", "float32"): 1e-5,
        ("paged_attention", "float32"): 1e-6,
        ("entropy_probe", "float32"): 1e-5,
        ("entropy_probe", "bfloat16"): 1e-5}
+# the SSD scan runs in float32 only (the model casts its inputs); kernel and
+# plain version differ by summation order: the bar is 1e-5 of the largest
+# output magnitude, for y and for the final state each (ROADMAP's fp32 bar)
+SSD_REL_TOL = 1e-5
+# mamba2-2.7b at 64 layers in bf16: the EAT of the kernel and plain paths
+# (the scan is float32 on both, its output rounded to bf16; read on an
+# H100: 0, and 8.2e-4 while the plain scan took two cumsums of logd)
+MAMBA_EAT_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -320,6 +335,74 @@ def kernel_checks(torch, F, fa, pa, ep):
     return rec
 
 
+def ssd_case(torch, seed=0, B=4, S=512, nh=80, hp=64, G=1, N=128, h0=True):
+    """Scan inputs at mamba2-2.7b's prefill shapes, shaped as ssm_forward
+    makes them: logd = -dt * (h + 1) with dt in [1e-3, 1e-1] (A = -exp(A_log)
+    runs to -80, so the later heads' exp(cumsum) underflows over a chunk)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    dt = torch.exp(torch.rand((B, S, nh), generator=g, device="cuda") * (hi - lo) + lo)
+    c = dict(u=torch.randn((B, S, nh, hp), generator=g, device="cuda") * 0.3,
+             logd=-dt * torch.arange(1, nh + 1, device="cuda"),
+             Bm=torch.randn((B, S, G, N), generator=g, device="cuda") * 0.4,
+             Cm=torch.randn((B, S, G, N), generator=g, device="cuda") * 0.4)
+    c["h0"] = (torch.randn((B, nh, N, hp), generator=g, device="cuda") * 0.2
+               if h0 else None)
+    return c
+
+
+def ssd_check(torch, ss, L=128):
+    """Phase 5a: the scan kernel against its plain version at the main-path
+    prefill shapes, initial state zero (None) and nonzero; then kernel,
+    plain and bound at the serve's own call (the cache's state passed as
+    h0).  Returns the kernel's record."""
+    bad, err = [], 0.0
+    for with_h0 in (False, True):
+        c = ssd_case(torch, seed=int(with_h0), h0=with_h0)
+        args = (c["u"], c["logd"], c["Bm"], c["Cm"])
+        out = ss.ssd_scan_cuda(*args, chunk=L, h0=c["h0"])
+        ref = ss.ssd_scan_plain(*args, chunk=L, h0=c["h0"])
+        for what, o, r in zip(("y", "h_final"), out, ref):
+            e = (o - r).abs().max().item()
+            bar = SSD_REL_TOL * r.abs().max().item()
+            ok = bool(torch.isfinite(o).all()) and e <= bar
+            if not ok:
+                bad.append(f"ssd_scan h0={with_h0} {what}: max abs err {e:.3e} > {bar:.3e}")
+            if what == "y":
+                err = max(err, e)
+            print(f"[kernels] ssd_scan float32 B4 S512 nh80 hp64 G1 N128 L{L} "
+                  f"h0={'nonzero' if with_h0 else 'none'} {what}: max_abs_err "
+                  f"{e:.3e} (tol {SSD_REL_TOL:g} x max|{what}| = {bar:.3e})")
+        del out, ref
+    check(not bad, "; ".join(bad))
+    c = ssd_case(torch, seed=2)
+    args = (c["u"], c["logd"], c["Bm"], c["Cm"])
+    B, S, nh, hp = c["u"].shape
+    N = c["Bm"].shape[3]
+    y, hf = ss.ssd_scan_cuda(*args, chunk=L, h0=c["h0"])
+    per_set = nbytes(*args, c["h0"], y, hf)
+    sets = [c] + [ssd_case(torch, seed=s) for s in range(3, 2 + n_sets(per_set))]
+    k_ms = time_ms(torch, [lambda s=s: ss.ssd_scan_cuda(
+        s["u"], s["logd"], s["Bm"], s["Cm"], chunk=L, h0=s["h0"]) for s in sets])
+    p_ms = time_ms(torch, [lambda s=s: ss.ssd_scan_plain(
+        s["u"], s["logd"], s["Bm"], s["Cm"], chunk=L, h0=s["h0"]) for s in sets],
+        iters=6)
+    # per (b, head, chunk of l steps): y_t sums s <= t only, so C B^T and
+    # its product with U need the causal triangle, l (l + 1) / 2 entries at
+    # 2 N and 2 hp FLOPs each; C h_prev and the state update 2 l N hp each.
+    # A partial last chunk counts at its own length.
+    lens = [min(L, S - c0) for c0 in range(0, S, L)]
+    flops = B * nh * sum(l * (l + 1) * (N + hp) + 4 * l * N * hp for l in lens)
+    b_ms, b_by = bound_ms(per_set, flops, "float32")
+    print(f"[kernels] ssd_scan float32 B{B} S{S} nh{nh} hp{hp} G1 N{N} L{L}: "
+          f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}: "
+          f"{per_set / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); library: none, no "
+          f"single PyTorch call computes the chunked scan")
+    del sets, c, y, hf
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -335,11 +418,184 @@ def serve_workload(np, n_req=8, vocab=151_936, seed=0):
     return prompts, lens.astype(np.int32)
 
 
+def profile_serve(torch, serve, unprofiled_s: float, path: Path, tag: str) -> None:
+    """One more serve under torch.profiler: its table to ``path``, the top
+    rows and the device busy share printed under ``[tag]``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = serve()
+    events = prof.key_averages()
+    # device-side events only: an operator row repeats its kernels' time
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    table = events.table(sort_by="cuda_time_total", row_limit=40)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(table)
+    print(f"[{tag}] " + f"\n[{tag}] ".join(table.splitlines()[:25]))
+    print(f"[{tag}] device busy {busy_ms:.1f} ms: {busy_ms / 1e3 / wall:.1%} of "
+          f"the profiled serve ({wall:.3f} s), {busy_ms / 1e3 / unprofiled_s:.1%} "
+          f"of the unprofiled one ({unprofiled_s:.3f} s)")
+
+
+def rel_l2(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def mamba_phase(torch, np, kernels, phases, profile_dir=None) -> dict:
+    """Phase 5b-c: mamba2-2.7b, kernel path vs plain path, then the ring
+    self-EAT serve with the launches of every kernel counted (and, with
+    ``profile_dir``, one more serve under the profiler).  Returns the launch
+    counts of the serve."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.eat import make_probe
+    from repro_torch.core.monitor import ReasoningMonitor
+    from repro_torch.core.stopping import EATStopper
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.serving.cache import CacheConfig, alloc_cache
+    from repro_torch.serving.engine import EngineConfig, ReasoningEngine
+    from repro_torch.serving.sampler import SamplerConfig
+    from repro_torch.serving.scheduler import SlotScheduler
+
+    cfg = get_config("mamba2-2.7b")
+    probe = make_probe(1, (6,))              # ids valid for a 50,280 vocab
+    prompts, lens = serve_workload(np, vocab=cfg.vocab)
+    check(int(prompts.max()) < cfg.vocab, "prompt ids past the vocab")
+
+    def kernel_vs_plain(model, S=256):
+        """Prefill the last S tokens of two prompts (row 1 left-padded:
+        its pad steps masked), decode one, probe: scan kernel and entropy
+        kernel vs their plain versions.  S > 16, so the prefill scans: one
+        kernel launch per layer on the kernel path."""
+        toks = torch.as_tensor(prompts[:2, -S:], device="cuda")
+        n = torch.as_tensor(np.minimum(lens[:2], S), device="cuda")
+        ar = torch.arange(S, device="cuda")[None]
+        pos = torch.where(ar >= S - n[:, None], ar - (S - n[:, None]), -1).to(
+            torch.int32).contiguous()
+        nxt = torch.full((2, 1), 7, dtype=torch.long, device="cuda")
+        p1 = n[:, None].to(torch.int32)
+        pp = torch.cat([p1 + 1, p1 + 2], dim=1).contiguous()
+        ptoks = torch.tensor([probe.tokens], device="cuda").expand(2, 2)
+        outs = {}
+        for impl in ("cuda", "plain"):
+            model.scan_impl = impl
+            cache = alloc_cache(model.cfg, 2, S + 32, device="cuda")
+            before = kernels["ssd_scan"].launches
+            hidden = model.prefill(toks, pos, pos, cache)
+            launched = kernels["ssd_scan"].launches - before
+            check(launched == (model.cfg.n_layers if impl == "cuda" else 0),
+                  f"{model.cfg.name} {impl} prefill launched ssd_scan {launched} times")
+            logits = model.logits(hidden[:, -1]).float()
+            dlog = model.decode_step(nxt, p1, p1, cache)[:, -1].float()
+            eat = model.probe_entropy(ptoks, pp, pp, cache, entropy_impl=impl)
+            outs[impl] = (logits, dlog, eat)
+        model.scan_impl = "auto"
+        return outs
+
+    # float32, full width, depth cut to 4 layers: logits to 1e-5 relative
+    # L2, EAT to 1e-5 nats
+    cfg32 = dataclasses.replace(cfg, name=cfg.name + "-4L-f32", n_layers=4,
+                                dtype="float32")
+    model32 = Model(cfg32, init_params(cfg32, torch.Generator(device="cuda").manual_seed(1),
+                                       device="cuda"))
+    outs = kernel_vs_plain(model32)
+    for i, what in enumerate(("prefill logits", "decode logits")):
+        rel = rel_l2(outs["cuda"][i], outs["plain"][i])
+        check(bool(torch.isfinite(outs["cuda"][i]).all()) and rel < 1e-5,
+              f"{cfg32.name} {what}: kernel vs plain relative L2 {rel}")
+        print(f"[model] {cfg32.name} {what}: kernel vs plain relative L2 {rel:.3e} (tol 1e-5)")
+    d_eat = (outs["cuda"][2] - outs["plain"][2]).abs().max().item()
+    check(d_eat < 1e-5, f"{cfg32.name} EAT: kernel vs plain differ by {d_eat}")
+    print(f"[model] {cfg32.name} EAT kernel vs plain max diff {d_eat:.3e} (tol 1e-5)")
+    del model32, outs
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = Model(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                   device="cuda"))
+    torch.cuda.synchronize()
+    phases["mamba_init_s"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[model] {cfg.name}: {cfg.n_layers} layers d{cfg.d_model} d_inner "
+          f"{cfg.ssm.expand * cfg.d_model} heads {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim}"
+          f"x{cfg.ssm.head_dim} d_state {cfg.ssm.d_state} chunk {cfg.ssm.chunk} "
+          f"Vp{cfg.padded_vocab} {cfg.dtype}: {n_params / 1e9:.3f} B params, init "
+          f"{phases['mamba_init_s']:.1f} s")
+    # bf16 at full depth: finite logits, EAT of the two paths within
+    # MAMBA_EAT_TOL nats (the scan is float32 on both; its output is rounded
+    # to bf16 and the differences compound over 64 layers)
+    outs = kernel_vs_plain(model)
+    for i, what in enumerate(("prefill logits", "decode logits")):
+        check(bool(torch.isfinite(outs["cuda"][i]).all()), f"mamba2 {what} not finite")
+        print(f"[model] {cfg.name} {what}: kernel vs plain relative L2 "
+              f"{rel_l2(outs['cuda'][i], outs['plain'][i]):.3e}")
+    eat_k, eat_p = outs["cuda"][2], outs["plain"][2]
+    d_eat = (eat_k - eat_p).abs().max().item()
+    check(bool(torch.isfinite(eat_k).all()) and d_eat < MAMBA_EAT_TOL,
+          f"mamba2 EAT: kernel {eat_k.tolist()} vs plain {eat_p.tolist()}")
+    print(f"[model] {cfg.name} EAT kernel {[round(x, 4) for x in eat_k.tolist()]} plain "
+          f"{[round(x, 4) for x in eat_p.tolist()]} max diff {d_eat:.3e} "
+          f"(tol {MAMBA_EAT_TOL:g})")
+    del outs
+
+    # the serve: 8 requests, 4 slots, ring, budget 64, chunk 16, greedy, an
+    # EAT probe every 8 tokens, exit at the 2nd evaluation, forced answers
+    n_req, batch, budget, chunk = len(lens), 4, 64, 16
+    S = prompts.shape[1]
+    ecfg = EngineConfig(
+        max_reasoning_tokens=budget,
+        capacity=SlotScheduler.required_capacity(S, n_req, batch, budget),
+        chunk_len=chunk, sampler=SamplerConfig(greedy=True),
+        cache=CacheConfig(kind="ring"))
+
+    def serve():
+        mon = ReasoningMonitor(stopper=EATStopper(alpha=0.2, delta=1e9),
+                               probe=probe, schedule="every_n", every_n=8,
+                               min_evals=2)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = ReasoningEngine(model, ecfg, mon).serve(
+            prompts, lens, None, batch_size=batch, answer_len=4)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    serve()                                         # warm-up
+    for fn in kernels.values():
+        fn.launches = 0
+    res, phases["mamba_serve_s"] = serve()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    check(len(res) == n_req and all(r["status"] in ("exited", "exhausted") for r in res),
+          "mamba2: not every request finished")
+    exits = [r["exit_reason"] for r in res]
+    check("eat" in exits, f"mamba2: no request exited by EAT: {exits}")
+    check(all(len(r["answer_tokens"]) == 4 for r in res), "mamba2: missing answers")
+    prefills = 1 + n_req - batch                    # the cohort, then admissions
+    check(launches["ssd_scan"] == cfg.n_layers * prefills,
+          f"mamba2: ssd_scan launched {launches['ssd_scan']} times, expected "
+          f"{cfg.n_layers} per prefill x {prefills}")
+    check(launches["entropy_probe"] > 0, "mamba2: entropy_probe was not launched")
+    n_tok = sum(r["n_reasoning"] for r in res)
+    wall = phases["mamba_serve_s"]
+    print(f"[serve] {cfg.name} ring: {sum(r['status'] in ('exited', 'exhausted') for r in res)}"
+          f"/{n_req} requests finished through {batch} slots "
+          f"{[r['slot'] for r in res]}, exits {exits} ({exits.count('eat')} by EAT), "
+          f"reasoning tokens {[r['n_reasoning'] for r in res]}, {wall:.3f} s, "
+          f"{n_tok / wall:.1f} reasoning tokens/s")
+    print(f"[serve] launches during the {cfg.name} serve: {json.dumps(launches)} "
+          f"(ssd_scan {cfg.n_layers} per prefill x {prefills} prefills)")
+    if profile_dir:
+        profile_serve(torch, serve, wall, Path(profile_dir) / "profile_mamba2.txt",
+                      "profile mamba2")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="also write a torch.profiler table of one paged "
-                         "serve to DIR/profile.txt")
+                    help="also write torch.profiler tables of one more paged "
+                         "8B serve (DIR/profile.txt) and mamba2 serve "
+                         "(DIR/profile_mamba2.txt)")
     args = ap.parse_args()
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repository")
@@ -417,9 +673,6 @@ def main() -> None:
             outs[impl] = (logits, dlog, eat)
         model.attn_impl, model.paged_attn_impl = "auto", "gather"
         return outs
-
-    def rel_l2(a, b):
-        return ((a - b).norm() / b.norm()).item()
 
     # float32 at full width, depth cut to 4 layers: the kernels must agree
     # with the plain path to 1e-5 (relative L2 of the logits, nats of EAT;
@@ -527,31 +780,31 @@ def main() -> None:
     print(f"[serve] launches during the paged serve: {json.dumps(launches)}")
 
     if args.profile:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        profile_serve(torch, lambda: serve("paged"), phases["paged_serve_s"],
+                      Path(args.profile) / "profile.txt", "profile")
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, wall = serve("paged")
-        events = prof.key_averages()
-        # device-side events only: an operator row repeats its kernels' time
-        busy_ms = sum(e.self_device_time_total for e in events
-                      if e.device_type == DeviceType.CUDA) / 1e3
-        table = events.table(sort_by="cuda_time_total", row_limit=40)
-        out = Path(args.profile)
-        out.mkdir(parents=True, exist_ok=True)
-        (out / "profile.txt").write_text(table)
-        print("[profile] " + "\n[profile] ".join(table.splitlines()[:25]))
-        print(f"[profile] device busy {busy_ms:.1f} ms: {busy_ms / 1e3 / wall:.1%} of "
-              f"the profiled serve ({wall:.3f} s), {busy_ms / 1e3 / phases['paged_serve_s']:.1%} "
-              f"of the unprofiled one ({phases['paged_serve_s']:.3f} s)")
+    # ---- 5. mamba2-2.7b, the 8B model freed first
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.kernels.ssd_scan import ops as ss
+
+    t0 = time.perf_counter()
+    rec["ssd_scan"] = ssd_check(torch, ss)
+    kernels["ssd_scan"] = ss.ssd_scan_cuda
+    m_launches = mamba_phase(torch, np, kernels, phases, args.profile)
+    launches["ssd_scan"] = m_launches["ssd_scan"]
+    phases["mamba_s"] = time.perf_counter() - t0
 
     print("[phases] " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
 
-    # ---- 5. result lines
+    # ---- 6. result lines: launches from the path each kernel serves (the
+    # 8B paged serve; ssd_scan from the mamba2 serve)
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:78",
         "paged_attention": "src/repro/kernels/paged_attention/kernel.py:79",
         "entropy_probe": "src/repro/kernels/entropy_probe/kernel.py:72",
+        "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:70",
     }
     out = []
     for name in kernels:

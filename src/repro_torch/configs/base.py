@@ -1,7 +1,8 @@
-"""Model configuration: the dense-decoder part of the JAX package's
-``ModelConfig`` (``repro/configs/base.py``), copied so the port imports
-nothing of ``repro``.  Field names and defaults are the reference's, so a
-config built here describes the same model as its JAX twin.
+"""Model configuration: the dense-decoder and Mamba2 (``arch_type="ssm"``)
+parts of the JAX package's ``ModelConfig`` and ``SSMConfig``
+(``repro/configs/base.py``), copied so the port imports nothing of
+``repro``.  Field names and defaults are the reference's, so a config built
+here describes the same model as its JAX twin.
 """
 from __future__ import annotations
 
@@ -9,6 +10,18 @@ from dataclasses import dataclass
 from typing import Literal
 
 Activation = Literal["silu", "geglu", "gelu"]
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) sub-config."""
+
+    d_state: int = 128
+    head_dim: int = 64                # P in SSD
+    expand: int = 2                   # d_inner = expand * d_model
+    chunk: int = 128                  # SSD chunk length
+    conv_width: int = 4
+    n_groups: int = 1                 # B/C groups (like GQA for SSM)
 
 
 @dataclass(frozen=True)
@@ -38,6 +51,8 @@ class ModelConfig:
     sliding_window: int = 0           # 0 = full attention; >0 = SWA window
     attn_temperature: float = 0.0     # 0 -> 1/sqrt(head_dim)
 
+    ssm: SSMConfig | None = None
+
     dtype: str = "bfloat16"
 
     @property
@@ -49,6 +64,12 @@ class ModelConfig:
         """Embedding-table vocab padded to a multiple of 256 (the
         reference's layout; logits beyond ``vocab`` are masked)."""
         return -(-self.vocab // 256) * 256
+
+    def block_kinds(self) -> tuple[str, ...]:
+        """Per-layer block kind sequence."""
+        if self.arch_type == "ssm":
+            return ("ssm",) * self.n_layers
+        return ("attn",) * self.n_layers
 
 
 REGISTRY: dict[str, ModelConfig] = {}

@@ -1,5 +1,5 @@
 """Tiny configs for CPU tests (copies of ``repro/configs/tiny.py``)."""
-from repro_torch.configs.base import ModelConfig, register
+from repro_torch.configs.base import ModelConfig, SSMConfig, register
 
 TINY = register(
     ModelConfig(
@@ -29,6 +29,21 @@ TINY_REASONER = register(
         d_ff=256,
         vocab=64,
         tie_embeddings=True,
+        dtype="float32",
+    )
+)
+
+TINY_SSM = register(
+    ModelConfig(
+        name="tiny-ssm",
+        arch_type="ssm",
+        n_layers=2,
+        d_model=64,
+        n_heads=1,
+        n_kv_heads=1,
+        d_ff=0,
+        vocab=64,
+        ssm=SSMConfig(d_state=16, head_dim=16, expand=2, chunk=16),
         dtype="float32",
     )
 )

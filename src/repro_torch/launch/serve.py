@@ -4,12 +4,18 @@
       --cache paged --attn-impl auto --budget 48            # on the GPU
   python -m repro_torch.launch.serve --device cpu --arch tiny --requests 6 \\
       --batch 2 --cache paged --attn-impl auto --budget 16   # on the CPU
+  python -m repro_torch.launch.serve --arch mamba2-2.7b --cache ring \\
+      --requests 8 --batch 4 --budget 64                     # Mamba2, GPU
 
 Random weights from a fixed seed (there is no checkpoint loader in the
 port yet), so verify mechanics — token counts, exits, slot recycling — not
 accuracy.  ``--attn-impl``: ``gather`` materialises the paged cache's
 logical view; ``auto``/``cuda``/``plain`` read K/V off the page pools
 (``auto`` = the CUDA kernels on the GPU, the plain versions on the CPU).
+An SSM model (``mamba2-2.7b``, ``tiny-ssm``) has no KV cache to page and
+serves with ``--cache ring`` only.  Its prefill runs the chunked scan only
+for a prompt batch wider than 16 tokens; the task's prompts are shorter, so
+here, as in the JAX launcher, they take the recurrent step.
 """
 from __future__ import annotations
 
@@ -52,8 +58,11 @@ def main(argv=None):
     ap.add_argument("--attn-impl", choices=list(ATTN_IMPLS), default="gather")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.arch_type == "ssm" and args.cache == "paged":
+        ap.error(f"--arch {args.arch} is an SSM: its state has no KV capacity "
+                 f"axis to page; use --cache ring")
+    dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
     model = Model(cfg, init_params(cfg, gen, device=dev))
     print("WARNING: no checkpoint — random weights")

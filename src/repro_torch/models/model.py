@@ -14,6 +14,9 @@ Parameter tree (the JAX layout with the layer axis unstacked)::
      "layers": [{"norm1", "attn": {wq, wk, wv, wo, [q_norm, k_norm],
                                    [bq, bk, bv]},
                  "norm2", "ffn": {w_up, w_gate, w_down}}, ...]}
+                # arch "ssm": [{"norm", "ssm": {w_z, w_x, w_b, w_c, w_dt,
+                #   conv_x_w, conv_x_b, conv_bc_w, conv_bc_b, dt_bias, A_log,
+                #   D, norm_w, out_proj}}, ...]
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from repro_torch.kernels.entropy_probe.ops import next_token_entropy
 from repro_torch.models import common
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import gqa_init
+from repro_torch.models.ssm import ssm_init
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
@@ -35,9 +39,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
     layers = []
-    for _ in range(cfg.n_layers):
+    for kind in cfg.block_kinds():
+        norm = common.rmsnorm_init(cfg.d_model, dtype, dev, cfg.rmsnorm_one_plus)
+        if kind == "ssm":
+            layers.append({"norm": norm, "ssm": ssm_init(generator, cfg, dtype, dev)})
+            continue
         layers.append({
-            "norm1": common.rmsnorm_init(cfg.d_model, dtype, dev, cfg.rmsnorm_one_plus),
+            "norm1": norm,
             "attn": gqa_init(generator, cfg, dtype, dev),
             "norm2": common.rmsnorm_init(cfg.d_model, dtype, dev, cfg.rmsnorm_one_plus),
             "ffn": common.mlp_init(generator, cfg, cfg.d_ff, dtype, dev),
@@ -58,25 +66,26 @@ def _param_dict(d: dict) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One decoder layer's weights, indexable like the JAX layer dict."""
+    """One layer's weights, indexable like the JAX layer dict: a decoder
+    layer (norm1, attn, norm2, ffn) or a Mamba2 layer (norm, ssm)."""
 
     def __init__(self, p: dict):
         super().__init__()
-        self.norm1 = _frozen(p["norm1"])
-        self.attn = _param_dict(p["attn"])
-        self.norm2 = _frozen(p["norm2"])
-        self.ffn = _param_dict(p["ffn"])
+        for name, v in p.items():
+            setattr(self, name, _param_dict(v) if isinstance(v, dict) else _frozen(v))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
 
 
 class Model(nn.Module):
-    """A dense GQA decoder for serving.
+    """A dense GQA decoder or a Mamba2 stack (``arch_type="ssm"``) for
+    serving.
 
-    ``attn_impl`` selects the prefill attention (``auto``: the flash kernel
-    for CUDA tensors, the plain version for CPU tensors; ``cuda``;
-    ``plain``).  ``paged_attn_impl`` selects the decode/probe read over a
+    ``attn_impl`` selects the prefill attention and ``scan_impl`` the SSM
+    prefill scan (``auto``: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors; ``cuda``; ``plain``).  ``paged_attn_impl``
+    selects the decode/probe read over a
     serving cache: ``gather`` materialises a paged cache's logical view;
     ``auto``/``cuda``/``plain`` read K/V straight off the page pools
     through the compacted page list, and a ring cache runs the same block
@@ -86,10 +95,11 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, params: dict, *,
                  attn_impl: str = "auto", paged_attn_impl: str = "gather",
-                 paged_attn_page: int = 16):
+                 paged_attn_page: int = 16, scan_impl: str = "auto"):
         super().__init__()
         self.cfg = cfg
         self.attn_impl = attn_impl
+        self.scan_impl = scan_impl
         self.paged_attn_impl = paged_attn_impl
         self.paged_attn_page = paged_attn_page
         self.embed = _param_dict(params["embed"])
@@ -117,7 +127,8 @@ class Model(nn.Module):
         run = lambda: tfm.forward_cached(  # noqa: E731
             self.layers, self.final_norm, x, positions, pos1d, slots, cache,
             cfg, commit=commit, attn_impl=self.attn_impl, window=window,
-            paged_impl=self.paged_attn_impl, page_block=self.paged_attn_page)
+            paged_impl=self.paged_attn_impl, page_block=self.paged_attn_page,
+            scan_impl=self.scan_impl)
         if commit:
             return run()
         with tfm.preserved_slots(cache, slots):

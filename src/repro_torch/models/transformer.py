@@ -1,11 +1,14 @@
-"""The cached forward of a dense GQA decoder (port of the dense branch of
-``repro/models/transformer.py``: ``write_slots``, the paged-cache helpers,
-``page_native_ok``, ``attn_block_cached`` and ``forward_cached``).
+"""The cached forward of a dense GQA decoder and of a Mamba2 stack (port of
+the dense and SSM branches of ``repro/models/transformer.py``:
+``write_slots``, the paged-cache helpers, ``page_native_ok``,
+``attn_block_cached``, ``ssm_block_full`` / ``ssm_block_step`` and
+``forward_cached``).
 
 Cache layout (built in ``serving/cache.py``)::
 
     {"layers": [ {"k", "v"} per layer ],   # ring: (B, C, Hkv, hd) each
                                            # paged: pools (P, ps, Hkv, hd)
+              | [ {"ssm", "conv": {"x", "bc"}} per layer ],   # arch "ssm"
      "pos": (B, C) int32 slot positions (-1 = empty),
      "cur": int committed length (the shared ring pointer),
      ["page_table": (B, NB) int32, "blocks": {"pages","logical","count"}]}
@@ -14,7 +17,10 @@ The JAX reference is pure: a probe's forward returns a new cache that the
 caller drops.  Here K/V are written into the cache tensors in place, so a
 non-committing forward (``commit=False``) builds its ``kv_pos`` as a new
 tensor and leaves ``pos`` and ``cur`` alone, and ``preserved_slots`` puts
-back any live slot such a forward overwrites.
+back any live slot such a forward overwrites.  A recurrent state has no
+slots: an SSM layer returns a new state, and only a committing forward puts
+it in the cache (replacing the layer's entry, never writing into its
+tensors), so a probe or a rollout leaves the live state as it was.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models import attention as att
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import mlp_apply, rmsnorm
 
 
@@ -90,15 +97,16 @@ def preserved_slots(cache, slots):
     back.  Slots with ``pos == -1`` are invisible to every later read, so
     only a ring wrap (a probe or rollout past the capacity, onto slot 0 and
     the prompt) costs a save and a restore."""
-    if not bool((cache["pos"][:, slots] >= 0).any()):
+    kv = [e for e in cache["layers"] if "k" in e]
+    if not kv or not bool((cache["pos"][:, slots] >= 0).any()):
         yield
         return
     read, write = _slot_views(cache, slots)
-    saved = [(read(e["k"]), read(e["v"])) for e in cache["layers"]]
+    saved = [(read(e["k"]), read(e["v"])) for e in kv]
     try:
         yield
     finally:
-        for e, (k, v) in zip(cache["layers"], saved):
+        for e, (k, v) in zip(kv, saved):
             write(e["k"], k)
             write(e["v"], v)
 
@@ -148,19 +156,62 @@ def attn_block_cached(p, x, positions, pos1d, cfg: ModelConfig, entry: dict,
     return x + mlp_apply(p["ffn"], h2, cfg)
 
 
+def ssm_block_full(p, x, cfg: ModelConfig, *, valid=None, state=None,
+                   scan_impl: str = "auto"):
+    h = rmsnorm(x, p["norm"], cfg.norm_eps, cfg.rmsnorm_one_plus)
+    y, new_state = ssm_mod.ssm_forward(
+        p["ssm"], h, cfg, valid=valid,
+        conv_tail=None if state is None else state["conv"],
+        h0=None if state is None else state["ssm"], scan_impl=scan_impl)
+    return x + y, new_state
+
+
+def ssm_block_step(p, x, cfg: ModelConfig, state):
+    h = rmsnorm(x, p["norm"], cfg.norm_eps, cfg.rmsnorm_one_plus)
+    y, new_state = ssm_mod.ssm_step(p["ssm"], h, cfg, state)
+    return x + y, new_state
+
+
+def _ssm_layers(layers, x, pos1d, cache, cfg: ModelConfig, *, commit: bool,
+                scan_impl: str):
+    """The SSM stack: prefill-sized calls (m > 16) run the chunked scan
+    with invalid (pos -1) steps masked; decode and probe calls recur step
+    by step, unmasked, as in the reference.  A committing call replaces
+    each layer's state entry with the new state."""
+    use_full = x.shape[1] > 16
+    valid = pos1d >= 0
+    states = cache["layers"]
+    for i, p in enumerate(layers):
+        if use_full:
+            x, new = ssm_block_full(p, x, cfg, valid=valid, state=states[i],
+                                    scan_impl=scan_impl)
+        else:
+            x, new = ssm_block_step(p, x, cfg, states[i])
+        if commit:
+            states[i] = new
+    return x
+
+
 def forward_cached(layers, final_norm, x, positions, pos1d, slots, cache,
                    cfg: ModelConfig, *, commit: bool = True,
                    attn_impl: str = "auto", window: int = 0,
-                   paged_impl: str = "gather", page_block: int = 16):
+                   paged_impl: str = "gather", page_block: int = 16,
+                   scan_impl: str = "auto"):
     """Unified prefill (m = S) / decode / probe forward against a cache.
 
     Returns the final-normed hidden states (B, m, d).  With ``commit`` the
     cache's ``pos`` and ``cur`` advance over the new tokens; without it they
     are left as they were (the K/V writes still land in ``slots`` — wrap
-    them in ``preserved_slots``)."""
+    them in ``preserved_slots``; SSM states are not written at all)."""
     m = x.shape[1]
     kv_pos = cache["pos"] if commit else cache["pos"].clone()
     kv_pos[:, slots] = pos1d
+    if cfg.arch_type == "ssm":
+        x = _ssm_layers(layers, x, pos1d, cache, cfg, commit=commit,
+                        scan_impl=scan_impl)
+        if commit:
+            cache["cur"] += m
+        return rmsnorm(x, final_norm, cfg.norm_eps, cfg.rmsnorm_one_plus)
     native = paged_impl != "gather" and page_native_ok(cfg, m)
     paged = None
     if "page_table" in cache:

@@ -7,6 +7,8 @@ layout, so this copies and never transposes; the only reshaping is
 unstacking the leading ``(L, ...)`` layer axis that the reference's
 ``init_stack`` builds.  A tied config simply has no ``lm_head``: the port
 unembeds through the transposed embedding view, as the reference does.
+Each leaf keeps its own dtype: a bfloat16 model's SSM ``dt_bias``,
+``A_log`` and ``D`` are float32 in the reference and stay so.
 """
 from __future__ import annotations
 
@@ -19,11 +21,16 @@ from repro_torch.device import resolve_device, torch_dtype
 
 def from_jax(np_tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     dev = resolve_device(device)
-    dtype = torch_dtype(cfg.dtype)
 
     def t(a) -> torch.Tensor:
-        # numpy has no bfloat16: bf16 leaves arrive as float32 copies
-        return torch.from_numpy(np.asarray(a, np.float32).copy()).to(dev, dtype)
+        # numpy knows bfloat16 only through ml_dtypes: go through float32
+        a = np.asarray(a)
+        dtype = torch_dtype(a.dtype.name)
+        return torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+
+    def tree(d: dict, i: int) -> dict:
+        return {k: tree(v, i) if isinstance(v, dict) else t(v[i])
+                for k, v in d.items()}
 
     emb = np_tree["embed"]
     embed = {"embedding": t(emb["embedding"])}
@@ -31,13 +38,6 @@ def from_jax(np_tree: dict, cfg: ModelConfig, device="cuda") -> dict:
         embed["lm_head"] = t(emb["lm_head"])
     stack = np_tree["stack"]
     lay = stack["layers"]
-    layers = []
-    for i in range(cfg.n_layers):
-        layers.append({
-            "norm1": t(lay["norm1"][i]),
-            "attn": {k: t(v[i]) for k, v in lay["attn"].items()},
-            "norm2": t(lay["norm2"][i]),
-            "ffn": {k: t(v[i]) for k, v in lay["ffn"].items()},
-        })
+    layers = [tree(lay, i) for i in range(cfg.n_layers)]
     return {"embed": embed, "final_norm": t(stack["final_norm"]),
             "layers": layers}

@@ -1,17 +1,21 @@
-"""Decode-state allocation for the dense GQA decoder: the ring KV cache and
-the block-paged variant (port of ``repro/serving/cache.py``).
+"""Decode-state allocation: the ring KV cache and the block-paged variant
+for the dense GQA decoder, and the recurrent state of a Mamba2 stack (port
+of ``repro/serving/cache.py``).
 
 Layout (consumed by ``models.transformer.forward_cached``)::
 
-    cache = {"layers": [{"k", "v"} per layer],
+    cache = {"layers": [{"k", "v"} per layer]
+                     | [{"ssm", "conv": {"x", "bc"}} per layer],   # arch "ssm"
              "pos": (B, C) int32 — absolute position held in each slot, -1 = empty,
              "cur": int — committed length (the shared ring pointer)}
 
-Ring: each layer's ``k``/``v`` is (B, C, Hkv, hd).  Paged: the same logical
-addressing, but ``k``/``v`` are page POOLS (num_pages, page_size, Hkv, hd)
-shared by all rows, plus a ``page_table`` (B, NB) int32 mapping each row's
-logical block ``slot // page_size`` to a physical page; page 0 is the trash
-page whose every read is position-masked.  Page-native reads additionally
+SSM: ``ssm`` is the (B, nh, N, hp) float32 scan state, ``conv`` the
+(B, w-1, ·) causal-conv tails; there is no capacity axis, so no paged
+variant.  Ring: each layer's ``k``/``v`` is (B, C, Hkv, hd).  Paged: the
+same logical addressing, but ``k``/``v`` are page POOLS (num_pages,
+page_size, Hkv, hd) shared by all rows, plus a ``page_table`` (B, NB) int32
+mapping each row's logical block ``slot // page_size`` to a physical page;
+page 0 is the trash page whose every read is position-masked.  Page-native reads additionally
 carry the compacted mapped-page list ``blocks`` (``blocks_arrays``).
 
 Where the reference returns new caches, these functions update the cache
@@ -26,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
+from repro_torch.models.ssm import ssm_state_init
 
 #: physical page id reserved as the trash page — never handed out by the
 #: allocator; unmapped page-table entries point here
@@ -77,13 +82,19 @@ def _kv(cfg: ModelConfig, lead: tuple, dtype, device) -> dict:
 
 def alloc_cache(cfg: ModelConfig, batch: int, capacity: int, *, device,
                 dtype=None) -> dict:
-    """An empty ring cache with ``capacity`` kv slots per sequence."""
+    """An empty ring cache with ``capacity`` kv slots per sequence (a zero
+    recurrent state per layer for arch ``ssm``)."""
     dtype = dtype or torch_dtype(cfg.dtype)
+    if cfg.arch_type == "ssm":
+        layers = [ssm_state_init(cfg, batch, dtype, device)
+                  for _ in range(cfg.n_layers)]
+    else:
+        layers = [_kv(cfg, (batch, capacity), dtype, device)
+                  for _ in range(cfg.n_layers)]
     return {
         "pos": torch.full((batch, capacity), -1, dtype=torch.int32, device=device),
         "cur": 0,
-        "layers": [_kv(cfg, (batch, capacity), dtype, device)
-                   for _ in range(cfg.n_layers)],
+        "layers": layers,
     }
 
 
@@ -104,6 +115,9 @@ def alloc_paged_cache(cfg: ModelConfig, batch: int, capacity: int,
     page table all-trash.  ``block_bucket`` > 0 adds all-trash ``blocks``
     arrays of that width for the page-native read."""
     dtype = dtype or torch_dtype(cfg.dtype)
+    if cfg.arch_type == "ssm":
+        raise ValueError("arch 'ssm' has no KV capacity axis to page — use "
+                         "the ring cache (its state is O(1) per row already)")
     if capacity % page_size:
         raise ValueError(f"paged capacity {capacity} must be a multiple of "
                          f"page_size {page_size}")
@@ -191,13 +205,45 @@ def merge_paged_row(cache: dict, one: dict, row: int, row_table) -> dict:
     return cache
 
 
+def _leaves(entry: dict):
+    """The tensors of a layer entry, nested dicts flattened in key order."""
+    for _, v in sorted(entry.items()):
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 def merge_cache_row(cache: dict, one: dict, row: int) -> dict:
-    """Ring slot admission: replace batch row ``row`` wholesale with the
-    single-sequence cache ``one`` (batch 1, same capacity); the shared ring
-    pointer advances to ``max(cur, one_cur)``."""
+    """Ring slot admission: replace batch row ``row`` wholesale (K/V slots,
+    positions, SSM states) with the single-sequence cache ``one`` (batch 1,
+    same capacity); the shared ring pointer advances to
+    ``max(cur, one_cur)``."""
     cache["pos"][row] = one["pos"][0]
     cache["cur"] = max(cache["cur"], one["cur"])
     for ce, oe in zip(cache["layers"], one["layers"]):
-        ce["k"][row] = oe["k"][0]
-        ce["v"][row] = oe["v"][0]
+        for c, o in zip(_leaves(ce), _leaves(oe)):
+            c[row] = o[0]
+    return cache
+
+
+def _freeze(new, old, active):
+    if isinstance(new, dict):
+        return {k: _freeze(v, old[k], active) for k, v in new.items()}
+    mask = active.reshape((-1,) + (1,) * (new.dim() - 1))
+    return torch.where(mask, new, old)
+
+
+def freeze_inactive_rows(cache: dict, old_layers: list, active) -> dict:
+    """Roll back the recurrent state of rows with ``active`` False to
+    ``old_layers`` (the layer entries before the step).
+
+    K/V are slot-addressed and masked by position, so an inactive row's
+    write is made invisible by ``pos = -1``; an SSM state is cumulative, and
+    stepping it with a PAD token would pollute the row for a later forced
+    answer.  Every entry of an SSM cache is recurrent state.  The new state
+    tensors are replaced, not written, so ``old_layers`` may hold tensors
+    the caller still reads."""
+    cache["layers"] = [_freeze(n, o, active)
+                       for n, o in zip(cache["layers"], old_layers)]
     return cache

@@ -31,6 +31,7 @@ from repro_torch.core.monitor import MonitorState, ReasoningMonitor
 from repro_torch.models.transformer import preserved_slots, write_slots
 from repro_torch.serving.cache import (
     blocks_arrays,
+    freeze_inactive_rows,
     merge_cache_row,
     merge_paged_row,
     pack_paged_cache,
@@ -92,6 +93,7 @@ class Executor:
         self.ecfg = ecfg
         self.monitor = monitor
         self.cfg = model.cfg
+        self._recurrent = model.cfg.arch_type == "ssm"
         self._step_mon = make_eat_step(model, monitor, ecfg.sampler)
         self._step_plain = make_eat_step(model, None, ecfg.sampler)
 
@@ -103,8 +105,13 @@ class Executor:
         # inactive rows still ride through the batched step, but their KV
         # write must be invisible: pos=-1 keeps it out of every later mask
         pos1d = torch.where(state.active, state.next_pos, -1)[:, None]
+        # ... and an SSM state is rolled back to the entries before the step
+        # (a commit replaces them, so these stay intact)
+        before = list(state.cache["layers"]) if self._recurrent else None
         nxt, mon, stop = step_fn(state.cache, tok, pos1d, state.monitor,
                                  state.active, state.rng)
+        if before is not None:
+            freeze_inactive_rows(state.cache, before, state.active)
         nxt = torch.where(state.active, nxt, ecfg.pad_id)
         ended = state.ended_think | (state.active & (nxt == ecfg.end_think_id))
         rows = torch.arange(nxt.shape[0], device=nxt.device)
@@ -206,13 +213,16 @@ class Executor:
     # ---------------------------------------------------------- answers
     def rollout(self, cache, next_pos, rng, *, n: int, greedy: bool = False):
         """Forced answer rollout: append </think> then generate ``n``
-        tokens.  Returns (tokens (B, n), logprobs (B, n)).  Positions and
-        ``cur`` advance on a private copy, and any live slot the rollout
-        overwrites is restored: the cache is left as it was."""
+        tokens.  Returns (tokens (B, n), logprobs (B, n)).  Positions,
+        ``cur`` and the SSM states advance on a private copy (the layer list
+        is copied; a commit replaces SSM entries, never writes them), and any
+        live slot the rollout overwrites is restored: the cache is left as it
+        was."""
         model, cfg, ecfg = self.model, self.cfg, self.ecfg
         B = next_pos.shape[0]
         local = dict(cache)
         local["pos"] = cache["pos"].clone()
+        local["layers"] = list(cache["layers"])
         slots = write_slots(cache["cur"], n + 1, cache["pos"].shape[1],
                             next_pos.device)
         scfg = dataclasses.replace(ecfg.sampler, greedy=greedy)

@@ -10,7 +10,9 @@ Tolerances: kernel and plain version both compute in float32 from the same
 inputs and differ only by summation order, so 2e-5 in float32 (the bar of
 the reference's attention kernel tests) and 3e-2 in bfloat16 (one output
 rounding at most); 1e-5 for the entropy, whose float32 output is computed
-in float32 from either input type.  TF32 is off.
+in float32 from either input type; 1e-5 of the largest output magnitude for
+the SSD scan (float32 only; y and the final state each against their own
+largest value).  TF32 is off.
 """
 import math
 
@@ -21,6 +23,7 @@ import torch
 from repro_torch.kernels.entropy_probe import ops as ep
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.paged_attention import ops as pa
+from repro_torch.kernels.ssd_scan import ops as ss
 
 pytestmark = pytest.mark.gpu
 
@@ -149,6 +152,61 @@ def test_entropy_uniform_is_log_vocab(cuda):
                                atol=1e-5, rtol=1e-5)
 
 
+SSD_CASES = [
+    # B, S, nh, hp, G, N, chunk: tests/test_ssm.py's sweep (G < nh, ragged S,
+    # chunk 4), mamba2-2.7b's head shapes over a ragged 3-chunk prompt, and
+    # the main-path prefill (B 4, S 512, 80 heads)
+    (1, 16, 2, 8, 1, 8, 8),
+    (2, 37, 4, 8, 2, 16, 16),
+    (2, 64, 8, 16, 1, 32, 32),
+    (1, 20, 6, 8, 3, 8, 4),
+    (2, 300, 4, 64, 1, 128, 128),
+    (4, 512, 80, 64, 1, 128, 128),
+]
+
+
+def _ssd_inputs(rng, case, dev, with_h0):
+    """Scan inputs shaped as ssm_forward makes them: logd = -dt * (h + 1),
+    dt in [1e-3, 1e-1], so the later heads of a wide case decay as steeply
+    as mamba2-2.7b's (exp(cs) underflows over a chunk)."""
+    B, S, nh, hp, G, N, _ = case
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), size=(B, S, nh)))
+    u = f(rng.normal(size=(B, S, nh, hp)) * 0.3)
+    logd = f(-dt * np.arange(1, nh + 1))
+    Bm = f(rng.normal(size=(B, S, G, N)) * 0.4)
+    Cm = f(rng.normal(size=(B, S, G, N)) * 0.4)
+    h0 = f(rng.normal(size=(B, nh, N, hp)) * 0.2) if with_h0 else None
+    return (u, logd, Bm, Cm), h0
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_scan_kernel_matches_plain(cuda, case, with_h0):
+    args, h0 = _ssd_inputs(np.random.default_rng(4), case, cuda, with_h0)
+    chunk = case[-1]
+    n = ss.ssd_scan_cuda.launches
+    y, h = ss.ssd_scan(*args, chunk=chunk, h0=h0)          # auto -> the kernel
+    assert ss.ssd_scan_cuda.launches == n + 1
+    yr, hr = ss.ssd_scan_plain(*args, chunk=chunk, h0=h0)
+    for out, ref in ((y, yr), (h, hr)):
+        assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+        err = (out - ref).abs().max().item()
+        assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+def test_ssd_scan_refuses_bad_inputs(cuda):
+    args, _ = _ssd_inputs(np.random.default_rng(0), SSD_CASES[0], cuda, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.ssd_scan(*(a.cpu() for a in args), chunk=8, impl="cuda")
+    with pytest.raises(TypeError):
+        ss.ssd_scan_cuda(args[0].double(), *args[1:], chunk=8)
+    with pytest.raises(ValueError):
+        ss.ssd_scan_cuda(*args, chunk=256)
+    with pytest.raises(ValueError):
+        ss.ssd_scan_cuda(*args, chunk=8, h0=torch.zeros((1, 2, 8, 4), device=cuda))
+
+
 def test_wrappers_refuse_bad_inputs(cuda):
     q = torch.zeros((1, 4, 2, 16), device=cuda)
     pos = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
@@ -199,4 +257,42 @@ def test_serve_kernels_match_plain_tokens(cuda):
             assert r["eat_trace"] == o["eat_trace"]
     for r, o in zip(runs["paged", "cuda"], runs["paged", "plain"]):
         np.testing.assert_array_equal(r["reasoning_tokens"], o["reasoning_tokens"])
+        assert r["exit_reason"] == o["exit_reason"]
+
+
+def test_ssm_serve_kernel_matches_plain_tokens(cuda):
+    """The tiny-ssm ring serve on the card, prompts left-padded past the
+    m > 16 scan switch: the scan kernel and the plain scan give the same
+    greedy tokens, exits and answers, and the kernel ran in every prefill."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.eat import make_probe
+    from repro_torch.core.monitor import ReasoningMonitor
+    from repro_torch.core.stopping import EATStopper
+    from repro_torch.data.synthetic import ChainTask
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.serving.engine import EngineConfig, ReasoningEngine
+    from repro_torch.serving.sampler import SamplerConfig
+
+    cfg = get_config("tiny-ssm")
+    model = Model(cfg, init_params(cfg, torch.Generator(cuda).manual_seed(3),
+                                   device=cuda))
+    b = ChainTask().serve_batch(np.random.default_rng(7), 6)
+    prompts = np.pad(b["prompts"], ((0, 0), (40 - b["prompts"].shape[1], 0)))
+    runs = {}
+    for impl in ("cuda", "plain"):
+        model.scan_impl = impl
+        ecfg = EngineConfig(max_reasoning_tokens=24, capacity=512, chunk_len=8,
+                            sampler=SamplerConfig(greedy=True))
+        mon = ReasoningMonitor(stopper=EATStopper(delta=1e9),
+                               probe=make_probe(1, (6,)), schedule="every_n",
+                               every_n=4, min_evals=1)
+        n = ss.ssd_scan_cuda.launches
+        runs[impl] = ReasoningEngine(model, ecfg, mon).serve(
+            prompts, b["prompt_len"], batch_size=4, answer_len=4)
+        launched = ss.ssd_scan_cuda.launches - n
+        # 2 layers per prefill: the cohort of 4, then 2 admissions of 1
+        assert launched == (6 if impl == "cuda" else 0), launched
+    for r, o in zip(runs["cuda"], runs["plain"]):
+        np.testing.assert_array_equal(r["reasoning_tokens"], o["reasoning_tokens"])
+        np.testing.assert_array_equal(r["answer_tokens"], o["answer_tokens"])
         assert r["exit_reason"] == o["exit_reason"]

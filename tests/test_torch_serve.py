@@ -166,6 +166,8 @@ def test_port_imports_neither_jax_nor_repro():
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch.launch.serve\n"
+        "import repro_torch.kernels.ssd_scan.ops, repro_torch.models.ssm\n"
+        "import repro_torch.configs.mamba2_2p7b\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
