@@ -12,20 +12,28 @@ imports nothing of JAX or of the JAX package.  Phases:
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the serving path gives it at ``eat-paper-8b`` width, in bf16 and f32,
    within the stated tolerances; then kernel, plain and (where one exists)
-   library-call times with CUDA events, and the roofline bound;
+   library-call times with CUDA events, and the roofline bound.  The
+   flash-decode kernel (``decode_attention``), which no serve path calls,
+   is driven through its op's entry point at the 8B decode shapes over a
+   ring-rotated dense cache, and its launches are counted over that phase;
 4. ``eat-paper-8b`` at full width with seeded random weights made on the
    card: kernel path vs plain path on a short input (float32 with the depth
    cut to 4 layers, then bfloat16 at the full 36), then a paged self-EAT
    serve of 8 requests through 4 slots with every launch counted, and a
    ring serve of the same workload that must give bitwise identical token
    streams;
+   then the same workload served black-box (``monitor_mode == "proxy"``):
+   once with the 8B model monitoring itself, which must give the self-EAT
+   paged serve bitwise, and once monitored by ``qwen3-1.7b`` at full width
+   and depth, with the generator's probe count 0 in both and every launch
+   attributed to its tier;
 5. ``mamba2-2.7b`` (the 8B model freed first): the SSD scan kernel against
    its plain version at the main-path prefill shapes (zero and nonzero
    initial state) with its times and bound; kernel path vs plain path of
    the model (float32 cut to 4 layers, then bfloat16 at the full 64); a ring
    self-EAT serve of 8 requests through 4 slots at full width and depth
    with the launches of its kernels counted;
-6. one JSON line per the contract: ``{"kernels": [...]}``, the card line,
+6. one JSON line per the contract: ``{"kernels": [...]}`` (five records), the card line,
    and the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits nonzero before the result lines are printed.
@@ -59,9 +67,15 @@ L2_BYTES = 50 * 2**20
 # bfloat16 against its own running max (kv tiles of another size than the
 # plain version's chunks), so each of its probabilities may differ by up to
 # 2^-7 relative: its bar adds 2^-7 * sum_k p_k |v_k| / l, the attention of
-# |v|, to the output ulp.
+# |v|, to the output ulp.  Flash-decode keeps its probabilities in float32
+# as its plain version does, but splits the keys differently: where an
+# output is near zero its float32 summation-order noise (up to 1.2e-7, the
+# float32 readings on an H100) exceeds a bfloat16 ulp of that small value,
+# so its bar adds DECODE_BF16_ATOL, about ten times that noise, to the ulp.
+DECODE_BF16_ATOL = 1e-6
 TOL = {("flash_attention", "float32"): 1e-5,
        ("paged_attention", "float32"): 1e-6,
+       ("decode_attention", "float32"): 1e-5,
        ("entropy_probe", "float32"): 1e-5,
        ("entropy_probe", "bfloat16"): 1e-5}
 # the SSD scan runs in float32 only (the model casts its inputs); kernel and
@@ -116,15 +130,19 @@ def n_sets(bytes_per_set: int) -> int:
     return max(1, min(16, math.ceil(2 * L2_BYTES / max(1, bytes_per_set))))
 
 
-def agree(torch, name: str, dn: str, out, ref, spread=None):
+def agree(torch, name: str, dn: str, out, ref, spread=None, atol=0.0):
     """(max abs error, within the bar?, the reading and its bar as text).
-    ``spread``: the attention of |v|, for the probability-rounding term."""
+    ``spread``: the attention of |v|, for the probability-rounding term;
+    ``atol``: an absolute term added to the bfloat16 ulp."""
     diff = (out.float() - ref.float()).abs()
     err = diff.max().item()
     if (name, dn) in TOL:
         return err, err <= TOL[name, dn], f"tol {TOL[name, dn]}"
     big = torch.maximum(out.float().abs(), ref.float().abs())
     bar = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    if atol:
+        r = (diff / (bar + atol)).max().item()
+        return err, r <= 1, f"{r:.3g} of the bar: 1 bf16 ulp + {atol:g}"
     if spread is None:
         return err, (diff <= bar).all().item(), \
             f"{(diff / bar).max().item():g} bf16 ulp, tol 1 ulp"
@@ -333,6 +351,124 @@ def kernel_checks(torch, F, fa, pa, ep):
         torch.cuda.empty_cache()
     check(not bad, "kernel vs plain: " + "; ".join(bad))
     return rec
+
+
+def decode_case(torch, dtype, m, seed=0, B=4, C=4096, Hq=32, Hkv=8, D=128):
+    """A dense ring cache at eat-paper-8b decode width: row b holds
+    positions 0..n_b-1 from a random ring offset with about 10% of its
+    slots empty (-1), and m query positions at its end."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, m, Hq, D), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, C, Hkv, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, C, Hkv, D), generator=g, device="cuda").to(dtype)
+    kv_pos = torch.full((B, C), -1, dtype=torch.int32, device="cuda")
+    q_pos = torch.zeros((B, m), dtype=torch.int32, device="cuda")
+    for b in range(B):
+        n = C - C // 10 - 8 * b
+        rot = int(torch.randint(C, (1,), generator=g, device="cuda"))
+        slots = (rot + torch.arange(n, device="cuda")) % C
+        kv_pos[b, slots] = torch.arange(n, dtype=torch.int32, device="cuda")
+        q_pos[b] = torch.arange(n - m, n, dtype=torch.int32, device="cuda")
+    return dict(q=q, k=k, v=v, q_pos=q_pos, kv_pos=kv_pos)
+
+
+def decode_check(torch, F, da):
+    """Phase 3, flash-decode: the op's entry point (the kernel on the card)
+    against the plain version at the 8B decode shapes (m 1, 2, 8 in bf16
+    and float32, window 0; bf16 m 1 with window 1024), then kernel, plain,
+    SDPA and bound per case.  No serve path calls it: its launches are
+    counted over this phase.  Returns (record, launches)."""
+    scale = 1.0 / math.sqrt(128)
+    cases = [(dt, m, 0) for dt in (torch.bfloat16, torch.float32)
+             for m in (1, 2, 8)] + [(torch.bfloat16, 1, 1024)]
+    bad, rec, err_bf16 = [], None, 0.0
+    da.decode_attention_cuda.launches = 0
+    outs = []
+    for dtype, m, window in cases:
+        c = decode_case(torch, dtype, m)
+        outs.append(da.decode_attention(c["q"], c["k"], c["v"], c["q_pos"],
+                                        c["kv_pos"], window=window, scale=scale))
+    launches = da.decode_attention_cuda.launches
+    check(launches == len(cases), f"decode_attention: {launches} launches "
+          f"through the op for {len(cases)} calls on the card")
+    for (dtype, m, window), out in zip(cases, outs):
+        dn = str(dtype).split(".")[-1]
+        c = decode_case(torch, dtype, m)
+        args = (c["q"], c["k"], c["v"], c["q_pos"], c["kv_pos"])
+        ref = da.decode_attention_plain(*args, window=window, scale=scale)
+        err, ok, tol = agree(torch, "decode_attention", dn, out, ref,
+                             atol=DECODE_BF16_ATOL)
+        if not (ok and bool(torch.isfinite(out).all())):
+            bad.append(f"decode_attention {dn} m={m} window={window}: max abs err "
+                       f"{err:.3e} ({tol})")
+        if dtype == torch.bfloat16:
+            err_bf16 = max(err_bf16, err)
+        B, _, Hq, D = c["q"].shape
+        C, Hkv = c["k"].shape[1:3]
+        # the bytes the data needs: K and V of every slot some query may
+        # attend, q, the output and the positions
+        qp, kp = c["q_pos"][:, :, None], c["kv_pos"][:, None, :]
+        valid = (kp >= 0) & (kp <= qp)
+        if window:
+            valid &= (qp - kp) < window
+        keys = int(valid.any(dim=1).sum())
+        per_set = (keys * Hkv * 2 * D * c["k"].element_size()
+                   + nbytes(c["q"], out, c["q_pos"], c["kv_pos"]))
+        sets = [c] + [decode_case(torch, dtype, m, seed=s)
+                      for s in range(1, n_sets(nbytes(c["k"], c["v"])))]
+        k_ms = time_ms(torch, [lambda s=s: da.decode_attention_cuda(
+            s["q"], s["k"], s["v"], s["q_pos"], s["kv_pos"], window=window,
+            scale=scale) for s in sets], iters=50)
+        p_ms = time_ms(torch, [lambda s=s: da.decode_attention_plain(
+            s["q"], s["k"], s["v"], s["q_pos"], s["kv_pos"], window=window,
+            scale=scale) for s in sets], iters=6)
+        # the library yardstick: SDPA over (B, Hq, ., D), K/V repeated per q
+        # head and the boolean mask built outside the timed call
+        g = Hq // Hkv
+        lib_sets = [(s["q"].transpose(1, 2), s["k"].transpose(1, 2).repeat_interleave(g, 1),
+                     s["v"].transpose(1, 2).repeat_interleave(g, 1), valid[:, None])
+                    for s in sets]
+        l_ms = time_ms(torch, [lambda t=t: F.scaled_dot_product_attention(
+            t[0], t[1], t[2], attn_mask=t[3], scale=scale) for t in lib_sets],
+            iters=50)
+        pairs = valid_pairs(torch, c["q_pos"], c["kv_pos"], window) * Hq
+        b_ms, b_by = bound_ms(per_set, pairs * 4 * D, dn)
+        print(f"[kernels] decode_attention {dn} B{B} m{m} Hq{Hq} Hkv{Hkv} D{D} "
+              f"C{C} window {window}: max_abs_err {err:.3e} ({tol}) kernel "
+              f"{k_ms:.4f} ms plain {p_ms:.4f} ms sdpa {l_ms:.4f} ms bound "
+              f"{b_ms:.4f} ms ({b_by}: {per_set / 1e6:.1f} MB)")
+        if (dtype, m, window) == (torch.bfloat16, 1, 0):
+            rec = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=l_ms)
+        del sets, lib_sets, c, ref
+    del outs
+    torch.cuda.empty_cache()
+    check(not bad, "; ".join(bad))
+    rec["max_abs_err"] = err_bf16
+    return rec, launches
+
+
+def tally_launches(model, kernels: dict, tally: dict) -> None:
+    """Attribute to ``tally`` every kernel launch made inside this model
+    object's forwards and probes (and count its probe calls), by wrapping
+    the instance's ``_forward`` and ``probe_entropy``."""
+    depth = [0]
+    tally.update({name: 0 for name in kernels}, probe_calls=0)
+    for attr in ("_forward", "probe_entropy"):
+        fn = getattr(model, attr)
+
+        def wrapped(*a, _fn=fn, _probe=attr == "probe_entropy", **kw):
+            tally["probe_calls"] += _probe
+            before = {name: k.launches for name, k in kernels.items()}
+            depth[0] += 1
+            out = _fn(*a, **kw)
+            depth[0] -= 1
+            if depth[0] == 0:
+                for name, k in kernels.items():
+                    tally[name] += k.launches - before[name]
+            return out
+
+        setattr(model, attr, wrapped)
 
 
 def ssd_case(torch, seed=0, B=4, S=512, nh=80, hp=64, G=1, N=128, h0=True):
@@ -594,7 +730,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="also write torch.profiler tables of one more paged "
-                         "8B serve (DIR/profile.txt) and mamba2 serve "
+                         "8B serve (DIR/profile.txt), qwen3-1.7b proxy serve "
+                         "(DIR/profile_proxy.txt) and mamba2 serve "
                          "(DIR/profile_mamba2.txt)")
     args = ap.parse_args()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -635,6 +772,9 @@ def main() -> None:
     # ---- 3. kernels vs plain at main-path shapes
     t0 = time.perf_counter()
     rec = kernel_checks(torch, F, fa, pa, ep)
+    from repro_torch.kernels.decode_attention import ops as da
+
+    rec["decode_attention"], decode_launches = decode_check(torch, F, da)
     phases["kernel_checks_s"] = time.perf_counter() - t0
 
     # ---- 4. eat-paper-8b, full width and depth, random weights on the card
@@ -726,7 +866,7 @@ def main() -> None:
     n_req, batch, budget, chunk = len(lens), 4, 64, 16
     S = prompts.shape[1]
 
-    def engine(kind: str):
+    def engine(kind: str, proxy=None):
         ecfg = EngineConfig(
             max_reasoning_tokens=budget,
             capacity=SlotScheduler.required_capacity(S, n_req, batch, budget),
@@ -735,7 +875,7 @@ def main() -> None:
         mon = ReasoningMonitor(stopper=EATStopper(alpha=0.2, delta=1e9),
                                probe=probe, schedule="every_n", every_n=8,
                                min_evals=2)
-        return ReasoningEngine(model, ecfg, mon)
+        return ReasoningEngine(model, ecfg, mon, proxy=proxy)
 
     def serve(kind: str):
         torch.cuda.synchronize()
@@ -779,9 +919,75 @@ def main() -> None:
           f"bitwise (tokens, answers, EAT traces)")
     print(f"[serve] launches during the paged serve: {json.dumps(launches)}")
 
+    # ---- 4b. the same workload served black-box: the generator decodes
+    # unmonitored and a proxy model's EAT supplies the exits
+    from repro_torch.serving.proxy import ProxyConfig
+
+    def proxy_serve(proxy_model):
+        """A paged proxy-mode serve; returns (results, wall s, launches and
+        probe calls per tier)."""
+        eng = engine("paged", proxy=ProxyConfig(model=proxy_model))
+        tiers = {"generator": {}, "proxy": {}}
+        tally_launches(eng.model, kernels, tiers["generator"])
+        tally_launches(eng.proxy_executor.model, kernels, tiers["proxy"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = eng.serve(prompts, lens, None, batch_size=batch, answer_len=4,
+                        record_trace=True)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t, tiers
+
+    def proxy_line(name, res, wall, tiers):
+        n_tok = sum(r["n_reasoning"] for r in res)
+        ex = [r["exit_reason"] for r in res]
+        print(f"[serve] proxy {name} monitoring {cfg.name}, paged: {n_req} requests "
+              f"through {batch} slots {[r['slot'] for r in res]}, exits {ex} "
+              f"({ex.count('eat')} by EAT), reasoning tokens "
+              f"{[r['n_reasoning'] for r in res]}, {wall:.3f} s, {n_tok / wall:.1f} "
+              f"reasoning tokens/s; generator probe calls "
+              f"{tiers['generator']['probe_calls']}; launches per tier {json.dumps(tiers)}")
+
+    # (i) the 8B model monitoring itself: self-EAT's serve, bitwise
+    res, phases["proxy_self_serve_s"], tiers = proxy_serve(model)
+    check(tiers["generator"]["probe_calls"] == 0 == tiers["generator"]["entropy_probe"],
+          f"same-params proxy: the generator probed: {tiers}")
+    for a, b in zip(paged_res, res):
+        check(a["n_reasoning"] == b["n_reasoning"]
+              and a["exit_reason"] == b["exit_reason"] and a["slot"] == b["slot"]
+              and np.array_equal(a["reasoning_tokens"], b["reasoning_tokens"])
+              and np.array_equal(a["answer_tokens"], b["answer_tokens"])
+              and a["eat_trace"] == b["eat_trace"],
+              f"request {a['request']}: same-params proxy serve differs from self-EAT")
+    proxy_line(f"{cfg.name} (same weights)", res, phases["proxy_self_serve_s"], tiers)
+    print("[serve] same-params proxy == self-EAT paged serve bitwise (tokens, exits, "
+          "slots, answers, EAT traces)")
+
+    # (ii) qwen3-1.7b at full width and depth (seeded random weights, bf16,
+    # tied 2048 x 151,936 table) monitoring the 8B generator
+    qcfg = get_config("qwen3-1.7b")
+    check(qcfg.vocab == cfg.vocab, "the proxy must share the generator's vocabulary")
+    qmodel = Model(qcfg, init_params(qcfg, torch.Generator(device="cuda").manual_seed(2),
+                                     device="cuda"))
+    res, phases["proxy_qwen_serve_s"], tiers = proxy_serve(qmodel)
+    ex = [r["exit_reason"] for r in res]
+    check(len(res) == n_req and all(r["status"] in ("exited", "exhausted") for r in res),
+          "qwen3-1.7b proxy: not every request finished")
+    check("eat" in ex, f"qwen3-1.7b proxy: no EAT exit: {ex}")
+    slots = [r["slot"] for r in res]
+    check(len(set(slots)) < len(slots), f"qwen3-1.7b proxy: no slot reuse: {slots}")
+    check(tiers["generator"]["probe_calls"] == 0 == tiers["generator"]["entropy_probe"],
+          f"qwen3-1.7b proxy: the generator probed: {tiers}")
+    for name in kernels:
+        check(tiers["proxy"][name] > 0, f"qwen3-1.7b proxy: {name} not launched")
+    proxy_line(qcfg.name, res, phases["proxy_qwen_serve_s"], tiers)
+
     if args.profile:
         profile_serve(torch, lambda: serve("paged"), phases["paged_serve_s"],
                       Path(args.profile) / "profile.txt", "profile")
+        profile_serve(torch, lambda: proxy_serve(qmodel)[:2],
+                      phases["proxy_qwen_serve_s"],
+                      Path(args.profile) / "profile_proxy.txt", "profile proxy")
+    del qmodel
 
     # ---- 5. mamba2-2.7b, the 8B model freed first
     del model
@@ -799,15 +1005,18 @@ def main() -> None:
     print("[phases] " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
 
     # ---- 6. result lines: launches from the path each kernel serves (the
-    # 8B paged serve; ssd_scan from the mamba2 serve)
+    # 8B paged self-EAT serve; ssd_scan from the mamba2 serve;
+    # decode_attention, which no serve path calls, from its own phase)
+    launches["decode_attention"] = decode_launches
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:78",
         "paged_attention": "src/repro/kernels/paged_attention/kernel.py:79",
         "entropy_probe": "src/repro/kernels/entropy_probe/kernel.py:72",
         "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:70",
+        "decode_attention": "src/repro/kernels/decode_attention/kernel.py:66",
     }
     out = []
-    for name in kernels:
+    for name in replaces:
         r = rec[name]
         out.append({"name": name, "route": "cuda",
                     "source": f"src/repro_torch/csrc/{name}.cu",
@@ -815,6 +1024,8 @@ def main() -> None:
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    out[-1]["launches_counted_over"] = ("its own kernel phase: no serve path "
+                                        "calls decode_attention")
     print(json.dumps({"kernels": out}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -17,6 +17,24 @@ TINY = register(
     )
 )
 
+# the black-box monitor model of the proxy-EAT serving tier (paper Fig. 5
+# at toy scale: a smaller model of the generator's tokenizer)
+TINY_PROXY = register(
+    ModelConfig(
+        name="tiny-proxy",
+        arch_type="dense",
+        n_layers=1,
+        d_model=32,
+        n_heads=2,
+        n_kv_heads=1,
+        head_dim=16,
+        d_ff=64,
+        vocab=64,                # must match the generator's tokenizer
+        qk_norm=True,
+        dtype="float32",
+    )
+)
+
 TINY_REASONER = register(
     ModelConfig(
         name="tiny-reasoner",

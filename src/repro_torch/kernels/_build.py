@@ -26,7 +26,8 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-KERNELS = ("flash_attention", "paged_attention", "entropy_probe", "ssd_scan")
+KERNELS = ("flash_attention", "paged_attention", "entropy_probe", "ssd_scan",
+           "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

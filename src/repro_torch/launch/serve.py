@@ -6,6 +6,8 @@
       --batch 2 --cache paged --attn-impl auto --budget 16   # on the CPU
   python -m repro_torch.launch.serve --arch mamba2-2.7b --cache ring \\
       --requests 8 --batch 4 --budget 64                     # Mamba2, GPU
+  python -m repro_torch.launch.serve --device cpu --arch tiny --requests 4 \\
+      --batch 2 --monitor proxy --proxy-config tiny-proxy     # black-box EAT
 
 Random weights from a fixed seed (there is no checkpoint loader in the
 port yet), so verify mechanics — token counts, exits, slot recycling — not
@@ -16,6 +18,9 @@ An SSM model (``mamba2-2.7b``, ``tiny-ssm``) has no KV cache to page and
 serves with ``--cache ring`` only.  Its prefill runs the chunked scan only
 for a prompt batch wider than 16 tokens; the task's prompts are shorter, so
 here, as in the JAX launcher, they take the recurrent step.
+``--monitor proxy`` serves black-box: a second model (``--proxy-config``,
+default a twin of ``--arch``, seeded apart) shadows the emitted stream and
+supplies the EAT exits; it must share the generator's vocabulary.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.model import Model, init_params
 from repro_torch.serving.cache import ATTN_IMPLS, CacheConfig
 from repro_torch.serving.engine import EngineConfig, ReasoningEngine
+from repro_torch.serving.proxy import ProxyConfig
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.scheduler import SlotScheduler
 
@@ -56,8 +62,20 @@ def main(argv=None):
     ap.add_argument("--num-pages", type=int, default=0,
                     help="paged backend: page-pool size (0 = auto)")
     ap.add_argument("--attn-impl", choices=list(ATTN_IMPLS), default="gather")
+    ap.add_argument("--monitor", choices=["self", "proxy"], default="self",
+                    help="EAT monitor: self (the probe inline in the decode "
+                         "chunk) or proxy (black-box: a second model shadows "
+                         "the emitted stream)")
+    ap.add_argument("--proxy-config", default=None, metavar="ARCH",
+                    help="--monitor proxy: the proxy model's architecture "
+                         "(default: --arch, a twin seeded apart)")
     args = ap.parse_args(argv)
 
+    if args.monitor == "proxy" and not args.requests:
+        ap.error("--monitor proxy serves through the scheduler: pass "
+                 "--requests N")
+    if args.monitor != "proxy" and args.proxy_config:
+        ap.error("--proxy-config only applies with --monitor proxy")
     cfg = get_config(args.arch)
     if cfg.arch_type == "ssm" and args.cache == "paged":
         ap.error(f"--arch {args.arch} is an SSM: its state has no KV capacity "
@@ -66,6 +84,16 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     model = Model(cfg, init_params(cfg, gen, device=dev))
     print("WARNING: no checkpoint — random weights")
+    proxy = None
+    if args.monitor == "proxy":
+        pcfg = get_config(args.proxy_config or args.arch)
+        if pcfg.vocab != cfg.vocab:
+            raise SystemExit(f"proxy arch {pcfg.name} must share the "
+                             f"generator's tokenizer (vocab {cfg.vocab}, got "
+                             f"{pcfg.vocab})")
+        pgen = torch.Generator(device=dev).manual_seed(1)
+        proxy = ProxyConfig(model=Model(pcfg, init_params(pcfg, pgen, device=dev)))
+        print("WARNING: no proxy checkpoint — random proxy weights")
 
     ecfg = EngineConfig(
         max_reasoning_tokens=args.budget, capacity=args.budget + 128,
@@ -90,14 +118,14 @@ def main(argv=None):
         ecfg.cache = CacheConfig(kind=args.cache, page_size=args.page_size,
                                  num_pages=args.num_pages,
                                  attn_impl=args.attn_impl)
-        engine = ReasoningEngine(model, ecfg, monitor)
+        engine = ReasoningEngine(model, ecfg, monitor, proxy=proxy)
         results = engine.serve(batch["prompts"], batch["prompt_len"], rng,
                                batch_size=args.batch, answer_len=4)
         ans = np.array([ChainTask.extract_answer(r["answer_tokens"][None])[0]
                         for r in results])
         n = np.array([r["n_reasoning"] for r in results])
         print(f"served {args.requests} requests through {args.batch} slots "
-              f"on {dev.type}")
+              f"on {dev.type} (monitor={engine.monitor_mode})")
         print(f"answers: {ans}  truth: {batch['answers']}")
         print(f"correct: {(ans == batch['answers']).mean():.2f}  "
               f"reasoning tokens: total={n.sum()} per-q={n}")

@@ -1,5 +1,5 @@
-"""Reasoning-serving facade (port of ``repro/serving/engine.py``, self-EAT
-monitor, synchronous loop).
+"""Reasoning-serving facade (port of ``repro/serving/engine.py``: the
+self-EAT and proxy monitor modes, synchronous loop).
 
 ``ReasoningEngine`` drives the three layers: ``request`` (lifecycle),
 ``scheduler`` (slots, pages) and ``executor`` (device work).  ``serve``
@@ -9,7 +9,9 @@ queued prompt is prefilled and merged into it, and decoding resumes with
 the batch still full.  With ``EngineConfig.cache.kind == "paged"`` the KV
 store is the block-paged pool and a request's pages return to the free
 list the moment it exits; the token streams, exit steps and EAT traces are
-bitwise those of the ring backend.
+bitwise those of the ring backend.  With ``proxy=ProxyConfig(...)`` a
+second model shadows the emitted stream and supplies the exits (black-box
+monitoring, ``serving/proxy.py``).
 """
 from __future__ import annotations
 
@@ -30,10 +32,20 @@ from repro_torch.serving.cache import (
     alloc_paged_template,
     page_align,
 )
-from repro_torch.serving.executor import Executor, ServeState
+from repro_torch.serving.executor import (
+    Executor,
+    ProxyExecutor,
+    ServeState,
+    prompt_positions,
+)
+from repro_torch.serving.proxy import ProxyConfig, ProxyTier
 from repro_torch.serving.request import Request
 from repro_torch.serving.sampler import SamplerConfig, sample
-from repro_torch.serving.scheduler import PageAllocator, SlotScheduler
+from repro_torch.serving.scheduler import (
+    PageAllocator,
+    SlotScheduler,
+    admit_or_defer,
+)
 
 
 @dataclasses.dataclass
@@ -53,20 +65,34 @@ def _host(x: torch.Tensor) -> np.ndarray:
     return x.cpu().numpy()
 
 
+def _view(model, ccfg: CacheConfig):
+    """The engine's own view of ``model`` with the cache's decode-attention
+    impl baked in (--attn-impl) and the ring comparator's block size pinned
+    to the paged page size (the per-impl paged == ring contract).  The
+    weights are shared, not copied."""
+    model = copy.copy(model)
+    model.paged_attn_impl = ccfg.attn_impl
+    model.paged_attn_page = ccfg.page_size
+    return model
+
+
 class ReasoningEngine:
-    """Self-EAT serving: the reasoning model is also the monitor model and
-    the probe runs inline in the decode chunk."""
+    """The serving facade, in one of two monitor modes:
+
+    * ``self`` (default): white-box; the reasoning model is also the
+      monitor model and the probe runs inline in the decode chunk.
+    * ``proxy`` (``proxy=ProxyConfig(...)``): black-box; the generator
+      decodes whole chunks with no inline probe (its model never runs
+      ``probe_entropy``), and a second model shadows the emitted chunks
+      through a ``ProxyExecutor``, supplying the exits through the
+      executor's ``retract``.  A proxy running the generator's own weights
+      reproduces self-EAT serving bit for bit under greedy sampling.
+    """
 
     def __init__(self, model, ecfg: EngineConfig,
-                 monitor: ReasoningMonitor | None = None):
-        # the decode-attention impl is a cache knob (--attn-impl): give the
-        # engine its own view of the model with it baked in, and pin the
-        # ring comparator's block size to the paged page size (the per-impl
-        # paged == ring contract).  The weights are shared, not copied.
-        ccfg = ecfg.cache
-        model = copy.copy(model)
-        model.paged_attn_impl = ccfg.attn_impl
-        model.paged_attn_page = ccfg.page_size
+                 monitor: ReasoningMonitor | None = None,
+                 proxy: ProxyConfig | None = None):
+        model = _view(model, ecfg.cache)
         self.model = model
         self.device = model.device
         self.ecfg = ecfg
@@ -76,6 +102,21 @@ class ReasoningEngine:
                                        newline_id=ecfg.newline_id)
         self.monitor = monitor
         self.executor = Executor(model, ecfg, monitor)
+        self.proxy = proxy
+        self.proxy_executor = None
+        self._ptier = None       # the last serve's tier, for its pool stats
+        if proxy is not None:
+            if model.cfg.arch_type == "ssm":
+                raise ValueError(
+                    "monitor='proxy' needs a slot-addressed generator cache "
+                    "to retract overshoot tokens; an SSM recurrence cannot "
+                    "be rewound to the proxy's exit step.")
+            self.proxy_executor = ProxyExecutor(
+                _view(proxy.model, proxy.cache or ecfg.cache), ecfg, monitor)
+
+    @property
+    def monitor_mode(self) -> str:
+        return "proxy" if self.proxy is not None else "self"
 
     # ------------------------------------------------------------- prefill
     def start(self, prompts, prompt_len, rng: torch.Generator | None = None,
@@ -86,9 +127,7 @@ class ReasoningEngine:
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=dev)
         plen = torch.as_tensor(np.asarray(prompt_len), dtype=torch.int32, device=dev)
         B, S = prompts.shape
-        pos1d = (torch.arange(S, dtype=torch.int32, device=dev)[None, :]
-                 - (S - plen)[:, None])
-        pos1d = torch.where(pos1d >= 0, pos1d, -1)
+        pos1d = prompt_positions(plen, S, dev)
         cache = alloc_cache(model.cfg, B, capacity or ecfg.capacity, device=dev)
         hidden = self.executor.prefill(prompts, pos1d, pos1d, cache)
         logits_last = model.logits(hidden[:, -1:])[:, 0]
@@ -115,6 +154,12 @@ class ReasoningEngine:
                chunk_len: int | None = None) -> ServeState:
         """Run the reasoning loop until every sequence exits.  CONSUMES
         ``state``."""
+        if use_monitor and self.proxy is not None:
+            raise ValueError(
+                "monitor='proxy' runs through serve() (the proxy tier must "
+                "prefill the prompts the scheduler admits; a bare ServeState "
+                "does not carry them); use serve(), or pass use_monitor=False "
+                "for an unmonitored reason().")
         budget = int(max_tokens or self.ecfg.max_reasoning_tokens)
         chunk = max(1, chunk_len or self.ecfg.chunk_len)
         while True:
@@ -124,11 +169,11 @@ class ReasoningEngine:
                 return state
 
     def _serve_setup(self, prompts, prompt_len, rng, *, batch_size: int,
-                     max_tokens: int | None,
-                     chunk_len: int | None) -> SimpleNamespace:
-        """Parse the request list, build the scheduler / page allocator,
-        prefill + pack the initial cohort, run the setup-time capacity
-        check."""
+                     max_tokens: int | None, chunk_len: int | None,
+                     use_monitor: bool = True) -> SimpleNamespace:
+        """Parse the request list, build the scheduler / page allocator /
+        proxy tier, prefill + pack the initial cohort, run the setup-time
+        capacity checks."""
         prompts_np = np.asarray(prompts)
         plen_np = np.asarray(prompt_len)
         n_req, S = prompts_np.shape
@@ -152,6 +197,17 @@ class ReasoningEngine:
             alloc = PageAllocator(num_pages, ps, n_blocks, B)
             C_pre = page_align(S, ps)      # prompt-sized prefill capacity
 
+        # the proxy tier: the generator chunk runs with its inline monitor
+        # OFF (the black-box contract) and the proxy shadows each chunk,
+        # feeding exits back through retract
+        proxy_mode = use_monitor and self.proxy is not None
+        ptier = self._ptier = None
+        if proxy_mode:
+            ptier = self._ptier = ProxyTier(
+                self.proxy_executor, self.ecfg, self.monitor,
+                self.proxy.cache or ccfg,
+                self.proxy.capacity or self.ecfg.capacity, budget)
+
         cohort = sched.start_batch()
         state = self.start(prompts_np[:B], plen_np[:B], rng,
                            capacity=C_pre if paged else None)
@@ -163,13 +219,21 @@ class ReasoningEngine:
                 alloc=alloc, native=ccfg.attn_impl != "gather")
             state = state._replace(cache=self.executor.pack_paged(
                 template, state.cache, alloc.table))
+        if ptier is not None:
+            ptier.start_batch(prompts_np[:B], plen_np[:B],
+                              [req.slot for req in cohort])
         for req in cohort:
             req.begin_decode()
         sched.check_capacity(int(state.cache["cur"]), "the initial batch")
+        if ptier is not None:
+            ptier.check_capacity("the initial batch")
         return SimpleNamespace(
             requests=requests, sched=sched, state=state, alloc=alloc,
             paged=paged, S=S, budget=budget, chunk=chunk, C_pre=C_pre,
-            tail=len(self.monitor.probe))
+            ptier=ptier, gen_monitor=use_monitor and not proxy_mode,
+            # the generator pays a probe tail only when IT probes; in proxy
+            # mode that tail belongs to the proxy tier's pool
+            tail=0 if proxy_mode else len(self.monitor.probe))
 
     def serve(self, prompts, prompt_len, rng: torch.Generator | None = None, *,
               batch_size: int, max_tokens: int | None = None,
@@ -185,12 +249,20 @@ class ReasoningEngine:
         ``eat_trace`` (chunk-boundary
         ``(n_reasoning, n_evals, ema_var)`` with ``record_trace``) and, when
         ``answer_len`` > 0, the greedy forced-answer ``answer_tokens``.
+
+        In proxy mode the generator chunk decodes unmonitored, the proxy
+        tier shadows the emitted tokens (its own prefills and pages in
+        lock-step with the scheduler) and ``Executor.retract`` reconciles
+        each chunk, so harvest, traces and exit reasons read as in self-EAT
+        serving.  Admissions gate on both page pools
+        (``scheduler.admit_or_defer``).
         """
         ss = self._serve_setup(prompts, prompt_len, rng, batch_size=batch_size,
-                               max_tokens=max_tokens, chunk_len=chunk_len)
+                               max_tokens=max_tokens, use_monitor=use_monitor,
+                               chunk_len=chunk_len)
         sched, state, alloc, paged = ss.sched, ss.state, ss.alloc, ss.paged
         S, budget, chunk, C_pre = ss.S, ss.budget, ss.chunk, ss.C_pre
-        tail = ss.tail
+        tail, ptier = ss.tail, ss.ptier
 
         def ensure_pages(span: int, *, clamp_to_budget: bool = False):
             return self.executor.ensure_chunk_pages(
@@ -203,8 +275,18 @@ class ReasoningEngine:
                     # a chunk writes <= chunk decode tokens (fewer near the
                     # budget), each probe another len(probe) slots past them
                     state = ensure_pages(chunk + tail, clamp_to_budget=True)
+                # host copy BEFORE the chunk: it writes out_len in place
+                n_start = _host(state.out_len) if ptier is not None else None
                 state = self.executor.decode_chunk(state, budget, chunk,
-                                                   use_monitor=use_monitor)
+                                                   use_monitor=ss.gen_monitor)
+                if ptier is not None:
+                    # shadow the chunk through the proxy, then rewind
+                    # overshoot rows to its exit step and install its monitor
+                    n_emitted = _host(state.out_len) - n_start
+                    ptier.begin_chunk(chunk, [s for s, _ in sched.bound()])
+                    new_n, pmon = ptier.observe(state.out_tokens, n_start,
+                                                n_emitted, chunk)
+                    state = self.executor.retract(state, new_n, pmon)
             active_np = _host(state.active)
             if record_trace:
                 n_np = _host(state.n_reasoning)
@@ -241,6 +323,9 @@ class ReasoningEngine:
                 )
                 if paged:
                     alloc.free_row(s)
+                if ptier is not None:
+                    # a proxy-driven exit frees BOTH pools
+                    ptier.free_row(s)
             # admission sweeps EVERY free slot: a paged admission deferred
             # earlier (pool momentarily full) left its slot empty, and the
             # pages freed just above are what let it proceed now
@@ -248,8 +333,13 @@ class ReasoningEngine:
                 if sched.pending == 0:
                     continue
                 sched.check_capacity(int(state.cache["cur"]), "another admission")
-                if paged and not alloc.can_admit(S):
-                    alloc.deferrals += 1
+                if ptier is not None:
+                    ptier.check_capacity("another admission")
+                # every pool must cover the prompt (all-or-nothing): the
+                # request stays queued until a harvest frees pages in
+                # whichever pool is short
+                if not admit_or_defer(S, alloc,
+                                      ptier.alloc if ptier is not None else None):
                     continue
                 nxt = sched.admit_next(s)
                 one = self.start(nxt.prompt[None], [nxt.prompt_len], rng,
@@ -259,14 +349,29 @@ class ReasoningEngine:
                     state = self.executor.admit_paged(state, one, s, row_table)
                 else:
                     state = self.executor.admit(state, one, s)
+                if ptier is not None:
+                    ptier.admit(s, nxt.prompt, nxt.prompt_len, S)
                 nxt.begin_decode()
-            if (sched.pending and not sched.running and paged
-                    and not alloc.can_admit(S)):
-                raise RuntimeError(
-                    f"paged KV cache cannot hold a single request: "
-                    f"{alloc.free_pages} pages free with every slot empty, "
-                    f"but a prompt needs {alloc.blocks_for(S) + 1} pages. "
-                    f"Raise CacheConfig.num_pages.")
+            if sched.pending and not sched.running:
+                # every slot is empty yet the queue cannot drain: name the
+                # pool that is too small to hold one request
+                if paged and not alloc.can_admit(S):
+                    raise RuntimeError(
+                        f"paged KV cache cannot hold a single request: "
+                        f"{alloc.free_pages} pages free with every slot empty, "
+                        f"but a prompt needs {alloc.blocks_for(S) + 1} pages. "
+                        f"Raise CacheConfig.num_pages.")
+                if ptier is not None and not ptier.can_admit(S):
+                    raise RuntimeError(
+                        f"proxy paged KV cache cannot hold a single request: "
+                        f"{ptier.alloc.free_pages} pages free with every slot "
+                        f"empty, but a prompt needs "
+                        f"{ptier.alloc.blocks_for(S) + 1} pages. "
+                        f"Raise ProxyConfig.cache.num_pages.")
+        if ptier is not None:
+            # drop the tier's device state (its cache is its largest
+            # allocation); the allocator's stats stay readable via _ptier
+            ptier.state = None
         return [r.to_result() for r in ss.requests]
 
     # ------------------------------------------------------------- answers

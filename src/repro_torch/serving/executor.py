@@ -1,5 +1,6 @@
 """Executor layer: the device work of the serving stack (port of
-``repro/serving/executor.py``, self-EAT path).
+``repro/serving/executor.py``: the self-EAT path and the proxy tier's
+shadow decode, without the overlap pipeline's programs).
 
 The reference builds one jitted program per operation and donates the
 decode state into it.  PyTorch runs eagerly, so each operation here is a
@@ -7,8 +8,8 @@ method that updates the state's cache in place, and the decode chunk is a
 Python loop over the canonical EAT step (``make_eat_step``, non-fused: a
 committed ``decode_step`` followed by a lazily gated, non-committing
 ``probe_entropy``).  A caller must treat a state it hands to a mutating
-method (``decode_chunk``, ``admit``, ``admit_paged``) as consumed and go on
-from the returned one.
+method (``decode_chunk``, ``admit``, ``admit_paged``, ``retract``,
+``observe_chunk``) as consumed and go on from the returned one.
 
   prefill        prompt -> cache fill (the cache it is given)
   decode_chunk   up to chunk_len monitored steps
@@ -17,6 +18,8 @@ from the returned one.
   admit_paged    row-merge through a page table
   pack_paged     dense prefill -> page pool
   rollout        forced answer generation; leaves the cache as it was
+  retract        proxy mode: rewind rows to the proxy's exit step
+  observe_chunk  (ProxyExecutor) shadow a generator chunk through the proxy
 """
 from __future__ import annotations
 
@@ -54,6 +57,14 @@ class ServeState(NamedTuple):
     out_len: torch.Tensor       # (B,) int64
 
 
+def prompt_positions(prompt_len, S: int, device) -> torch.Tensor:
+    """(B, S) positions of LEFT-padded prompts: 0..len-1, pad slots -1."""
+    plen = torch.as_tensor(prompt_len, dtype=torch.int32, device=device)
+    pos1d = (torch.arange(S, dtype=torch.int32, device=device)[None, :]
+             - (S - plen)[:, None])
+    return torch.where(pos1d >= 0, pos1d, -1)
+
+
 def make_eat_step(model, monitor: ReasoningMonitor | None,
                   sampler: SamplerConfig, *, window: int | None = None):
     """Build ``step(cache, token, pos1d, mon, active, rng)`` ->
@@ -72,6 +83,37 @@ def make_eat_step(model, monitor: ReasoningMonitor | None,
             mon, lambda: eval_eat(model, cache, monitor.probe, next_pos),
             nxt, active)
         return nxt, mon, mon.stop_flag
+
+    return step
+
+
+def make_shadow_step(model, monitor: ReasoningMonitor):
+    """Build the proxy-side forced-token EAT step ``step(cache, tok_in,
+    tok_out, next_pos, mon, valid)`` -> ``(mon, new_pos)``, updating the
+    cache in place.
+
+    The mirror of ``make_eat_step`` for a model that does not choose the
+    tokens: ``tok_in`` (B, 1) is the token the generator fed at this step
+    (committed into the proxy cache), ``tok_out`` (B,) the token it emitted
+    (the monitor's due-check input), ``valid`` (B,) the rows still consuming
+    the stream.  Invalid rows write at position -1 (masked) and their
+    monitor state freezes, as inactive rows do in the self-EAT step, so a
+    proxy running the generator's own weights reproduces the self-EAT EMA
+    trajectory bit for bit.  The committed forward skips the unembedding:
+    the proxy's logits at the stream token are never read."""
+    recurrent = model.cfg.arch_type == "ssm"
+
+    def step(cache, tok_in, tok_out, next_pos, mon: MonitorState, valid):
+        pos1d = torch.where(valid, next_pos, -1)[:, None]
+        before = list(cache["layers"]) if recurrent else None
+        model.prefill(tok_in, pos1d, pos1d, cache)
+        if before is not None:
+            freeze_inactive_rows(cache, before, valid)
+        new_pos = next_pos + valid.int()
+        mon = monitor.observe(
+            mon, lambda: eval_eat(model, cache, monitor.probe, new_pos),
+            tok_out, valid)
+        return mon, new_pos
 
     return step
 
@@ -210,6 +252,49 @@ class Executor:
                   if "blocks" in state.cache else None)
         return self.put_page_table(state, alloc.snapshot(), blocks)
 
+    # ---------------------------------------------------------- proxy mode
+    def retract(self, state: ServeState, new_n, pmon: MonitorState
+                ) -> ServeState:
+        """Proxy-mode chunk-boundary reconciliation: rewind every row to the
+        proxy's exit decision and install the proxy's monitor state.
+
+        The generator decodes whole chunks blind, so a row the proxy stopped
+        at emitted-token count ``new_n[b] < n_reasoning[b]`` has overshot.
+        This truncates ``out_tokens`` to ``new_n`` (pad after), rewinds
+        ``next_pos`` / ``n_reasoning`` / ``out_len``, masks the overshoot
+        K/V in place (``pos >= new next_pos`` -> -1, slot-agnostic, so ring
+        and paged caches alike), re-derives ``ended_think`` over the kept
+        tokens, clears ``active`` where the proxy stopped and takes a copy
+        of ``pmon`` as the state's monitor.  A row with no overshoot passes
+        through unchanged.  CONSUMES ``state``."""
+        ecfg = self.ecfg
+        new_n = torch.as_tensor(new_n, device=state.n_reasoning.device).to(
+            state.n_reasoning.dtype, copy=True)
+        next_pos = state.next_pos - (state.n_reasoning - new_n).to(
+            state.next_pos.dtype)
+        pos = state.cache["pos"]
+        pos.masked_fill_(pos >= next_pos[:, None], -1)
+        out = state.out_tokens
+        cols = torch.arange(out.shape[1], device=out.device)[None]
+        keep = cols < new_n[:, None]
+        last = out.gather(1, (new_n - 1)[:, None])[:, 0]
+        # the </think> latch over the KEPT tokens only: a natural end the
+        # generator hit past the proxy's stop point never happened
+        ended = (torch.where(keep, out, -1) == ecfg.end_think_id).any(-1)
+        out.masked_fill_(~keep, ecfg.pad_id)
+        return ServeState(
+            cache=state.cache,
+            rng=state.rng,
+            active=state.active & ~pmon.stop_flag,
+            next_pos=next_pos,
+            last_token=last,
+            n_reasoning=new_n,
+            monitor=_clone(pmon),
+            ended_think=ended,
+            out_tokens=out,
+            out_len=new_n.clone(),
+        )
+
     # ---------------------------------------------------------- answers
     def rollout(self, cache, next_pos, rng, *, n: int, greedy: bool = False):
         """Forced answer rollout: append </think> then generate ``n``
@@ -241,3 +326,70 @@ class Executor:
                 logit = model.decode_step(tok[:, None], p1, p1, local)[:, -1]
                 pos = pos + 1
         return torch.stack(toks, 1), torch.stack(lps, 1)
+
+
+def _clone(tree):
+    """A copy of every tensor of a (nested) NamedTuple: the generator's
+    state gets rows written in place at admission, the proxy's must not
+    see them."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return type(tree)(*(_clone(x) for x in tree))
+
+
+class ProxyExecutor(Executor):
+    """The device work of the proxy (black-box monitor) model.
+
+    The proxy tier (paper §4.2, Fig. 5) is a second model with its own KV
+    cache (ring, or paged with its own page pool) that shadows the
+    generator's emitted chunks and computes EAT from its own logits.  Its
+    decode state is a ``ServeState`` whose ``rng`` / ``last_token`` /
+    ``out_tokens`` are inert bookkeeping, so prefill, admission, packing and
+    page-table pushes are inherited from ``Executor`` unchanged; the one new
+    operation is ``observe_chunk``, the forced-input shadow decode."""
+
+    def __init__(self, model, ecfg, monitor: ReasoningMonitor):
+        super().__init__(model, ecfg, monitor)
+        self._shadow = make_shadow_step(model, monitor)
+
+    def observe_chunk(self, pstate: ServeState, gen_tokens, n_start,
+                      n_emitted, chunk_len: int) -> ServeState:
+        """Shadow one generator chunk through the proxy model.
+
+        ``gen_tokens`` (B, T) is the generator's ``out_tokens`` after the
+        chunk; ``n_start`` (B,) the per-row emitted count before it and
+        ``n_emitted`` (B,) the tokens it added (host copies).  Step ``i``
+        commits the token the generator consumed
+        (``gen_tokens[b, n_start + i - 1]``) and due-checks the one it
+        emitted (``gen_tokens[b, n_start + i]``).  A row stops consuming the
+        moment its stop latches, so the proxy cache never ingests overshoot
+        tokens.  The loop runs exactly while ``i < chunk_len`` and some row
+        is valid: each step advances the proxy cache's shared ``cur``, so an
+        extra masked step would move every later slot.  CONSUMES
+        ``pstate``."""
+        dev = pstate.active.device
+        toks = torch.as_tensor(gen_tokens, device=dev)
+        n_start = torch.as_tensor(np.asarray(n_start), device=dev).long()
+        n_emitted = torch.as_tensor(np.asarray(n_emitted), device=dev).long()
+        last_col = toks.shape[1] - 1
+        s = pstate
+        for i in range(chunk_len):
+            valid = (i < n_emitted) & ~s.monitor.stop_flag
+            if not bool(valid.any()):
+                break
+            # a valid row's columns lie inside the buffer; an invalid row's
+            # token only feeds a masked write, so its column is clamped
+            tok_in = toks.gather(1, (n_start + i - 1).clamp(0, last_col)[:, None])
+            tok_out = toks.gather(1, (n_start + i).clamp(0, last_col)[:, None])[:, 0]
+            mon, new_pos = self._shadow(s.cache, tok_in, tok_out, s.next_pos,
+                                        s.monitor, valid)
+            inc = valid.long()
+            s = s._replace(
+                monitor=mon,
+                next_pos=new_pos,
+                last_token=torch.where(valid, tok_out, s.last_token),
+                n_reasoning=s.n_reasoning + inc,
+                out_len=s.out_len + inc,
+                active=valid & ~mon.stop_flag,
+            )
+        return s

@@ -126,6 +126,18 @@ def pools_can_admit(prompt_tokens: int, *allocs) -> bool:
     return all(a.can_admit(prompt_tokens) for a in allocs if a is not None)
 
 
+def admit_or_defer(prompt_tokens: int, *allocs) -> bool:
+    """``pools_can_admit``, and on a refusal one deferral counted on each
+    pool that is short (so generator-pool and proxy-pool pressure stay
+    apart in the stats)."""
+    if pools_can_admit(prompt_tokens, *allocs):
+        return True
+    for a in allocs:
+        if a is not None and not a.can_admit(prompt_tokens):
+            a.deferrals += 1
+    return False
+
+
 class PageAllocator:
     """Free-page bookkeeping for the block-paged KV cache (pure host).
 

@@ -12,7 +12,8 @@ the reference's attention kernel tests) and 3e-2 in bfloat16 (one output
 rounding at most); 1e-5 for the entropy, whose float32 output is computed
 in float32 from either input type; 1e-5 of the largest output magnitude for
 the SSD scan (float32 only; y and the final state each against their own
-largest value).  TF32 is off.
+largest value).  The flash-decode kernel keeps its probabilities in
+float32 like its plain version: the same 2e-5 / 3e-2 bars.  TF32 is off.
 """
 import math
 
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.entropy_probe import ops as ep
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.paged_attention import ops as pa
@@ -296,3 +298,134 @@ def test_ssm_serve_kernel_matches_plain_tokens(cuda):
         np.testing.assert_array_equal(r["reasoning_tokens"], o["reasoning_tokens"])
         np.testing.assert_array_equal(r["answer_tokens"], o["answer_tokens"])
         assert r["exit_reason"] == o["exit_reason"]
+
+
+def _decode_inputs(rng, dev, dtype, *, B, m, C, Hq, Hkv, Dk, Dv, rotate):
+    """A dense cache whose rows hold positions 0..n-1 (n about 90% of C),
+    from a random ring offset when ``rotate``; the m queries at the end."""
+    q = _randn(rng, (B, m, Hq, Dk), dtype, dev)
+    k = _randn(rng, (B, C, Hkv, Dk), dtype, dev)
+    v = _randn(rng, (B, C, Hkv, Dv), dtype, dev)
+    kv_pos = np.full((B, C), -1, np.int32)
+    q_pos = np.zeros((B, m), np.int32)
+    for b in range(B):
+        n = C - C // 10 - b
+        off = int(rng.integers(C)) if rotate else 0
+        kv_pos[b, (off + np.arange(n)) % C] = np.arange(n)
+        q_pos[b] = np.arange(n - m, n)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return q, k, v, t(q_pos), t(kv_pos)
+
+
+@pytest.mark.parametrize("case", [
+    # B, m, C, Hq, Hkv, Dk, Dv, window, rotate: the reference's decode sweep
+    # shapes (tests/test_kernels_attention.py), then eat-paper-8b's decode
+    # and probe widths over a ring-rotated 4096-slot cache
+    (2, 1, 70, 8, 2, 64, 32, 0, False),
+    (2, 2, 70, 8, 2, 64, 32, 16, False),
+    (2, 5, 70, 8, 2, 64, 32, 0, True),
+    (2, 5, 70, 8, 2, 64, 32, 16, True),
+    (4, 1, 4096, 32, 8, 128, 128, 0, True),
+    (4, 2, 4096, 32, 8, 128, 128, 0, True),
+    (4, 8, 4096, 32, 8, 128, 128, 0, True),
+    (4, 1, 4096, 32, 8, 128, 128, 1024, True),
+    (1, 8, 1000, 64, 8, 96, 64, 0, True),         # 64 rows, Dv != Dk
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernel_matches_plain(cuda, case, dtype):
+    B, m, C, Hq, Hkv, Dk, Dv, window, rotate = case
+    args = _decode_inputs(np.random.default_rng(5), cuda, dtype, B=B, m=m, C=C,
+                          Hq=Hq, Hkv=Hkv, Dk=Dk, Dv=Dv, rotate=rotate)
+    n = da.decode_attention_cuda.launches
+    out = da.decode_attention(*args, window=window)           # auto -> kernel
+    assert da.decode_attention_cuda.launches == n + 1
+    ref = da.decode_attention_plain(*args, window=window, scale=1.0 / math.sqrt(Dk))
+    assert out.dtype == dtype and bool(torch.isfinite(out).all())
+    tol = _tol(dtype)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_decode_kernel_empty_rows_and_splits(cuda):
+    """A row with no valid key gives exactly 0; a narrow window leaves most
+    splits of a long cache without a valid key, each an identity in the
+    merge."""
+    q, k, v, qp, kp = _decode_inputs(np.random.default_rng(6), cuda, torch.float32,
+                                     B=3, m=2, C=4096, Hq=8, Hkv=2, Dk=64, Dv=64,
+                                     rotate=True)
+    kp[0] = -1
+    out = da.decode_attention_cuda(q, k, v, qp, kp, window=40, scale=0.125)
+    ref = da.decode_attention_plain(q, k, v, qp, kp, window=40, scale=0.125)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+def test_decode_wrapper_refuses_bad_inputs(cuda):
+    def inputs(m=1, Hq=4, Hkv=2, D=64, dtype=torch.float32):
+        return _decode_inputs(np.random.default_rng(0), cuda, dtype, B=1, m=m,
+                              C=32, Hq=Hq, Hkv=Hkv, Dk=D, Dv=D, rotate=False)
+
+    kw = dict(scale=0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        da.decode_attention(*(a.cpu() for a in inputs()), impl="cuda")
+    with pytest.raises(TypeError):
+        da.decode_attention_cuda(*inputs(dtype=torch.float16), **kw)
+    with pytest.raises(ValueError):                        # head dim above 128
+        da.decode_attention_cuda(*inputs(D=256), **kw)
+    with pytest.raises(ValueError):                        # 9 * 8 = 72 rows
+        da.decode_attention_cuda(*inputs(m=9, Hq=16, Hkv=2), **kw)
+    with pytest.raises(ValueError):                        # Hq % Hkv
+        da.decode_attention_cuda(*inputs(Hq=6, Hkv=4), **kw)
+    q, k, v, qp, kp = inputs()
+    with pytest.raises(ValueError):                        # a strided cache
+        da.decode_attention_cuda(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                                 v, qp, kp, **kw)
+
+
+def test_proxy_serve_kernels_match_plain_tokens(cuda):
+    """The tiny generator monitored by tiny-proxy on the card, paged: the
+    kernel path and the plain path give the same greedy tokens, exits and
+    answers, the proxy stops some request, and the generator never
+    probes."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.eat import make_probe
+    from repro_torch.core.monitor import ReasoningMonitor
+    from repro_torch.core.stopping import EATStopper
+    from repro_torch.data.synthetic import ChainTask
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.serving.cache import CacheConfig
+    from repro_torch.serving.engine import EngineConfig, ReasoningEngine
+    from repro_torch.serving.proxy import ProxyConfig
+    from repro_torch.serving.sampler import SamplerConfig
+
+    def build(arch, seed):
+        cfg = get_config(arch)
+        return Model(cfg, init_params(cfg, torch.Generator(cuda).manual_seed(seed),
+                                      device=cuda))
+
+    model, proxy = build("tiny", 3), build("tiny-proxy", 4)
+    b = ChainTask().serve_batch(np.random.default_rng(7), 6)
+    runs = {}
+    for impl in ("cuda", "plain"):
+        model.attn_impl = proxy.attn_impl = impl
+        ecfg = EngineConfig(max_reasoning_tokens=24, capacity=256, chunk_len=8,
+                            sampler=SamplerConfig(greedy=True),
+                            cache=CacheConfig(kind="paged", attn_impl=impl))
+        mon = ReasoningMonitor(stopper=EATStopper(delta=1e9), probe=make_probe(1, (6,)),
+                               schedule="every_n", every_n=4, min_evals=1)
+        eng = ReasoningEngine(model, ecfg, mon, proxy=ProxyConfig(model=proxy))
+        probes = []
+        fn = eng.model.probe_entropy
+
+        def counted(*a, _fn=fn, _probes=probes, **kw):
+            _probes.append(1)
+            return _fn(*a, **kw)
+
+        eng.model.probe_entropy = counted
+        runs[impl] = eng.serve(b["prompts"], b["prompt_len"], batch_size=4,
+                               answer_len=4)
+        assert not probes
+    for r, o in zip(runs["cuda"], runs["plain"]):
+        np.testing.assert_array_equal(r["reasoning_tokens"], o["reasoning_tokens"])
+        np.testing.assert_array_equal(r["answer_tokens"], o["answer_tokens"])
+        assert r["exit_reason"] == o["exit_reason"]
+    assert "eat" in [r["exit_reason"] for r in runs["cuda"]]

@@ -168,6 +168,7 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.launch.serve\n"
         "import repro_torch.kernels.ssd_scan.ops, repro_torch.models.ssm\n"
         "import repro_torch.configs.mamba2_2p7b\n"
+        "import repro_torch.serving.proxy, repro_torch.kernels.decode_attention.ops\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
