@@ -12,21 +12,26 @@ imports nothing of JAX or of the JAX package.  Phases:
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the serving path gives it at ``eat-paper-8b`` width, in bf16 and f32,
    within the stated tolerances; then kernel, plain and (where one exists)
-   library-call times with CUDA events, and the roofline bound.  The
+   library-call times with CUDA events, and the roofline bound.  Flash
+   prints the variant it launched (``ops.flash_variant``: the bf16
+   tensor-core kernel, or the scalar kernel for float32) and the ptxas
+   registers and spills of every flash instantiation.  The
    flash-decode kernel (``decode_attention``), which no serve path calls,
    is driven through its op's entry point at the 8B decode shapes over a
    ring-rotated dense cache, and its launches are counted over that phase;
 4. ``eat-paper-8b`` at full width with seeded random weights made on the
    card: kernel path vs plain path on a short input (float32 with the depth
    cut to 4 layers, then bfloat16 at the full 36), then a paged self-EAT
-   serve of 8 requests through 4 slots with every launch counted, and a
+   serve of 8 requests through 4 slots with every launch counted (every
+   flash launch the tensor-core kernel: 36 per prefill, none scalar), and a
    ring serve of the same workload that must give bitwise identical token
    streams;
    then the same workload served black-box (``monitor_mode == "proxy"``):
    once with the 8B model monitoring itself, which must give the self-EAT
    paged serve bitwise, and once monitored by ``qwen3-1.7b`` at full width
    and depth, with the generator's probe count 0 in both and every launch
-   attributed to its tier;
+   attributed to its tier (flash: 36 per 8B prefill and 28 per
+   ``qwen3-1.7b`` prefill, all of them the tensor-core kernel);
 5. ``mamba2-2.7b`` (the 8B model freed first): the SSD scan kernel against
    its plain version at the main-path prefill shapes (zero and nonzero
    initial state) with its times and bound; kernel path vs plain path of
@@ -45,6 +50,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -161,6 +167,37 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def ptxas_report(log: str, kernel: str) -> list[str]:
+    """``nvcc -Xptxas=-v`` lines of each instantiation of ``kernel`` in a
+    build log, as "name<template args>: N registers, S bytes spill stores,
+    L bytes spill loads"."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            name = None
+            if re.search(rf"\d{kernel}I", mangled):
+                args = re.findall(r"Li(\d+)E", mangled) or (
+                    ["bf16"] if "bfloat16" in mangled else ["float"])
+                name = f"{kernel}<{','.join(args)}>"
+                out.append([name, "", ""])
+        elif name and "registers" in line:
+            out[-1][1] = re.search(r"Used (\d+) registers", line).group(1) + " registers"
+        elif name and "spill" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[-1][2] = f"{st} B spill stores, {ld} B spill loads"
+    return [f"{n}: {r}, {sp}" for n, r, sp in out]
+
+
+def reset_counts(kernels: dict) -> None:
+    """Every launch count to 0 (the flash kernel's per-variant counts too)."""
+    for fn in kernels.values():
+        fn.launches = 0
+        if hasattr(fn, "variant_launches"):
+            fn.variant_launches.update({v: 0 for v in fn.variant_launches})
+
+
 # --------------------------------------------------------------- phase 3 cases
 
 
@@ -225,9 +262,11 @@ def valid_pairs(torch, q_pos, kv_pos, window=0):
     return int(valid.sum())
 
 
-def kernel_checks(torch, F, fa, pa, ep):
+def kernel_checks(torch, F, fa, pa, ep, flash_ptxas):
     """Phase 3.  Returns {kernel name: record} for the bf16 main-path case
-    and prints every comparison; fails after all of them if any disagreed."""
+    and prints every comparison; fails after all of them if any disagreed.
+    ``flash_ptxas``: the ptxas lines of the flash kernels, printed with the
+    flash lines."""
     rec, bad = {}, []
     scale = 1.0 / math.sqrt(128)
 
@@ -241,7 +280,12 @@ def kernel_checks(torch, F, fa, pa, ep):
         # ---------------- flash attention (prefill)
         c = flash_case(torch, dtype)
         args = (c["q"], c["k"], c["v"], c["q_pos"], c["kv_pos"])
+        variant = fa.flash_variant(dtype, 128, 128)
+        before = dict(fa.flash_attention_cuda.variant_launches)
         out = fa.flash_attention_cuda(*args, scale=scale)
+        after = fa.flash_attention_cuda.variant_launches
+        held({x: after[x] - before[x] for x in after} == {x: int(x == variant) for x in after},
+             f"flash_attention {dn}: launched {after} (before {before}), not one {variant}")
         ref = fa.attention_plain(*args, scale=scale)
         spread = (fa.attention_plain(c["q"], c["k"], c["v"].abs(), c["q_pos"],
                                      c["kv_pos"], scale=scale)
@@ -266,12 +310,15 @@ def kernel_checks(torch, F, fa, pa, ep):
             t[0], t[1], t[2], attn_mask=mask, scale=scale) for t in lib_sets])
         pairs = valid_pairs(torch, c["q_pos"], c["kv_pos"]) * Hq
         b_ms, b_by = bound_ms(per_set, pairs * 4 * D, dn)
-        print(f"[kernels] flash_attention {dn} B{B} S{S} Hq{Hq} Hkv8 D{D}: "
-              f"max_abs_err {err:.3e} ({tol}) kernel {k_ms:.4f} ms "
+        print(f"[kernels] flash_attention {dn} B{B} S{S} Hq{Hq} Hkv8 D{D} variant "
+              f"{variant}: max_abs_err {err:.3e} ({tol}) kernel {k_ms:.4f} ms "
               f"plain {p_ms:.4f} ms sdpa {l_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
         if dtype == torch.bfloat16:
+            for line in flash_ptxas:
+                print(f"[kernels] flash_attention ptxas {line}")
             rec["flash_attention"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                                          bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+                                          bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+                                          variant=variant)
         del sets, lib_sets
 
         # ---------------- paged decode attention (decode m=1, probe m=2)
@@ -570,6 +617,15 @@ def profile_serve(torch, serve, unprofiled_s: float, path: Path, tag: str) -> No
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(table)
     print(f"[{tag}] " + f"\n[{tag}] ".join(table.splitlines()[:25]))
+    # the port's own kernels (csrc/*.cu, in an unnamed namespace), whatever
+    # their rank in the table
+    ours = "(anonymous namespace)::"
+    for e in events:
+        name = e.key.removeprefix("void ")
+        if (e.device_type == DeviceType.CUDA and name.startswith(ours)
+                and "at::" not in name):
+            print(f"[{tag}] kernel {name[len(ours):].split('(')[0]}: "
+                  f"{e.self_device_time_total / 1e3:.3f} ms device, {e.count} calls")
     print(f"[{tag}] device busy {busy_ms:.1f} ms: {busy_ms / 1e3 / wall:.1%} of "
           f"the profiled serve ({wall:.3f} s), {busy_ms / 1e3 / unprofiled_s:.1%} "
           f"of the unprofiled one ({unprofiled_s:.3f} s)")
@@ -697,8 +753,7 @@ def mamba_phase(torch, np, kernels, phases, profile_dir=None) -> dict:
         return res, time.perf_counter() - t
 
     serve()                                         # warm-up
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_counts(kernels)
     res, phases["mamba_serve_s"] = serve()
     launches = {name: fn.launches for name, fn in kernels.items()}
     check(len(res) == n_req and all(r["status"] in ("exited", "exhausted") for r in res),
@@ -771,7 +826,10 @@ def main() -> None:
 
     # ---- 3. kernels vs plain at main-path shapes
     t0 = time.perf_counter()
-    rec = kernel_checks(torch, F, fa, pa, ep)
+    flash_ptxas = [line for kernel in ("flash_mma_kernel", "flash_kernel")
+                   for line in ptxas_report(_build.BUILD_LOG.get("flash_attention", ""),
+                                            kernel)]
+    rec = kernel_checks(torch, F, fa, pa, ep, flash_ptxas)
     from repro_torch.kernels.decode_attention import ops as da
 
     rec["decode_attention"], decode_launches = decode_check(torch, F, da)
@@ -889,10 +947,10 @@ def main() -> None:
                "paged_attention": pa.paged_attention_cuda,
                "entropy_probe": ep.entropy_probe_cuda}
     serve("paged")                                  # warm-up
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_counts(kernels)
     paged_res, phases["paged_serve_s"] = serve("paged")
     launches = {name: fn.launches for name, fn in kernels.items()}
+    flash_variants = dict(fa.flash_attention_cuda.variant_launches)
     ring_res, phases["ring_serve_s"] = serve("ring")
 
     check(len(paged_res) == n_req and all(r["status"] in ("exited", "exhausted")
@@ -904,6 +962,16 @@ def main() -> None:
     check(len(set(slots)) < len(slots), f"no slot served two requests: {slots}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched during the serve")
+    prefills = 1 + n_req - batch                    # the cohort, then admissions
+
+    def check_flash_variants(what, counts, per_prefill):
+        """Every flash launch of a bf16 serve is the tensor-core kernel:
+        one per layer per prefill of each model, none scalar."""
+        want = {"mma": per_prefill * prefills, "scalar": 0}
+        check(counts == want, f"{what}: flash launches per variant {counts}, "
+              f"expected {want} ({per_prefill} per prefill x {prefills} prefills)")
+
+    check_flash_variants("paged serve", flash_variants, cfg.n_layers)
     for a, b in zip(paged_res, ring_res):
         check(a["n_reasoning"] == b["n_reasoning"]
               and a["exit_reason"] == b["exit_reason"]
@@ -917,7 +985,9 @@ def main() -> None:
           f"{phases['paged_serve_s']:.3f} s, {n_tok / phases['paged_serve_s']:.1f} "
           f"reasoning tokens/s; ring {phases['ring_serve_s']:.3f} s; paged == ring "
           f"bitwise (tokens, answers, EAT traces)")
-    print(f"[serve] launches during the paged serve: {json.dumps(launches)}")
+    print(f"[serve] launches during the paged serve: {json.dumps(launches)}; flash "
+          f"per variant {json.dumps(flash_variants)} ({cfg.n_layers} mma per prefill "
+          f"x {prefills})")
 
     # ---- 4b. the same workload served black-box: the generator decodes
     # unmonitored and a proxy model's EAT supplies the exits
@@ -930,12 +1000,21 @@ def main() -> None:
         tiers = {"generator": {}, "proxy": {}}
         tally_launches(eng.model, kernels, tiers["generator"])
         tally_launches(eng.proxy_executor.model, kernels, tiers["proxy"])
+        reset_counts(kernels)
         torch.cuda.synchronize()
         t = time.perf_counter()
         res = eng.serve(prompts, lens, None, batch_size=batch, answer_len=4,
                         record_trace=True)
         torch.cuda.synchronize()
+        tiers["flash_per_variant"] = dict(fa.flash_attention_cuda.variant_launches)
         return res, time.perf_counter() - t, tiers
+
+    def check_proxy_flash(what, tiers, proxy_layers):
+        check(tiers["generator"]["flash_attention"] == cfg.n_layers * prefills
+              and tiers["proxy"]["flash_attention"] == proxy_layers * prefills,
+              f"{what}: flash launches per tier {tiers}")
+        check_flash_variants(what, tiers["flash_per_variant"],
+                             cfg.n_layers + proxy_layers)
 
     def proxy_line(name, res, wall, tiers):
         n_tok = sum(r["n_reasoning"] for r in res)
@@ -958,6 +1037,7 @@ def main() -> None:
               and np.array_equal(a["answer_tokens"], b["answer_tokens"])
               and a["eat_trace"] == b["eat_trace"],
               f"request {a['request']}: same-params proxy serve differs from self-EAT")
+    check_proxy_flash("same-params proxy", tiers, cfg.n_layers)
     proxy_line(f"{cfg.name} (same weights)", res, phases["proxy_self_serve_s"], tiers)
     print("[serve] same-params proxy == self-EAT paged serve bitwise (tokens, exits, "
           "slots, answers, EAT traces)")
@@ -979,6 +1059,7 @@ def main() -> None:
           f"qwen3-1.7b proxy: the generator probed: {tiers}")
     for name in kernels:
         check(tiers["proxy"][name] > 0, f"qwen3-1.7b proxy: {name} not launched")
+    check_proxy_flash("qwen3-1.7b proxy", tiers, qcfg.n_layers)
     proxy_line(qcfg.name, res, phases["proxy_qwen_serve_s"], tiers)
 
     if args.profile:
@@ -1024,6 +1105,8 @@ def main() -> None:
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if "variant" in r:
+            out[-1]["variant"] = r["variant"]
     out[-1]["launches_counted_over"] = ("its own kernel phase: no serve path "
                                         "calls decode_attention")
     print(json.dumps({"kernels": out}))

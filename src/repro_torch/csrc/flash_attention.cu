@@ -7,20 +7,48 @@
 // and (window > 0) less than `window` positions behind it.  q head h reads
 // kv head h / g.  Dv may differ from Dk.  Rows with no valid key give 0.
 //
-// One block per (query tile of BQ rows, q head, batch row) walks the kv
-// axis in tiles of BKV keys held in shared memory, with a float32 online
-// softmax (running max, sum, weighted-V accumulator) per query row, so the
-// (Sq, Skv) score matrix never reaches device memory.  A kv tile in which
-// no (query, key) pair of the block is valid -- the upper triangle of a
-// causal prefill -- is skipped before its K/V are loaded: a fully masked
-// tile is an exact identity step on the softmax state.
+// Two kernels, chosen by the wrapper's rule (ops.flash_variant):
 //
-// What bounds it on the H100: operations.  A causal prefill does about
-// 2 * B * Hq * S^2 * D FLOPs over 4 * B * S * (Hq + 2 Hkv) * D bytes of
-// q/k/v/out -- hundreds of FLOPs per byte at S = 512, so it is the tensor
-// cores' 989 bf16 TFLOP/s that bound it.  This first kernel computes with
-// scalar float32 FMAs from shared memory (67 TFLOP/s of float32 at best);
-// moving the two products onto wgmma is the next step for this kernel.
+// * flash_mma_kernel: bfloat16 at the head dims instantiated below, on the
+//   tensor cores (mma.sync.m16n8k16, bf16 in, float32 accumulate).  One
+//   block of 4 warps per (64-query tile, q head, batch row); q tiles run
+//   longest-first.  Each warp holds its 16 query rows of q as register
+//   A-fragments.  K/V tiles of 64 keys are double-buffered in shared memory
+//   by 16-byte cp.async copies (rows padded by 16 bytes, so ldmatrix reads
+//   without bank conflicts) while the previous tile is computed.  S = Q K^T
+//   stays in registers; the online softmax runs there (row statistics
+//   across the 4 threads of a quad), and P is re-packed from the S
+//   accumulators into the A-fragments of P V (the C layout of m16n8 is the
+//   A layout of m16n8k16), with V fragments from ldmatrix.trans.
+// * flash_kernel: the first, scalar kernel: float32 FMAs from shared
+//   memory.  It serves float32 (the tensor cores would compute in TF32,
+//   about 3 decimal digits, short of the 1e-5 float32 bar) and bf16 head
+//   dims outside the instantiated set.
+//
+// Both round where the plain version rounds: q times the bf16-rounded
+// scale, rounded to the storage type; float32 scores, masked to -1e30
+// before the row max; p = exp(s - m) in float32 (exactly 0 where masked),
+// summed unrounded into l; p rounded to the storage type for P V; float32
+// acc rescaled by exp(m_prev - m_new); acc / l rounded, 0 where l == 0.
+//
+// Bitwise independence of trailing masked key slots (paged == ring serves
+// rest on it): kv tiles are aligned at key 0, and a tile in which no pair
+// of the block is valid is an exact identity step (p = 0, alpha = 1), so
+// skipping it, or visiting it, leaves the state unchanged bit for bit.
+// Each kernel skips the tiles it can prove empty before loading them (the
+// upper triangle of a causal prefill); the mma kernel lists its tiles once
+// before the loop, from the block's smallest and largest query position,
+// so its copies can run one tile ahead.
+//
+// What bounds it on the H100, at the main path's prefill (B 4, S 512, Hq
+// 32, Hkv 8, D 128, left-padded): bytes.  The valid causal pairs are 357k
+// per head; 357k x 32 heads x 4 x 128 = 5.85 GFLOP, 0.0059 ms at 989 bf16
+// TFLOP/s, against 41.9 MB of q/k/v/positions/out, 0.0125 ms at 3.35 TB/s.
+// mma.sync at half the tensor cores' peak is under the byte bound, so the
+// mma kernel is built to keep the copies in flight (cp.async one tile
+// ahead, two blocks per SM) rather than on wgmma/TMA.
+
+#include <climits>
 
 #include "common.cuh"
 
@@ -166,7 +194,400 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ mma
+// The bf16 tensor-core kernel.  Fragment layouts are those of PTX's
+// m16n8k16 (g = lane / 4, t = lane % 4): A holds rows g and g + 8 at
+// columns 2t, 2t + 1 and 2t + 8, 2t + 9; B holds column g at rows 2t, 2t + 1
+// and 2t + 8, 2t + 9; C holds rows g and g + 8 at columns 2t, 2t + 1.
+
+constexpr int MMA_THREADS = 128;  // 4 warps x 16 query rows
+constexpr int MMA_BQ = 64;
+constexpr int MMA_BKV = 64;
+constexpr int PAD = 8;            // bf16 of padding per shared row: 16 bytes
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes zeros (a key past Skv)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a * b over one m16n8k16 tile, float32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two float32 values rounded to bf16 in one register, lo in the low half
+// (the lower column of a fragment pair)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int DK, int DV>
+struct MmaSmem {
+  static constexpr int QLD = (DK > DV ? DK : DV) + PAD;  // q tile, then output
+  static constexpr int KLD = DK + PAD;
+  static constexpr int VLD = DV + PAD;
+  static constexpr size_t Q_BYTES = (size_t)MMA_BQ * QLD * 2;
+  static constexpr size_t K_BYTES = (size_t)MMA_BKV * KLD * 2;  // per buffer
+  static constexpr size_t V_BYTES = (size_t)MMA_BKV * VLD * 2;
+  // q | K[2] | V[2] | key positions [2][64] | qmin, qmax x 2, count | tiles
+  static size_t bytes(int n_tiles) {
+    return Q_BYTES + 2 * K_BYTES + 2 * V_BYTES +
+           (2 * MMA_BKV + 5 + (size_t)n_tiles) * sizeof(int);
+  }
+};
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(MMA_THREADS) flash_mma_kernel(
+    const __nv_bfloat16* __restrict__ q,  // (B, Sq, Hq, DK)
+    const __nv_bfloat16* __restrict__ k,  // (B, Skv, Hkv, DK)
+    const __nv_bfloat16* __restrict__ v,  // (B, Skv, Hkv, DV)
+    const int* __restrict__ q_pos,        // (B, Sq)
+    const int* __restrict__ kv_pos,       // (B, Skv)
+    __nv_bfloat16* __restrict__ out,      // (B, Sq, Hq, DV)
+    int Sq, int Skv, int Hq, int Hkv, int causal, int window, float scale) {
+  static_assert(DK % 16 == 0 && DV % 16 == 0 && DK <= 128 && DV <= 128,
+                "head dims are multiples of 16 up to 128");
+  using L = MmaSmem<DK, DV>;
+  constexpr int KS = DK / 16;        // k-steps of S = Q K^T
+  constexpr int NS = MMA_BKV / 8;    // n8 tiles of S
+  constexpr int NO = DV / 8;         // n8 tiles of the output
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * MMA_BQ;  // longest rows first
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_tiles = (Skv + MMA_BKV - 1) / MMA_BKV;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::Q_BYTES);
+  __nv_bfloat16* vs =
+      reinterpret_cast<__nv_bfloat16*>(smem_raw + L::Q_BYTES + 2 * L::K_BYTES);
+  int* kp_s = reinterpret_cast<int*>(smem_raw + L::Q_BYTES + 2 * L::K_BYTES +
+                                     2 * L::V_BYTES);  // [2][MMA_BKV]
+  int* red = kp_s + 2 * MMA_BKV;  // qmin, qmax of warps 0 and 1, tile count
+  int* tiles = red + 5;           // [n_tiles]
+
+  // ---- the raw q tile, in flight while the block lists its kv tiles
+  // (rows past Sq are zero)
+  for (int c = tid; c < MMA_BQ * DK / 8; c += MMA_THREADS) {
+    const int r = c / (DK / 8), d = (c % (DK / 8)) * 8, qi = q0 + r;
+    cp_async16(smem_u32(qs + r * L::QLD + d),
+               q + (((size_t)b * Sq + min(qi, Sq - 1)) * Hq + h) * DK + d,
+               qi < Sq ? 16 : 0);
+  }
+  cp_async_commit();
+
+  // ---- the block's smallest and largest query position (rows below Sq)
+  {
+    int lo = INT_MAX, hi = INT_MIN;
+    if (tid < MMA_BQ && q0 + tid < Sq) lo = hi = q_pos[(size_t)b * Sq + q0 + tid];
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    if (lane == 0 && warp < MMA_BQ / 32) {
+      red[2 * warp] = lo;
+      red[2 * warp + 1] = hi;
+    }
+  }
+  for (int i = tid; i < n_tiles; i += MMA_THREADS) tiles[i] = 0;
+  __syncthreads();
+
+  // ---- the kv tiles this block visits: those holding a key that some
+  // query of the block may attend, by the block's smallest and largest
+  // position (conservative: a visited tile without a valid pair is an
+  // exact identity step)
+  {
+    const int qmin = min(red[0], red[2]), qmax = max(red[1], red[3]);
+    for (int i = tid; i < Skv; i += MMA_THREADS) {
+      const int kp = kv_pos[(size_t)b * Skv + i];
+      if (kp >= 0 && (!causal || kp <= qmax) && (window == 0 || qmin - kp < window))
+        tiles[i / MMA_BKV] = 1;
+    }
+  }
+  cp_async_wait<0>();  // the q tile
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int i = 0; i < n_tiles; ++i)
+      if (tiles[i]) tiles[n++] = i;
+    red[4] = n;
+  }
+  __syncthreads();
+  const int n_visit = red[4];
+
+  // ---- q A-fragments, each warp its 16 rows at every k-step: q times the
+  // bf16-rounded scale, rounded to bf16, as the plain version does
+  uint32_t qa[KS][4];
+  {
+    const float scale_t = round_t<__nv_bfloat16>(scale);
+    const int r = warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+    const int d = (lane >> 4) * 8;
+#pragma unroll
+    for (int st = 0; st < KS; ++st) {
+      ldmatrix_x4(qa[st], smem_u32(qs + r * L::QLD + st * 16 + d));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // a bf16 is the top half of its float32
+        const uint32_t x = qa[st][j];
+        qa[st][j] = pack_bf16(__uint_as_float(x << 16) * scale_t,
+                              __uint_as_float(x & 0xffff0000u) * scale_t);
+      }
+    }
+  }
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  int qp[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    qp[i] = row0 + 8 * i < Sq ? q_pos[(size_t)b * Sq + row0 + 8 * i] : -1;
+  const bool active = q0 + warp * 16 < Sq;  // the warp has a row below Sq
+
+  // one kv tile into buffer `buf`: K, V and the key positions (keys past
+  // Skv are zero with position -1)
+  auto issue = [&](int tile, int buf) {
+    const int k0 = tile * MMA_BKV;
+    const uint32_t kdst = smem_u32(ks + buf * (L::K_BYTES / 2));
+    const uint32_t vdst = smem_u32(vs + buf * (L::V_BYTES / 2));
+#pragma unroll
+    for (int c = tid; c < MMA_BKV * DK / 8; c += MMA_THREADS) {
+      const int r = c / (DK / 8), d = (c % (DK / 8)) * 8, ki = k0 + r;
+      const __nv_bfloat16* src =
+          k + (((size_t)b * Skv + min(ki, Skv - 1)) * Hkv + hk) * DK + d;
+      cp_async16(kdst + (r * L::KLD + d) * 2, src, ki < Skv ? 16 : 0);
+    }
+#pragma unroll
+    for (int c = tid; c < MMA_BKV * DV / 8; c += MMA_THREADS) {
+      const int r = c / (DV / 8), d = (c % (DV / 8)) * 8, ki = k0 + r;
+      const __nv_bfloat16* src =
+          v + (((size_t)b * Skv + min(ki, Skv - 1)) * Hkv + hk) * DV + d;
+      cp_async16(vdst + (r * L::VLD + d) * 2, src, ki < Skv ? 16 : 0);
+    }
+    if (tid < MMA_BKV) {
+      int* dst = kp_s + buf * MMA_BKV + tid;
+      if (k0 + tid < Skv)
+        cp_async4(smem_u32(dst), kv_pos + (size_t)b * Skv + k0 + tid);
+      else
+        *dst = -1;
+    }
+    cp_async_commit();
+  };
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+
+  if (n_visit > 0) issue(tiles[0], 0);
+  for (int it = 0; it < n_visit; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_visit) {  // the next tile's copies overlap this tile
+      issue(tiles[it + 1], buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    if (active) {
+      const __nv_bfloat16* kb = ks + buf * (L::K_BYTES / 2);
+      const __nv_bfloat16* vb = vs + buf * (L::V_BYTES / 2);
+      const int* kp = kp_s + buf * MMA_BKV;
+
+      // S = Q K^T; one ldmatrix.x4 gives the B-fragments of two n8 tiles
+      float s[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      {
+        const int key = (lane >> 4) * 8 + (lane & 7);
+        const int d = ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int st = 0; st < KS; ++st) {
+#pragma unroll
+          for (int np = 0; np < NS / 2; ++np) {
+            uint32_t bf[4];
+            ldmatrix_x4(bf, smem_u32(kb + (np * 16 + key) * L::KLD + st * 16 + d));
+            mma_bf16(s[2 * np], qa[st], bf[0], bf[1]);
+            mma_bf16(s[2 * np + 1], qa[st], bf[2], bf[3]);
+          }
+        }
+      }
+
+      // mask, row max across the quad, p, alpha, l
+      uint32_t valid = 0;
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (is_valid(qp[e >> 1], kp[n * 8 + 2 * t + (e & 1)], causal, window))
+            valid |= 1u << (n * 4 + e);
+          else
+            s[n][e] = NEG_INF;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+        }
+      }
+      float alpha[2], m_new[2], lsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        m_new[i] = fmaxf(m_run[i], mx[i]);
+        alpha[i] = expf(m_run[i] - m_new[i]);
+        m_run[i] = m_new[i];
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p =
+              (valid >> (n * 4 + e)) & 1u ? expf(s[n][e] - m_new[e >> 1]) : 0.f;
+          lsum[e >> 1] += p;
+          s[n][e] = p;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + lsum[i];
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+
+      // O += P V: the S accumulators of n8 tiles 2j and 2j + 1, rounded to
+      // bf16, are the A-fragment of k-step j; one ldmatrix.x4.trans gives
+      // V's B-fragments of two n8 tiles of the output
+      {
+        const int key = ((lane >> 3) & 1) * 8 + (lane & 7);
+        const int d = (lane >> 4) * 8;
+#pragma unroll
+        for (int j = 0; j < NS / 2; ++j) {
+          const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                                  pack_bf16(s[2 * j][2], s[2 * j][3]),
+                                  pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                                  pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+#pragma unroll
+          for (int np = 0; np < NO / 2; ++np) {
+            uint32_t bf[4];
+            ldmatrix_x4_trans(bf, smem_u32(vb + (j * 16 + key) * L::VLD + np * 16 + d));
+            mma_bf16(o[2 * np], pa, bf[0], bf[1]);
+            mma_bf16(o[2 * np + 1], pa, bf[2], bf[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next iteration's copies refill this buffer
+  }
+
+  // ---- acc / l, 0 where no key was valid, staged through this warp's own
+  // rows of the q tile for 16-byte stores
+  if (!active) return;
+  float l_row[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_row[i] = l;
+  }
+  __nv_bfloat16* stage = qs + warp * 16 * L::QLD;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float den = fmaxf(l_row[i], 1e-30f);
+      const float x0 = l_row[i] > 0.f ? o[n][2 * i] / den : 0.f;
+      const float x1 = l_row[i] > 0.f ? o[n][2 * i + 1] / den : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8 * i) * L::QLD + n * 8 + 2 * t) =
+          __floats2bfloat162_rn(x0, x1);
+    }
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * DV / 8; c += 32) {
+    const int r = c / (DV / 8), d = (c % (DV / 8)) * 8, qi = q0 + warp * 16 + r;
+    if (qi < Sq)
+      *reinterpret_cast<uint4*>(out + (((size_t)b * Sq + qi) * Hq + h) * DV + d) =
+          *reinterpret_cast<const uint4*>(stage + r * L::QLD + d);
+  }
+}
+
+template <int DK, int DV>
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       const void* q_pos, const void* kv_pos, void* out, int B,
+                       int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+                       float scale, cudaStream_t stream) {
+  const size_t smem = MmaSmem<DK, DV>::bytes((Skv + MMA_BKV - 1) / MMA_BKV);
+  cudaError_t err = repro::allow_smem(flash_mma_kernel<DK, DV>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(Hq, B, (Sq + MMA_BQ - 1) / MMA_BQ);
+  flash_mma_kernel<DK, DV><<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(q_pos),
+      static_cast<const int*>(kv_pos), static_cast<__nv_bfloat16*>(out), Sq, Skv,
+      Hq, Hkv, causal, window, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The bf16 tensor-core kernel at the instantiated (Dk, Dv) pairs: those of
+// ops.MMA_HEAD_DIMS.  Any other pair is refused, never re-routed.
+extern "C" int flash_attention_mma(const void* q, const void* k, const void* v,
+                                   const void* q_pos, const void* kv_pos,
+                                   void* out, int B, int Sq, int Skv, int Hq,
+                                   int Hkv, int Dk, int Dv, int causal,
+                                   int window, float scale, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+#define REPRO_MMA_CASE(DK, DV)                                                  \
+  if (Dk == DK && Dv == DV)                                                     \
+    return launch_mma<DK, DV>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, Hq, Hkv, \
+                              causal, window, scale, s);
+  REPRO_MMA_CASE(16, 16)
+  REPRO_MMA_CASE(32, 32)
+  REPRO_MMA_CASE(64, 64)
+  REPRO_MMA_CASE(128, 128)
+  REPRO_MMA_CASE(96, 64)
+#undef REPRO_MMA_CASE
+  return (int)cudaErrorInvalidValue;
+}
 
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
                                const void* v, const void* q_pos,

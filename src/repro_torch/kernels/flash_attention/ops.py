@@ -6,8 +6,9 @@
   causal and sliding-window masks, GQA via ``h // g``, Dv may differ from
   Dk, 0 output where no key is valid; q scaled and the probabilities cast
   in the storage dtype before the two products, float32 statistics).
-* ``flash_attention_cuda`` — the hand-written kernel
-  (``csrc/flash_attention.cu``, replacing ``flash_attention_pallas``).
+* ``flash_attention_cuda`` — the hand-written kernels
+  (``csrc/flash_attention.cu``, replacing ``flash_attention_pallas``):
+  the bf16 tensor-core kernel or the scalar kernel, by ``flash_variant``.
 * ``attention`` — the dispatcher: ``impl="auto"`` picks the kernel for
   CUDA tensors and the plain version for CPU tensors.
 """
@@ -27,7 +28,24 @@ _NEG_INF = -1e30
 _KV_CHUNK = 128
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"flash_attention": [_I, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]}
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+               "flash_attention_mma": [_P, _P, _P, _P, _P, _P,
+                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]}
+#: (Dk, Dv) pairs the bf16 tensor-core kernel is instantiated for: the
+#: port's configs (eat-paper-8b and qwen3-1.7b at 128) and its tests
+MMA_HEAD_DIMS = frozenset({(16, 16), (32, 32), (64, 64), (128, 128), (96, 64)})
+
+
+def flash_variant(dtype, Dk: int, Dv: int) -> str:
+    """Which kernel ``flash_attention_cuda`` launches: ``"mma"`` (bf16 on
+    the tensor cores) for bfloat16 at a pair of ``MMA_HEAD_DIMS``, else
+    ``"scalar"``.  float32 stays scalar: on the tensor cores it would run
+    in TF32 (about 3 decimal digits), short of the 1e-5 float32 bar.  A
+    bf16 head dim outside the set (the reference's 80, 192 or 256) takes
+    the scalar kernel too; no port config has one.  ``dtype`` is a torch
+    dtype or a config's dtype name."""
+    name = str(dtype).removeprefix("torch.")
+    return "mma" if name == "bfloat16" and (Dk, Dv) in MMA_HEAD_DIMS else "scalar"
 
 
 def softmax_block_step(carry, qf, kb, vb, qp, kp, *, causal: bool, window: int):
@@ -110,19 +128,31 @@ def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, causal: bool = True,
                          f"v{tuple(v.shape)}")
     if Hq % Hkv or tuple(q_pos.shape) != (B, Sq) or tuple(kv_pos.shape) != (B, Skv):
         raise ValueError("flash_attention: bad heads or position shapes")
+    variant = flash_variant(q.dtype, Dk, Dv)
     lib = _build.load("flash_attention", _SIGNATURES)
     out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
-    err = lib.flash_attention(
-        _build.dtype_code(q), _build.ptr(q), _build.ptr(k), _build.ptr(v),
-        _build.ptr(q_pos), _build.ptr(kv_pos), _build.ptr(out),
-        B, Sq, Skv, Hq, Hkv, Dk, Dv, int(causal), int(window), float(scale),
-        _build.stream_ptr(q))
-    _build.check(err, "flash_attention")
+    tensors = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(q_pos),
+               _build.ptr(kv_pos), _build.ptr(out))
+    dims = (B, Sq, Skv, Hq, Hkv, Dk, Dv, int(causal), int(window), float(scale),
+            _build.stream_ptr(q))
+    if variant == "mma":
+        # its copies move 16 bytes at a time
+        for x, name in ((q, "q"), (k, "k"), (v, "v")):
+            if x.data_ptr() % 16:
+                raise ValueError(f"flash_attention (mma): {name} must be "
+                                 "16-byte aligned")
+        err = lib.flash_attention_mma(*tensors, *dims)
+    else:
+        err = lib.flash_attention(_build.dtype_code(q), *tensors, *dims)
+    _build.check(err, f"flash_attention ({variant})")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.variant_launches[variant] += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+#: launches per kernel (``flash_variant``); they sum to ``launches``
+flash_attention_cuda.variant_launches = {"mma": 0, "scalar": 0}
 
 
 def attention(q, k, v, q_pos, kv_pos, *, causal: bool = True, window: int = 0,

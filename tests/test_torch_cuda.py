@@ -13,7 +13,10 @@ rounding at most); 1e-5 for the entropy, whose float32 output is computed
 in float32 from either input type; 1e-5 of the largest output magnitude for
 the SSD scan (float32 only; y and the final state each against their own
 largest value).  The flash-decode kernel keeps its probabilities in
-float32 like its plain version: the same 2e-5 / 3e-2 bars.  TF32 is off.
+float32 like its plain version: the same 2e-5 / 3e-2 bars.  bf16 flash
+(the tensor-core kernel) is also held to chip_smoke.py's bar, one bf16 ulp
+plus 2^-7 times the attention of |v|, and its output must not change, bit
+for bit, when masked key slots are appended.  TF32 is off.
 """
 import math
 
@@ -50,29 +53,120 @@ def _randn(rng, shape, dtype, dev, scale=1.0):
                            device=dev).to(dtype)
 
 
-@pytest.mark.parametrize("case", [
-    # B, Sq, Skv, Hq, Hkv, Dk, Dv, window, causal
-    (1, 16, 16, 1, 1, 32, 32, 0, True),
-    (2, 33, 47, 4, 2, 64, 64, 8, True),
-    (2, 40, 40, 8, 2, 128, 128, 0, True),
-    (1, 12, 30, 4, 1, 96, 64, 0, True),
-    (2, 9, 21, 4, 4, 32, 32, 0, False),
-])
-@pytest.mark.parametrize("dtype", DTYPES)
+def _flash_positions(B, Sq, Skv, layout, dev):
+    """(q_pos, kv_pos) int32.  ``tail3``: queries at 4.., keys 0.. with the
+    last 3 slots empty; ``leftpad``: a left-padded prompt (Sq == Skv), row
+    b with 100 b pad slots at position -1; ``end``: the Sq queries at the
+    last Sq keys; ``empty``: ``end`` with no valid key in row 0."""
+    if layout == "tail3":
+        qp = (torch.arange(Sq, device=dev) + 4).expand(B, Sq)
+        kp = torch.arange(Skv, device=dev).expand(B, Skv).clone()
+        kp[:, -3:] = -1
+    elif layout == "leftpad":
+        ar = torch.arange(Skv, device=dev)[None]
+        pad = torch.arange(B, device=dev)[:, None] * 100
+        kp = torch.where(ar >= pad, ar - pad, -1)
+        qp = kp
+    else:
+        kp = torch.arange(Skv, device=dev).expand(B, Skv).clone()
+        qp = torch.arange(Skv - Sq, Skv, device=dev).expand(B, Sq)
+        if layout == "empty":
+            kp[0] = -1
+    return qp.to(torch.int32).contiguous(), kp.to(torch.int32).contiguous()
+
+
+def _within_flash_bar(out, ref, q, k, v, qp, kp, kw):
+    """The bf16 bar of chip_smoke.py: one bf16 ulp of the larger output plus
+    2^-7 times the attention of |v| (each probability is rounded to bf16
+    against another running max than the plain version's)."""
+    spread = fa.attention_plain(q, k, v.abs(), qp, kp, **kw).float()
+    big = torch.maximum(out.float().abs(), ref.float().abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    diff = (out.float() - ref.float()).abs()
+    return bool((diff <= ulp + 2.0 ** -7 * spread).all())
+
+
+# B, Sq, Skv, Hq, Hkv, Dk, Dv, window, causal, layout
+FLASH_CASES = [
+    (1, 16, 16, 1, 1, 32, 32, 0, True, "tail3"),
+    (2, 33, 47, 4, 2, 64, 64, 8, True, "tail3"),
+    (2, 40, 40, 8, 2, 128, 128, 0, True, "tail3"),
+    (1, 12, 30, 4, 1, 96, 64, 0, True, "tail3"),
+    (2, 9, 21, 4, 4, 32, 32, 0, False, "tail3"),
+]
+# bf16 only, for the tensor-core kernel: the 8B prefill shape, the gather
+# decode read (Sq 1 and 2 over 700 keys), ragged tiles, an empty row, a
+# window, head dim 16 and (96, 64)
+FLASH_BF16_CASES = [
+    (2, 512, 512, 32, 8, 128, 128, 0, True, "leftpad"),
+    (2, 1, 700, 32, 8, 128, 128, 0, True, "end"),
+    (2, 2, 700, 32, 8, 128, 128, 0, True, "end"),
+    (2, 100, 300, 8, 2, 128, 128, 0, True, "end"),
+    (2, 100, 300, 8, 2, 128, 128, 0, True, "empty"),
+    (2, 200, 200, 8, 2, 64, 64, 64, True, "leftpad"),
+    (2, 150, 150, 4, 2, 16, 16, 0, True, "leftpad"),
+    (2, 130, 170, 8, 2, 96, 64, 0, True, "end"),
+]
+
+
+@pytest.mark.parametrize(
+    "case,dtype",
+    [(c, d) for c in FLASH_CASES for d in DTYPES]
+    + [(c, torch.bfloat16) for c in FLASH_BF16_CASES])
 def test_flash_kernel_matches_plain(cuda, case, dtype):
-    B, Sq, Skv, Hq, Hkv, Dk, Dv, window, causal = case
+    B, Sq, Skv, Hq, Hkv, Dk, Dv, window, causal, layout = case
     rng = np.random.default_rng(0)
     q = _randn(rng, (B, Sq, Hq, Dk), dtype, cuda)
     k = _randn(rng, (B, Skv, Hkv, Dk), dtype, cuda)
     v = _randn(rng, (B, Skv, Hkv, Dv), dtype, cuda)
-    qp = (torch.arange(Sq, device=cuda) + 4).expand(B, Sq).to(torch.int32).contiguous()
-    kp = torch.arange(Skv, device=cuda).expand(B, Skv).to(torch.int32).clone()
-    kp[:, -3:] = -1
+    qp, kp = _flash_positions(B, Sq, Skv, layout, cuda)
     kw = dict(causal=causal, window=window, scale=1.0 / math.sqrt(Dk))
     out = fa.flash_attention_cuda(q, k, v, qp, kp, **kw)
     ref = fa.attention_plain(q, k, v, qp, kp, **kw)
     tol = _tol(dtype)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        assert _within_flash_bar(out, ref, q, k, v, qp, kp, kw)
+    if layout == "empty":
+        assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "mma"),
+                                           (torch.float32, "scalar")])
+def test_flash_routes_and_counts_per_variant(cuda, dtype, variant):
+    """A bf16 call at D 128 launches the tensor-core kernel, a float32 call
+    the scalar one: one launch of that variant, none of the other."""
+    assert fa.flash_variant(dtype, 128, 128) == variant
+    rng = np.random.default_rng(3)
+    q = _randn(rng, (1, 64, 4, 128), dtype, cuda)
+    k = _randn(rng, (1, 64, 2, 128), dtype, cuda)
+    qp, kp = _flash_positions(1, 64, 64, "end", cuda)
+    before = dict(fa.flash_attention_cuda.variant_launches)
+    n = fa.flash_attention_cuda.launches
+    fa.attention(q, k, k, qp, kp)                          # auto -> the kernel
+    after = fa.flash_attention_cuda.variant_launches
+    assert fa.flash_attention_cuda.launches == n + 1
+    assert {x: after[x] - before[x] for x in after} == {
+        x: int(x == variant) for x in after}
+
+
+@pytest.mark.parametrize("Sq,Skv", [(512, 512), (300, 300), (2, 700)])
+def test_flash_mma_ignores_trailing_masked_slots_bitwise(cuda, Sq, Skv):
+    """Appending 64 key slots at position -1 (random K/V) leaves the bf16
+    output bitwise unchanged: the paged == ring property of the serves."""
+    rng = np.random.default_rng(4)
+    B, Hq, Hkv, D = 2, 32, 8, 128
+    q = _randn(rng, (B, Sq, Hq, D), torch.bfloat16, cuda)
+    k = _randn(rng, (B, Skv + 64, Hkv, D), torch.bfloat16, cuda)
+    v = _randn(rng, (B, Skv + 64, Hkv, D), torch.bfloat16, cuda)
+    qp, kp = _flash_positions(B, Sq, Skv, "leftpad" if Sq == Skv else "end", cuda)
+    kp_long = torch.cat([kp, torch.full((B, 64), -1, dtype=torch.int32,
+                                        device=cuda)], 1)
+    kw = dict(scale=1.0 / math.sqrt(D))
+    short = fa.flash_attention_cuda(q, k[:, :Skv].contiguous(),
+                                    v[:, :Skv].contiguous(), qp, kp, **kw)
+    long = fa.flash_attention_cuda(q, k, v, qp, kp_long, **kw)
+    assert torch.equal(short, long)
 
 
 def _paged(rng, dev, dtype, *, B, m, Hq, Hkv, D, ps=16, NB=12):
