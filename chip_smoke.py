@@ -15,7 +15,12 @@ imports nothing of JAX or of the JAX package.  Phases:
    library-call times with CUDA events, and the roofline bound.  Flash
    prints the variant it launched (``ops.flash_variant``: the bf16
    tensor-core kernel, or the scalar kernel for float32) and the ptxas
-   registers and spills of every flash instantiation.  The
+   registers and spills of every flash instantiation.  The paged kernel
+   runs the decode (m 1) and probe (m 2) reads over ~40 pages per row and
+   a decode over 128 pages, each row with two whole splits of logical
+   blocks unmapped; each line gives the split count and grid, and dense
+   SDPA over the ring layout of the same keys as a yardstick of another
+   layout; the ptxas lines of its three kernels follow.  The
    flash-decode kernel (``decode_attention``), which no serve path calls,
    is driven through its op's entry point at the 8B decode shapes over a
    ring-rotated dense cache, and its launches are counted over that phase;
@@ -131,6 +136,33 @@ def time_ms(torch, fns, iters: int = 20, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fns, reps: int = 20) -> float:
+    """Mean device ms per call of ``fns`` (one call of each) captured once
+    into a CUDA graph and replayed ``reps`` times: the card's time for the
+    work without the host's per-call overhead, which an eager loop of
+    calls this short would measure instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):               # warm-up off the capture
+        for f in fns:
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for f in fns:
+            f()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * len(fns))
+
+
 def n_sets(bytes_per_set: int) -> int:
     """Input sets to cycle through so one pass exceeds twice the L2."""
     return max(1, min(16, math.ceil(2 * L2_BYTES / max(1, bytes_per_set))))
@@ -169,8 +201,8 @@ def nbytes(*ts) -> int:
 
 def ptxas_report(log: str, kernel: str) -> list[str]:
     """``nvcc -Xptxas=-v`` lines of each instantiation of ``kernel`` in a
-    build log, as "name<template args>: N registers, S bytes spill stores,
-    L bytes spill loads"."""
+    build log, as "name<element type, int template args>: N registers, S
+    bytes spill stores, L bytes spill loads"."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -178,8 +210,8 @@ def ptxas_report(log: str, kernel: str) -> list[str]:
             mangled = m.group(1)
             name = None
             if re.search(rf"\d{kernel}I", mangled):
-                args = re.findall(r"Li(\d+)E", mangled) or (
-                    ["bf16"] if "bfloat16" in mangled else ["float"])
+                args = (["bf16"] if "bfloat16" in mangled else ["float"]) + \
+                    re.findall(r"Li(\d+)E", mangled)
                 name = f"{kernel}<{','.join(args)}>"
                 out.append([name, "", ""])
         elif name and "registers" in line:
@@ -213,37 +245,47 @@ def flash_case(torch, dtype, seed=0, B=4, S=512, Hq=32, Hkv=8, D=128):
     return dict(q=q, k=k, v=v, q_pos=pos, kv_pos=pos)
 
 
-def paged_case(torch, dtype, m, seed=0, B=4, Hq=32, Hkv=8, D=128, ps=16,
-               n_mapped=40):
-    """Four rows of ~40 mapped pages (shuffled physical ids, a partial last
-    page), the matching dense ring cache, and m query positions at the
-    end of each row: the decode (m=1) and probe (m=2) reads at 8B width."""
+def paged_case(torch, pa, dtype, m, seed=0, B=4, Hq=32, Hkv=8, D=128, ps=16,
+               n_mapped=40, step=2):
+    """Rows of n_mapped - step*b mapped pages (shuffled physical ids, a
+    partial last page) at 8B width, with m query positions at the end of
+    each row: the decode (m=1) and probe (m=2) reads.  Logical blocks
+    [2K, 4K) of every row are unmapped (K = the kernel's split length), so
+    two whole splits are empty on the paged side and masked on the ring
+    side.  Returns the kernel's arguments and the matching dense ring."""
+    K = pa.split_plan(ps, 1)[0]               # logical blocks per split
     g = torch.Generator(device="cuda").manual_seed(seed)
-    NB = n_mapped + 4
+    NB = n_mapped + 2 * K + 4                 # logical blocks per row
     P = B * NB + 1
     k_pool = torch.randn((P, ps, Hkv, D), generator=g, device="cuda").to(dtype)
     v_pool = torch.randn((P, ps, Hkv, D), generator=g, device="cuda").to(dtype)
     perm = torch.randperm(P - 1, generator=g, device="cuda") + 1
-    pages = torch.zeros((B, NB), dtype=torch.int32, device="cuda")
+    pages = torch.zeros((B, n_mapped), dtype=torch.int32, device="cuda")
+    logical = torch.zeros_like(pages)
     counts = torch.zeros((B,), dtype=torch.int32, device="cuda")
     kv_pos = torch.full((B, NB * ps), -1, dtype=torch.int32, device="cuda")
     k_ring = torch.zeros((B, NB * ps, Hkv, D), dtype=dtype, device="cuda")
     v_ring = torch.zeros_like(k_ring)
     q_pos = torch.zeros((B, m), dtype=torch.int32, device="cuda")
     for b in range(B):
-        nb = n_mapped - 2 * b                  # 40, 38, 36, 34 pages
+        nb = n_mapped - step * b
+        blocks = list(range(2 * K)) + list(range(4 * K, 4 * K + nb - 2 * K))
         n_tok = nb * ps - 5                    # partial last page
         pages[b, :nb] = perm[b * NB:b * NB + nb].to(torch.int32)
+        logical[b, :nb] = torch.tensor(blocks, dtype=torch.int32, device="cuda")
         counts[b] = nb
-        kv_pos[b, :n_tok] = torch.arange(n_tok, dtype=torch.int32, device="cuda")
-        k_ring[b, :nb * ps] = k_pool[pages[b, :nb].long()].reshape(nb * ps, Hkv, D)
-        v_ring[b, :nb * ps] = v_pool[pages[b, :nb].long()].reshape(nb * ps, Hkv, D)
+        slots = (torch.tensor(blocks, device="cuda")[:, None] * ps
+                 + torch.arange(ps, device="cuda")).reshape(-1)[:n_tok]
+        kv_pos[b, slots] = torch.arange(n_tok, dtype=torch.int32, device="cuda")
+        for r, blk in enumerate(blocks):
+            k_ring[b, blk * ps:(blk + 1) * ps] = k_pool[pages[b, r].long()]
+            v_ring[b, blk * ps:(blk + 1) * ps] = v_pool[pages[b, r].long()]
         q_pos[b] = torch.arange(n_tok - m, n_tok, dtype=torch.int32, device="cuda")
-    bpos = torch.where((pages != 0)[:, :, None],
-                       kv_pos.reshape(B, NB, ps), -1).to(torch.int32).contiguous()
+    bpos = pa.block_positions(kv_pos, pages, logical, ps).contiguous()
     q = torch.randn((B, m, Hq, D), generator=g, device="cuda").to(dtype)
     return dict(q=q, k_pool=k_pool, v_pool=v_pool, pages=pages, counts=counts,
-                bpos=bpos, q_pos=q_pos), (k_ring, v_ring, kv_pos)
+                bpos=bpos, q_pos=q_pos, logical=logical,
+                num_blocks=NB), (k_ring, v_ring, kv_pos)
 
 
 def entropy_case(torch, dtype, seed=0, B=4, d=4096, vocab=151_936, Vp=152_064):
@@ -262,11 +304,11 @@ def valid_pairs(torch, q_pos, kv_pos, window=0):
     return int(valid.sum())
 
 
-def kernel_checks(torch, F, fa, pa, ep, flash_ptxas):
+def kernel_checks(torch, F, fa, pa, ep, flash_ptxas, paged_ptxas):
     """Phase 3.  Returns {kernel name: record} for the bf16 main-path case
     and prints every comparison; fails after all of them if any disagreed.
-    ``flash_ptxas``: the ptxas lines of the flash kernels, printed with the
-    flash lines."""
+    ``flash_ptxas`` / ``paged_ptxas``: the ptxas lines of the flash and
+    paged kernels, printed with their lines."""
     rec, bad = {}, []
     scale = 1.0 / math.sqrt(128)
 
@@ -321,48 +363,77 @@ def kernel_checks(torch, F, fa, pa, ep, flash_ptxas):
                                           variant=variant)
         del sets, lib_sets
 
-        # ---------------- paged decode attention (decode m=1, probe m=2)
-        for m in (1, 2):
-            c, (k_ring, v_ring, kv_pos) = paged_case(torch, dtype, m)
+        # ---------------- paged decode attention: the decode (m=1) and probe
+        # (m=2) reads over ~40 pages per row, and a decode over 128 pages
+        for m, n_mapped, step in ((1, 40, 2), (2, 40, 2), (1, 128, 0)):
+            c, (k_ring, v_ring, kv_pos) = paged_case(torch, pa, dtype, m,
+                                                     n_mapped=n_mapped, step=step)
             pargs = (c["q"], c["k_pool"], c["v_pool"], c["pages"], c["counts"],
                      c["bpos"], c["q_pos"])
-            out = pa.paged_attention_cuda(*pargs, scale=scale)
+            split = dict(logical=c["logical"], num_blocks=c["num_blocks"])
+            out = pa.paged_attention_cuda(*pargs, scale=scale, **split)
             ref = pa.paged_attention_plain(*pargs, scale=scale)
             ring = pa.ring_decode_attention(c["q"], k_ring, v_ring, c["q_pos"],
                                             kv_pos, page_size=16, scale=scale,
                                             impl="cuda")
+            what = f"paged_attention {dn} m={m} pages/row {n_mapped}"
             err, ok, tol = agree(torch, "paged_attention", dn, out, ref)
-            held(ok, f"paged_attention {dn} m={m}: max abs err {err:.3e} ({tol})")
-            held(torch.equal(out, ring),
-                 f"paged_attention {dn} m={m}: paged != ring bitwise")
+            held(ok, f"{what}: max abs err {err:.3e} ({tol})")
+            held(torch.equal(out, ring), f"{what}: paged != ring bitwise")
             mapped = int(c["counts"].sum())
-            Pz, ps, Hkv, D = c["k_pool"].shape
+            B, _, Hq, D = c["q"].shape
+            Pz, ps, Hkv, _ = c["k_pool"].shape
+            K, n_split = pa.split_plan(ps, c["num_blocks"])
             per_set = (2 * mapped * ps * Hkv * D * c["k_pool"].element_size()
-                       + nbytes(c["q"], c["pages"], c["counts"], c["bpos"],
-                                c["q_pos"]) + nbytes(out))
-            sets = [paged_case(torch, dtype, m, seed=s)[0]
-                    for s in range(n_sets(nbytes(c["k_pool"], c["v_pool"])))]
-            k_ms = time_ms(torch, [lambda s=s: pa.paged_attention_cuda(
+                       + nbytes(c["q"], c["pages"], c["logical"], c["counts"],
+                                c["bpos"], c["q_pos"]) + nbytes(out))
+            cases = [paged_case(torch, pa, dtype, m, seed=i, n_mapped=n_mapped, step=step)
+                     for i in range(n_sets(nbytes(c["k_pool"], c["v_pool"])))]
+            sets = [cs for cs, _ in cases]
+            calls = [lambda s=s: pa.paged_attention_cuda(
                 s["q"], s["k_pool"], s["v_pool"], s["pages"], s["counts"],
-                s["bpos"], s["q_pos"], scale=scale) for s in sets], iters=50)
+                s["bpos"], s["q_pos"], scale=scale, logical=s["logical"],
+                num_blocks=s["num_blocks"]) for s in sets]
+            k_ms = graph_ms(torch, calls)
+            eager_ms = time_ms(torch, calls, iters=50)
             p_ms = time_ms(torch, [lambda s=s: pa.paged_attention_plain(
                 s["q"], s["k_pool"], s["v_pool"], s["pages"], s["counts"],
                 s["bpos"], s["q_pos"], scale=scale) for s in sets], iters=6)
+            # a yardstick of another layout: SDPA over the dense ring of the
+            # same keys (K/V repeated per q head, the boolean mask built
+            # outside the timed call); no single PyTorch call reads pages
+            g = Hq // Hkv
+            lib_sets = [(cs["q"].transpose(1, 2),
+                         kr.transpose(1, 2).repeat_interleave(g, 1),
+                         vr.transpose(1, 2).repeat_interleave(g, 1),
+                         ((kp[:, None, :] >= 0)
+                          & (kp[:, None, :] <= cs["q_pos"][:, :, None]))[:, None])
+                        for cs, (kr, vr, kp) in cases]
+            l_ms = graph_ms(torch, [lambda t=t: F.scaled_dot_product_attention(
+                t[0], t[1], t[2], attn_mask=t[3], scale=scale) for t in lib_sets])
             flat_pos = c["bpos"].reshape(c["bpos"].shape[0], -1)
-            pairs = valid_pairs(torch, c["q_pos"], flat_pos) * c["q"].shape[2]
+            pairs = valid_pairs(torch, c["q_pos"], flat_pos) * Hq
             b_ms, b_by = bound_ms(per_set, pairs * 4 * D, dn)
-            print(f"[kernels] paged_attention {dn} B4 m{m} Hq32 Hkv8 D128 ps16 "
-                  f"pages {mapped}: max_abs_err {err:.3e} ({tol}) "
-                  f"paged==ring bitwise; kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
-                  f"bound {b_ms:.4f} ms ({b_by})")
-            if dtype == torch.bfloat16 and m == 1:
+            print(f"[kernels] paged_attention {dn} B{B} m{m} Hq{Hq} Hkv{Hkv} D{D} ps{ps} "
+                  f"pages {mapped} of {B * c['num_blocks']} logical blocks: K {K} "
+                  f"blocks/split, n_split {n_split}, grid ({B * Hkv}, {n_split}) x2 + "
+                  f"merge ({B * Hkv}, {-(-m * Hq // Hkv * D // 128)}): "
+                  f"max_abs_err {err:.3e} ({tol}) "
+                  f"paged==ring bitwise; kernel {k_ms:.4f} ms (graph replay; eager "
+                  f"{eager_ms:.4f} ms) plain {p_ms:.4f} ms bound {b_ms:.4f} ms "
+                  f"({b_by}: {per_set / 1e6:.1f} MB); yardstick of another layout, "
+                  f"dense-ring sdpa {l_ms:.4f} ms (graph replay)")
+            if dtype == torch.bfloat16 and (m, n_mapped) == (1, 40):
                 rec["paged_attention"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                                               bound_ms=b_ms, bound_by=b_by,
                                               library_ms=None)
             elif dtype == torch.bfloat16:
                 rec["paged_attention"]["max_abs_err"] = max(
                     rec["paged_attention"]["max_abs_err"], err)
-            del sets
+            del cases, sets, lib_sets
+        if dtype == torch.bfloat16:
+            for line in paged_ptxas:
+                print(f"[kernels] paged_attention ptxas {line}")
 
         # ---------------- entropy probe
         c = entropy_case(torch, dtype)
@@ -829,7 +900,11 @@ def main() -> None:
     flash_ptxas = [line for kernel in ("flash_mma_kernel", "flash_kernel")
                    for line in ptxas_report(_build.BUILD_LOG.get("flash_attention", ""),
                                             kernel)]
-    rec = kernel_checks(torch, F, fa, pa, ep, flash_ptxas)
+    paged_ptxas = [line for kernel in ("paged_max_kernel", "paged_fold_kernel",
+                                       "paged_merge_kernel")
+                   for line in ptxas_report(_build.BUILD_LOG.get("paged_attention", ""),
+                                            kernel)]
+    rec = kernel_checks(torch, F, fa, pa, ep, flash_ptxas, paged_ptxas)
     from repro_torch.kernels.decode_attention import ops as da
 
     rec["decode_attention"], decode_launches = decode_check(torch, F, da)
@@ -985,7 +1060,8 @@ def main() -> None:
           f"{phases['paged_serve_s']:.3f} s, {n_tok / phases['paged_serve_s']:.1f} "
           f"reasoning tokens/s; ring {phases['ring_serve_s']:.3f} s; paged == ring "
           f"bitwise (tokens, answers, EAT traces)")
-    print(f"[serve] launches during the paged serve: {json.dumps(launches)}; flash "
+    print(f"[serve] launches during the paged serve: {json.dumps(launches)} "
+          f"(paged_attention: op calls, three kernel launches each); flash "
           f"per variant {json.dumps(flash_variants)} ({cfg.n_layers} mma per prefill "
           f"x {prefills})")
 

@@ -1,19 +1,24 @@
 """Page-table-native decode attention (port of
 ``repro/kernels/paged_attention/ref.py``, ``ops.py`` and ``kernel.py``).
 
-One algorithm, every impl: a sequential per-page online softmax over the
-row's pages in increasing logical order, where a fully masked page is an
-exact identity step on (running max, sum, accumulator).  The paged caller
-visits only the mapped pages; the ring caller (``ring_decode_attention``)
-visits every logical block of its dense cache through an identity page
-list.  Skipped pages being identity steps, the two give bitwise equal
-results per impl — the contract the serving stack's paged == ring A/B
-relies on.
+One accumulation contract, every impl: a per-page online softmax over the
+row's pages in increasing logical order (the kernel folds splits of whole
+logical blocks that way and merges them in order), where a fully masked
+page is an exact identity step on (running max, sum, accumulator).  The
+paged caller visits only the mapped pages; the ring caller
+(``ring_decode_attention``) visits every logical block of its dense cache
+through an identity page list.  Skipped pages being identity steps, the
+two give bitwise equal results per impl — the contract the serving
+stack's paged == ring A/B relies on.
 
 * ``paged_attention_plain`` — the plain PyTorch version (the reference's
   ``paged_attention_xla`` / ``block_decode_attention``).
 * ``paged_attention_cuda`` — the hand-written kernel
-  (``csrc/paged_attention.cu``, replacing ``paged_attention_pallas``).
+  (``csrc/paged_attention.cu``, replacing ``paged_attention_pallas``).  It
+  splits the KV axis at logical-block boundaries (``split_plan``) and
+  merges the splits in order; pages still fold in logical order inside a
+  split, and each probability still rounds against the row's running max
+  over every earlier page, so the two callers stay bitwise equal.
 * ``paged_decode_attention`` / ``ring_decode_attention`` — dispatchers:
   ``impl="auto"`` picks the kernel for CUDA tensors, the plain version for
   CPU tensors.
@@ -34,10 +39,24 @@ from repro_torch.kernels.flash_attention.ops import (
 
 #: physical page id reserved as the trash page (serving.cache.PAGE_TRASH)
 PAGE_TRASH = 0
+#: keys per split of the kernel's KV axis (whole logical blocks of them)
+SPLIT_TOKENS = 64
+#: the kernel's limits: keys per page, head dims
+MAX_PAGE_SIZE = 64
+MAX_HEAD_DIM = 256
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"paged_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                          _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                                          _P]}
+_SIGNATURES = {"paged_decode_attention": [_I] + [_P] * 13 + [_I] * 11 + [_F, _P]}
+
+
+def split_plan(page_size: int, num_blocks: int) -> tuple[int, int]:
+    """(K, n_split): the kernel's split s holds logical blocks
+    [s·K, (s+1)·K), and n_split splits cover ``num_blocks`` logical blocks.
+
+    K depends on the page size alone — never on which blocks are mapped,
+    the bucket width or a rank — so the ring and paged calls of one cache
+    put every logical block into the same split."""
+    K = max(1, SPLIT_TOKENS // page_size)
+    return K, -(-num_blocks // K)
 
 
 def block_positions(kv_pos, pages, logical, page_size: int) -> torch.Tensor:
@@ -55,10 +74,13 @@ def block_positions(kv_pos, pages, logical, page_size: int) -> torch.Tensor:
 
 
 def paged_attention_plain(q, k_pool, v_pool, pages, counts, bpos, q_pos, *,
-                          scale: float, window: int = 0) -> torch.Tensor:
+                          scale: float, window: int = 0, logical=None,
+                          num_blocks: int | None = None) -> torch.Tensor:
     """The block scan over every rank of ``pages`` (ranks past ``counts``
-    read the trash page with every position masked: identity steps)."""
-    del counts  # padding ranks are identity steps; the scan visits them all
+    read the trash page with every position masked: identity steps).  A
+    sequential scan needs no split: ``logical`` and ``num_blocks`` are
+    accepted for the kernel's signature and not read."""
+    del counts, logical, num_blocks
     B, m, Hq, Dk = q.shape
     Hkv, Dv = k_pool.shape[2], v_pool.shape[-1]
     g = Hq // Hkv
@@ -75,7 +97,15 @@ def paged_attention_plain(q, k_pool, v_pool, pages, counts, bpos, q_pos, *,
 
 
 def paged_attention_cuda(q, k_pool, v_pool, pages, counts, bpos, q_pos, *,
-                         scale: float, window: int = 0) -> torch.Tensor:
+                         scale: float, window: int = 0, logical=None,
+                         num_blocks: int | None = None) -> torch.Tensor:
+    """``logical`` (B, NBK) int32: the logical block of each rank;
+    ``num_blocks``: the logical capacity of a row in blocks (every logical
+    block index is below it).  Both fix the split and are required."""
+    if logical is None or num_blocks is None:
+        raise ValueError("paged_attention_cuda needs logical (the logical "
+                         "block of each rank) and num_blocks (the logical "
+                         "capacity): the KV axis is split by logical block")
     B, m, Hq, Dk = q.shape
     P, ps, Hkv, _ = k_pool.shape
     Dv = v_pool.shape[-1]
@@ -84,32 +114,45 @@ def paged_attention_cuda(q, k_pool, v_pool, pages, counts, bpos, q_pos, *,
         raise ValueError(f"shape mismatch q{tuple(q.shape)} "
                          f"k_pool{tuple(k_pool.shape)} v_pool{tuple(v_pool.shape)}")
     if (tuple(counts.shape) != (B,) or tuple(bpos.shape) != (B, NBK, ps)
-            or tuple(q_pos.shape) != (B, m) or pages.shape[0] != B):
+            or tuple(q_pos.shape) != (B, m) or tuple(pages.shape) != (B, NBK)
+            or tuple(logical.shape) != (B, NBK)):
         raise ValueError("paged_attention: bad page-list or position shapes")
-    g = Hq // Hkv
-    rows = m * g
-    # regroup q to (B, Hkv, m*g, Dk): row r = position r // g, head r % g
-    qg = q.reshape(B, m, Hkv, g, Dk).permute(0, 2, 1, 3, 4).reshape(
-        B, Hkv, rows, Dk).contiguous()
-    qpg = q_pos[:, :, None].expand(B, m, g).reshape(B, rows).contiguous()
-    _build.expect(qg, q.dtype, 4, "q")
+    esize = q.element_size()
+    if (ps > MAX_PAGE_SIZE or max(Dk, Dv) > MAX_HEAD_DIM
+            or (Dk * esize) % 16 or (Dv * esize) % 16):
+        raise ValueError(f"paged_attention kernel takes pages of <= "
+                         f"{MAX_PAGE_SIZE} keys and head dims <= {MAX_HEAD_DIM} "
+                         f"of a multiple of 16 bytes; got ps {ps}, Dk {Dk}, Dv {Dv}")
+    q, q_pos = q.contiguous(), q_pos.contiguous()
+    _build.expect(q, q.dtype, 4, "q")
     _build.expect(k_pool, q.dtype, 4, "k_pool")
     _build.expect(v_pool, q.dtype, 4, "v_pool")
-    for x, name, nd in ((pages, "pages", 2), (counts, "counts", 1),
-                        (bpos, "bpos", 3), (qpg, "q_pos", 2)):
+    for x, name, nd in ((pages, "pages", 2), (logical, "logical", 2),
+                        (counts, "counts", 1), (bpos, "bpos", 3),
+                        (q_pos, "q_pos", 2)):
         _build.expect(x, torch.int32, nd, name)
+    g = Hq // Hkv
+    rows = m * g
+    K, n_split = split_plan(ps, num_blocks)
     lib = _build.load("paged_attention", _SIGNATURES)
-    out = torch.empty((B, Hkv, rows, Dv), dtype=q.dtype, device=q.device)
+    # float32 scratch: per (b, h, split, row) the split's max, its (m, l),
+    # its accumulator and the max pass's scores, in one allocation
+    n = B * Hkv * n_split * rows
+    scratch = torch.empty(n * (3 + Dv + K * ps), dtype=torch.float32,
+                          device=q.device)
+    split_max, part_ml, part_acc, scores = scratch.split(
+        [n, 2 * n, n * Dv, n * K * ps])
+    out = torch.empty((B, m, Hq, Dv), dtype=q.dtype, device=q.device)
     err = lib.paged_decode_attention(
-        _build.dtype_code(q), _build.ptr(qg), _build.ptr(k_pool),
-        _build.ptr(v_pool), _build.ptr(pages), _build.ptr(counts),
-        _build.ptr(bpos), _build.ptr(qpg), _build.ptr(out),
-        B, Hkv, rows, Dk, Dv, ps, NBK, int(window), float(scale),
-        _build.stream_ptr(q))
+        _build.dtype_code(q), _build.ptr(q), _build.ptr(k_pool),
+        _build.ptr(v_pool), _build.ptr(pages), _build.ptr(logical),
+        _build.ptr(counts), _build.ptr(bpos), _build.ptr(q_pos),
+        _build.ptr(split_max), _build.ptr(part_ml), _build.ptr(part_acc),
+        _build.ptr(scores), _build.ptr(out), B, Hkv, m, g, Dk, Dv, ps, NBK,
+        K, n_split, int(window), float(scale), _build.stream_ptr(q))
     _build.check(err, "paged_decode_attention")
     paged_attention_cuda.launches += 1
-    return out.reshape(B, Hkv, m, g, Dv).permute(0, 2, 1, 3, 4).reshape(
-        B, m, Hq, Dv)
+    return out
 
 
 paged_attention_cuda.launches = 0
@@ -117,14 +160,17 @@ paged_attention_cuda.launches = 0
 
 def paged_decode_attention(q, k_pool, v_pool, pages, counts, bpos, q_pos, *,
                            window: int = 0, scale: float | None = None,
-                           impl: str = "auto") -> torch.Tensor:
+                           impl: str = "auto", logical=None,
+                           num_blocks: int | None = None) -> torch.Tensor:
     """q (B, m, Hq, Dk); pools (P, ps, Hkv, D); pages (B, NBK), counts (B,),
-    bpos (B, NBK, ps), q_pos (B, m) int32.  Returns (B, m, Hq, Dv)."""
+    bpos (B, NBK, ps), q_pos (B, m) int32; logical (B, NBK) int32 and
+    num_blocks (the logical capacity in blocks), which the kernel needs.
+    Returns (B, m, Hq, Dv)."""
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     fn = (paged_attention_cuda if _build.resolve_impl(impl, q) == "cuda"
           else paged_attention_plain)
     return fn(q, k_pool, v_pool, pages, counts, bpos, q_pos, scale=scale,
-              window=window)
+              window=window, logical=logical, num_blocks=num_blocks)
 
 
 def ring_decode_attention(q, k, v, q_pos, kv_pos, *, page_size: int,
@@ -132,8 +178,9 @@ def ring_decode_attention(q, k, v, q_pos, kv_pos, *, page_size: int,
                           impl: str = "auto") -> torch.Tensor:
     """The dense ring cache (B, C, Hkv, D) through the page algorithm: its
     rows become a (B * C/ps)-page pool read through the identity page list,
-    every logical block mapped at its own rank.  A capacity that is not a
-    page multiple is padded with masked slots (appended identity steps)."""
+    every logical block mapped at its own rank (``logical`` = the ranks).  A
+    capacity that is not a page multiple is padded with masked slots
+    (appended identity steps)."""
     B, C = kv_pos.shape
     pad = (-C) % page_size
     if pad:
@@ -147,5 +194,7 @@ def ring_decode_attention(q, k, v, q_pos, kv_pos, *, page_size: int,
     ranks = torch.arange(NB, dtype=torch.int32, device=q.device)
     pages = torch.arange(B, dtype=torch.int32, device=q.device)[:, None] * NB + ranks
     counts = torch.full((B,), NB, dtype=torch.int32, device=q.device)
+    logical = ranks.expand(B, NB).contiguous()
     return paged_decode_attention(q, pool_k, pool_v, pages, counts, bpos,
-                                  q_pos, window=window, scale=scale, impl=impl)
+                                  q_pos, window=window, scale=scale, impl=impl,
+                                  logical=logical, num_blocks=NB)

@@ -62,6 +62,13 @@ def main(argv=None):
     ap.add_argument("--num-pages", type=int, default=0,
                     help="paged backend: page-pool size (0 = auto)")
     ap.add_argument("--attn-impl", choices=list(ATTN_IMPLS), default="gather")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k sampling cutoff (0 = off)")
+    ap.add_argument("--typical-p", type=float, default=1.0,
+                    help="locally-typical sampling mass (1 = off)")
+    ap.add_argument("--min-p", type=float, default=0.0,
+                    help="min-p sampling cutoff relative to the max-prob "
+                         "token (0 = off)")
     ap.add_argument("--monitor", choices=["self", "proxy"], default="self",
                     help="EAT monitor: self (the probe inline in the decode "
                          "chunk) or proxy (black-box: a second model shadows "
@@ -99,7 +106,9 @@ def main(argv=None):
         max_reasoning_tokens=args.budget, capacity=args.budget + 128,
         pad_id=Tokens.PAD, end_think_id=Tokens.END_THINK,
         newline_id=Tokens.NEWLINE, eos_id=Tokens.EOS, chunk_len=args.chunk,
-        sampler=SamplerConfig(temperature=0.6, top_p=0.95),
+        sampler=SamplerConfig(temperature=0.6, top_p=0.95,
+                              top_k=args.top_k, typical_p=args.typical_p,
+                              min_p=args.min_p),
         cache=CacheConfig(attn_impl=args.attn_impl),
     )
     monitor = ReasoningMonitor(

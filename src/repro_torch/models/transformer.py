@@ -133,7 +133,8 @@ def attn_block_cached(p, x, positions, pos1d, cfg: ModelConfig, entry: dict,
         if native:
             o = paged_ops.paged_decode_attention(
                 q, entry["k"], entry["v"], blocks["pages"], blocks["count"],
-                bpos, pos1d, window=window, scale=scale, impl=paged_impl)
+                bpos, pos1d, window=window, scale=scale, impl=paged_impl,
+                logical=blocks["logical"], num_blocks=table.shape[1])
         else:
             o = attention(q, gather_pages(entry["k"], table),
                           gather_pages(entry["v"], table), pos1d, kv_pos,

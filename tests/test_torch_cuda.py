@@ -12,7 +12,11 @@ the reference's attention kernel tests) and 3e-2 in bfloat16 (one output
 rounding at most); 1e-5 for the entropy, whose float32 output is computed
 in float32 from either input type; 1e-5 of the largest output magnitude for
 the SSD scan (float32 only; y and the final state each against their own
-largest value).  The flash-decode kernel keeps its probabilities in
+largest value).  The paged kernel is held to chip_smoke.py's bars: 1e-6
+in float32 and one bf16 ulp of the larger output in bfloat16 (it rounds
+every probability where the plain scan does: against the running max of
+every earlier page, from scores summed in the plain version's order), and
+its paged and ring calls must agree bit for bit.  The flash-decode kernel keeps its probabilities in
 float32 like its plain version: the same 2e-5 / 3e-2 bars.  bf16 flash
 (the tensor-core kernel) is also held to chip_smoke.py's bar, one bf16 ulp
 plus 2^-7 times the attention of |v|, and its output must not change, bit
@@ -169,18 +173,23 @@ def test_flash_mma_ignores_trailing_masked_slots_bitwise(cuda, Sq, Skv):
     assert torch.equal(short, long)
 
 
-def _paged(rng, dev, dtype, *, B, m, Hq, Hkv, D, ps=16, NB=12):
-    """Pools holding rows of mapped pages with holes, the matching ring."""
-    P = B * NB + 1
+def _paged(rng, dev, dtype, *, m, Hq, Hkv, D, ps=16, NB=12, rows=None):
+    """Pools holding rows of mapped pages with holes, the matching ring.
+    ``rows``: the logical blocks mapped in each row, of NB (default: three
+    rows of the first NB - 2 blocks, every fourth one a hole)."""
+    if rows is None:
+        rows = [[j for j in range(NB - 2) if (j + b) % 4 != 3] for b in range(3)]
+    B = len(rows)
+    P = sum(len(r) for r in rows) + 1
     kpool = _randn(rng, (P, ps, Hkv, D), dtype, dev)
     vpool = _randn(rng, (P, ps, Hkv, D), dtype, dev)
-    pages = np.zeros((B, NB), np.int32)
-    logical = np.zeros((B, NB), np.int32)
+    NBK = max(1, max(len(r) for r in rows))
+    pages = np.zeros((B, NBK), np.int32)
+    logical = np.zeros((B, NBK), np.int32)
     counts = np.zeros(B, np.int32)
     kv_pos = np.full((B, NB * ps), -1, np.int32)
     nxt = 1
-    for b in range(B):
-        blocks = [j for j in range(NB - 2) if (j + b) % 4 != 3]   # holes
+    for b, blocks in enumerate(rows):
         for r, blk in enumerate(blocks):
             pages[b, r], logical[b, r] = nxt, blk
             nxt += 1
@@ -200,7 +209,36 @@ def _paged(rng, dev, dtype, *, B, m, Hq, Hkv, D, ps=16, NB=12):
     C = NB * ps
     q = _randn(rng, (B, m, Hq, D), dtype, dev)
     qp = torch.arange(C - m, C, device=dev, dtype=torch.int32).expand(B, m).contiguous()
-    return q, kpool, vpool, pages, counts, bpos, qp, kr, vr, kv_pos
+    return q, kpool, vpool, pages, counts, bpos, qp, kr, vr, kv_pos, logical
+
+
+def _paged_within_bar(out, ref, dtype):
+    """chip_smoke.py's paged bars: 1e-6 in float32; in bf16 one ulp of the
+    larger output, element by element."""
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        return diff.max().item() <= 1e-6
+    big = torch.maximum(out.float().abs(), ref.float().abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    return bool((diff <= ulp).all())
+
+
+def _check_paged(dev, dtype, *, window=0, seed=1, **case):
+    """Kernel vs plain within the bars, and the paged call equal to the ring
+    call of the same cache bit for bit.  Returns the kernel's output."""
+    q, kp, vp, pages, counts, bpos, qp, kr, vr, kv_pos, logical = _paged(
+        np.random.default_rng(seed), dev, dtype, **case)
+    NB = kv_pos.shape[1] // kp.shape[1]
+    kw = dict(scale=1.0 / math.sqrt(q.shape[-1]), window=window)
+    out = pa.paged_attention_cuda(q, kp, vp, pages, counts, bpos, qp,
+                                  logical=logical, num_blocks=NB, **kw)
+    ref = pa.paged_attention_plain(q, kp, vp, pages, counts, bpos, qp, **kw)
+    assert out.dtype == dtype and bool(torch.isfinite(out).all())
+    assert _paged_within_bar(out, ref, dtype), (out.float() - ref.float()).abs().max()
+    ring = pa.ring_decode_attention(q, kr, vr, qp, kv_pos, page_size=kp.shape[1],
+                                    impl="cuda", **kw)
+    assert torch.equal(out, ring)
+    return out
 
 
 @pytest.mark.parametrize("m,Hq,Hkv", [(1, 2, 2), (2, 4, 2), (1, 8, 2), (2, 8, 2),
@@ -210,17 +248,32 @@ def _paged(rng, dev, dtype, *, B, m, Hq, Hkv, D, ps=16, NB=12):
 def test_paged_kernel_matches_plain_and_ring(cuda, m, Hq, Hkv, window, dtype):
     """m*g in {1, 4, 8, 8, 8, 4} over g in {1, 2, 4}; plus paged == ring
     bitwise through the same kernel."""
-    rng = np.random.default_rng(1)
-    q, kp, vp, pages, counts, bpos, qp, kr, vr, kv_pos = _paged(
-        rng, cuda, dtype, B=3, m=m, Hq=Hq, Hkv=Hkv, D=64)
-    kw = dict(scale=0.125, window=window)
-    out = pa.paged_attention_cuda(q, kp, vp, pages, counts, bpos, qp, **kw)
-    ref = pa.paged_attention_plain(q, kp, vp, pages, counts, bpos, qp, **kw)
-    tol = _tol(dtype)
-    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
-    ring = pa.ring_decode_attention(q, kr, vr, qp, kv_pos, page_size=16,
-                                    impl="cuda", **kw)
-    assert torch.equal(out, ring)
+    _check_paged(cuda, dtype, window=window, m=m, Hq=Hq, Hkv=Hkv, D=64)
+
+
+# the split's edges (K = 4 blocks at page 16): rows of 128 mapped pages
+# whose holes empty whole splits; a row with nothing mapped and a row whose
+# one page is in the last split; 32 query rows (m 8, g 4); a window that
+# masks every split but the last two
+PAGED_SPLIT_CASES = {
+    "holes128": dict(m=1, Hq=32, Hkv=8, D=128, NB=160,
+                     rows=[[j for j in range(160) if not 16 * (b + 1) <= j < 16 * (b + 1) + 32]
+                           for b in range(3)]),
+    "empty_and_last": dict(m=2, Hq=8, Hkv=2, D=64, NB=41,
+                           rows=[[], [40], list(range(0, 30, 2))]),
+    "rows32": dict(m=8, Hq=16, Hkv=4, D=64, NB=24),
+    "window": dict(m=1, Hq=8, Hkv=2, D=128, NB=64, rows=[list(range(63))] * 2,
+                   window=100),
+}
+
+
+@pytest.mark.parametrize("name", list(PAGED_SPLIT_CASES))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_kernel_splits_match_plain_and_ring(cuda, name, dtype):
+    assert pa.split_plan(16, 64) == (4, 16)     # the K the cases are cut for
+    out = _check_paged(cuda, dtype, **PAGED_SPLIT_CASES[name])
+    if name == "empty_and_last":    # counts 0: exactly 0
+        assert torch.equal(out[0], torch.zeros_like(out[0]))
 
 
 @pytest.mark.parametrize("case", [(1, 16, 64, 64), (3, 32, 257, 200),
