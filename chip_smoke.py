@@ -20,10 +20,16 @@ imports nothing of JAX or of the JAX package.  Phases:
    a decode over 128 pages, each row with two whole splits of logical
    blocks unmapped; each line gives the split count and grid, and dense
    SDPA over the ring layout of the same keys as a yardstick of another
-   layout; the ptxas lines of its three kernels follow.  The
-   flash-decode kernel (``decode_attention``), which no serve path calls,
-   is driven through its op's entry point at the 8B decode shapes over a
-   ring-rotated dense cache, and its launches are counted over that phase;
+   layout; the ptxas lines of its three kernels follow.  bf16 flash is
+   also timed against SDPA by CUDA-graph replay in turns (5 rounds,
+   medians).  The flash-decode kernel (``decode_attention``), which no
+   serve path calls, is driven through its op's entry point at the 8B
+   decode shapes over a ring-rotated dense cache, and its launches are
+   counted over that phase, per variant (``ops.decode_variant``: the bf16
+   cases on the tensor-core kernel); each case prints the kernels of one
+   call (two, by the profiler), the worst ratio of its error to the bar,
+   and its time and SDPA's by graph replay in turns (5 rounds, medians,
+   eager readings beside); the ptxas lines of its kernels come first;
 4. ``eat-paper-8b`` at full width with seeded random weights made on the
    card: kernel path vs plain path on a short input (float32 with the depth
    cut to 4 layers, then bfloat16 at the full 36), then a paged self-EAT
@@ -56,6 +62,7 @@ import gc
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -163,9 +170,49 @@ def graph_ms(torch, fns, reps: int = 20) -> float:
     return start.elapsed_time(end) / (reps * len(fns))
 
 
+def in_turns(torch, a_fns, b_fns, rounds: int = 5):
+    """``graph_ms`` of two sets of calls in turns, a, b, a, b, ... over
+    ``rounds`` rounds in this call: (a's readings, b's readings)."""
+    ta, tb = [], []
+    for _ in range(rounds):
+        ta.append(graph_ms(torch, a_fns))
+        tb.append(graph_ms(torch, b_fns))
+    return ta, tb
+
+
+def turns_text(ts) -> str:
+    return f"{statistics.median(ts):.4f} ms (range {min(ts):.4f}-{max(ts):.4f})"
+
+
+def device_kernels(torch, fn) -> list[tuple[str, float]]:
+    """(name, device µs) of each kernel one call of ``fn`` runs on the
+    card, by torch.profiler (after one unprofiled call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key.removeprefix("void ").removeprefix("(anonymous namespace)::")
+             .split("<")[0].split("(")[0], e.self_device_time_total / e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            for _ in range(e.count)]
+
+
 def n_sets(bytes_per_set: int) -> int:
     """Input sets to cycle through so one pass exceeds twice the L2."""
     return max(1, min(16, math.ceil(2 * L2_BYTES / max(1, bytes_per_set))))
+
+
+def bf16_bar_ratio(torch, out, ref, atol: float) -> float:
+    """The largest |out - ref| over its bar: one bfloat16 ulp of the larger
+    of the two values, plus ``atol``."""
+    diff = (out.float() - ref.float()).abs()
+    big = torch.maximum(out.float().abs(), ref.float().abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    return (diff / (ulp + atol)).max().item()
 
 
 def agree(torch, name: str, dn: str, out, ref, spread=None, atol=0.0):
@@ -176,11 +223,11 @@ def agree(torch, name: str, dn: str, out, ref, spread=None, atol=0.0):
     err = diff.max().item()
     if (name, dn) in TOL:
         return err, err <= TOL[name, dn], f"tol {TOL[name, dn]}"
+    if atol:
+        r = bf16_bar_ratio(torch, out, ref, atol)
+        return err, r <= 1, f"{r:.3g} of the bar: 1 bf16 ulp + {atol:g}"
     big = torch.maximum(out.float().abs(), ref.float().abs())
     bar = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
-    if atol:
-        r = (diff / (bar + atol)).max().item()
-        return err, r <= 1, f"{r:.3g} of the bar: 1 bf16 ulp + {atol:g}"
     if spread is None:
         return err, (diff <= bar).all().item(), \
             f"{(diff / bar).max().item():g} bf16 ulp, tol 1 ulp"
@@ -348,19 +395,29 @@ def kernel_checks(torch, F, fa, pa, ep, flash_ptxas, paged_ptxas):
                 & (c["kv_pos"][:, None, None, :] <= c["q_pos"][:, None, :, None]))
         lib_sets = [(s["q"].transpose(1, 2), s["k"].transpose(1, 2).repeat_interleave(4, 1),
                      s["v"].transpose(1, 2).repeat_interleave(4, 1)) for s in sets]
-        l_ms = time_ms(torch, [lambda t=t: F.scaled_dot_product_attention(
-            t[0], t[1], t[2], attn_mask=mask, scale=scale) for t in lib_sets])
+        lib_calls = [lambda t=t: F.scaled_dot_product_attention(
+            t[0], t[1], t[2], attn_mask=mask, scale=scale) for t in lib_sets]
+        l_ms = time_ms(torch, lib_calls)
         pairs = valid_pairs(torch, c["q_pos"], c["kv_pos"]) * Hq
         b_ms, b_by = bound_ms(per_set, pairs * 4 * D, dn)
         print(f"[kernels] flash_attention {dn} B{B} S{S} Hq{Hq} Hkv8 D{D} variant "
               f"{variant}: max_abs_err {err:.3e} ({tol}) kernel {k_ms:.4f} ms "
-              f"plain {p_ms:.4f} ms sdpa {l_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+              f"plain {p_ms:.4f} ms sdpa {l_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})"
+              f"{' (eager)' if dtype == torch.bfloat16 else ''}")
         if dtype == torch.bfloat16:
+            # the tensor-core kernel against SDPA by graph replay, in turns
+            k_turns, l_turns = in_turns(torch, [lambda s=s: fa.flash_attention_cuda(
+                s["q"], s["k"], s["v"], s["q_pos"], s["kv_pos"], scale=scale)
+                for s in sets], lib_calls)
+            print(f"[kernels] flash_attention {dn} graph replay in turns, 5 rounds: "
+                  f"kernel {turns_text(k_turns)}, sdpa {turns_text(l_turns)}; "
+                  f"kernel / sdpa {statistics.median(k_turns) / statistics.median(l_turns):.3f}")
             for line in flash_ptxas:
                 print(f"[kernels] flash_attention ptxas {line}")
-            rec["flash_attention"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                                          bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
-                                          variant=variant)
+            rec["flash_attention"] = dict(
+                max_abs_err=err, ms=statistics.median(k_turns), plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=statistics.median(l_turns),
+                variant=variant)
         del sets, lib_sets
 
         # ---------------- paged decode attention: the decode (m=1) and probe
@@ -490,39 +547,58 @@ def decode_case(torch, dtype, m, seed=0, B=4, C=4096, Hq=32, Hkv=8, D=128):
     return dict(q=q, k=k, v=v, q_pos=q_pos, kv_pos=kv_pos)
 
 
-def decode_check(torch, F, da):
+def decode_check(torch, F, da, ptxas):
     """Phase 3, flash-decode: the op's entry point (the kernel on the card)
     against the plain version at the 8B decode shapes (m 1, 2, 8 in bf16
-    and float32, window 0; bf16 m 1 with window 1024), then kernel, plain,
-    SDPA and bound per case.  No serve path calls it: its launches are
+    and float32, window 0; bf16 m 1 with window 1024), each case's variant
+    checked (bf16 at D 128: the tensor-core kernel) and a call's kernels
+    counted by the profiler (two: the split kernel and the merge); then the
+    kernel and SDPA by CUDA-graph replay in turns, 5 rounds, with eager
+    readings beside, the plain version and the bound per case.  ``ptxas``:
+    the lines of its kernels.  No serve path calls it: its launches are
     counted over this phase.  Returns (record, launches)."""
     scale = 1.0 / math.sqrt(128)
     cases = [(dt, m, 0) for dt in (torch.bfloat16, torch.float32)
              for m in (1, 2, 8)] + [(torch.bfloat16, 1, 1024)]
     bad, rec, err_bf16 = [], None, 0.0
-    da.decode_attention_cuda.launches = 0
+    reset_counts({"decode_attention": da.decode_attention_cuda})
     outs = []
     for dtype, m, window in cases:
         c = decode_case(torch, dtype, m)
         outs.append(da.decode_attention(c["q"], c["k"], c["v"], c["q_pos"],
                                         c["kv_pos"], window=window, scale=scale))
     launches = da.decode_attention_cuda.launches
-    check(launches == len(cases), f"decode_attention: {launches} launches "
-          f"through the op for {len(cases)} calls on the card")
+    variants = dict(da.decode_attention_cuda.variant_launches)
+    want = {v: sum(da.decode_variant(dt, 128, 128) == v for dt, _, _ in cases)
+            for v in variants}
+    check(launches == len(cases) and variants == want and want["mma"] == 4,
+          f"decode_attention: {launches} launches through the op for "
+          f"{len(cases)} calls on the card, per variant {variants}, expected {want}")
+    for line in ptxas:
+        print(f"[kernels] decode_attention ptxas {line}")
     for (dtype, m, window), out in zip(cases, outs):
         dn = str(dtype).split(".")[-1]
+        variant = da.decode_variant(dtype, 128, 128)
         c = decode_case(torch, dtype, m)
         args = (c["q"], c["k"], c["v"], c["q_pos"], c["kv_pos"])
         ref = da.decode_attention_plain(*args, window=window, scale=scale)
         err, ok, tol = agree(torch, "decode_attention", dn, out, ref,
                              atol=DECODE_BF16_ATOL)
+        ratio = (bf16_bar_ratio(torch, out, ref, DECODE_BF16_ATOL)
+                 if dtype == torch.bfloat16 else err / TOL["decode_attention", dn])
         if not (ok and bool(torch.isfinite(out).all())):
             bad.append(f"decode_attention {dn} m={m} window={window}: max abs err "
                        f"{err:.3e} ({tol})")
         if dtype == torch.bfloat16:
             err_bf16 = max(err_bf16, err)
+        kernels = device_kernels(torch, lambda: da.decode_attention_cuda(
+            *args, window=window, scale=scale))
+        if len(kernels) != 2:
+            bad.append(f"decode_attention {dn} m={m}: one call ran {kernels}, "
+                       f"not two kernels")
         B, _, Hq, D = c["q"].shape
         C, Hkv = c["k"].shape[1:3]
+        n_split, split_len = da.decode_attention_cuda.last_split  # the profiled call's
         # the bytes the data needs: K and V of every slot some query may
         # attend, q, the output and the positions
         qp, kp = c["q_pos"][:, :, None], c["kv_pos"][:, None, :]
@@ -534,9 +610,9 @@ def decode_check(torch, F, da):
                    + nbytes(c["q"], out, c["q_pos"], c["kv_pos"]))
         sets = [c] + [decode_case(torch, dtype, m, seed=s)
                       for s in range(1, n_sets(nbytes(c["k"], c["v"])))]
-        k_ms = time_ms(torch, [lambda s=s: da.decode_attention_cuda(
+        calls = [lambda s=s: da.decode_attention_cuda(
             s["q"], s["k"], s["v"], s["q_pos"], s["kv_pos"], window=window,
-            scale=scale) for s in sets], iters=50)
+            scale=scale) for s in sets]
         p_ms = time_ms(torch, [lambda s=s: da.decode_attention_plain(
             s["q"], s["k"], s["v"], s["q_pos"], s["kv_pos"], window=window,
             scale=scale) for s in sets], iters=6)
@@ -546,18 +622,27 @@ def decode_check(torch, F, da):
         lib_sets = [(s["q"].transpose(1, 2), s["k"].transpose(1, 2).repeat_interleave(g, 1),
                      s["v"].transpose(1, 2).repeat_interleave(g, 1), valid[:, None])
                     for s in sets]
-        l_ms = time_ms(torch, [lambda t=t: F.scaled_dot_product_attention(
-            t[0], t[1], t[2], attn_mask=t[3], scale=scale) for t in lib_sets],
-            iters=50)
+        lib_calls = [lambda t=t: F.scaled_dot_product_attention(
+            t[0], t[1], t[2], attn_mask=t[3], scale=scale) for t in lib_sets]
+        k_turns, l_turns = in_turns(torch, calls, lib_calls)
+        k_ms, l_ms = statistics.median(k_turns), statistics.median(l_turns)
+        k_eager = time_ms(torch, calls, iters=50)
+        l_eager = time_ms(torch, lib_calls, iters=50)
         pairs = valid_pairs(torch, c["q_pos"], c["kv_pos"], window) * Hq
         b_ms, b_by = bound_ms(per_set, pairs * 4 * D, dn)
         print(f"[kernels] decode_attention {dn} B{B} m{m} Hq{Hq} Hkv{Hkv} D{D} "
-              f"C{C} window {window}: max_abs_err {err:.3e} ({tol}) kernel "
-              f"{k_ms:.4f} ms plain {p_ms:.4f} ms sdpa {l_ms:.4f} ms bound "
-              f"{b_ms:.4f} ms ({b_by}: {per_set / 1e6:.1f} MB)")
+              f"C{C} window {window} variant {variant}, n_split {n_split} x "
+              f"{split_len} keys, one call = {len(kernels)} kernels ("
+              + ", ".join(f"{n} {us:.1f} us" for n, us in kernels)
+              + f", profiled): "
+              f"max_abs_err {err:.3e} ({tol}), worst ratio to its bar {ratio:.3f}; "
+              f"graph replay in turns, 5 rounds: kernel {turns_text(k_turns)}, "
+              f"sdpa {turns_text(l_turns)}, kernel / sdpa {k_ms / l_ms:.3f}; eager: "
+              f"kernel {k_eager:.4f} ms, sdpa {l_eager:.4f} ms; plain {p_ms:.4f} ms; "
+              f"bound {b_ms:.4f} ms ({b_by}: {per_set / 1e6:.1f} MB)")
         if (dtype, m, window) == (torch.bfloat16, 1, 0):
             rec = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=l_ms)
+                       library_ms=l_ms, variant=variant)
         del sets, lib_sets, c, ref
     del outs
     torch.cuda.empty_cache()
@@ -907,7 +992,11 @@ def main() -> None:
     rec = kernel_checks(torch, F, fa, pa, ep, flash_ptxas, paged_ptxas)
     from repro_torch.kernels.decode_attention import ops as da
 
-    rec["decode_attention"], decode_launches = decode_check(torch, F, da)
+    decode_ptxas = [line for kernel in ("decode_mma_kernel", "decode_split_kernel",
+                                        "decode_merge_kernel")
+                    for line in ptxas_report(_build.BUILD_LOG.get("decode_attention", ""),
+                                             kernel)]
+    rec["decode_attention"], decode_launches = decode_check(torch, F, da, decode_ptxas)
     phases["kernel_checks_s"] = time.perf_counter() - t0
 
     # ---- 4. eat-paper-8b, full width and depth, random weights on the card

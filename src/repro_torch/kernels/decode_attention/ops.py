@@ -10,11 +10,16 @@ caches).  Semantics are ``attention(causal=True)``.
   TPU kernel's arithmetic rather than the XLA path's: q cast to float32
   and then scaled, K and V in float32, probabilities kept in float32
   through P·V, an online softmax over fixed kv blocks with the -1e30
-  sentinel, and 0 where no key is valid.  The CUDA kernel then differs
-  from it by summation order only.
-* ``decode_attention_cuda`` — the hand-written kernel
+  sentinel, and 0 where no key is valid.  The scalar CUDA kernel differs
+  from it by summation order only; the tensor-core kernel also scales the
+  float32 score rather than q, and carries each probability as two bf16
+  parts (hi + lo, a residual under 2^-17 of p) into P·V.
+* ``decode_attention_cuda`` — the hand-written kernels
   (``csrc/decode_attention.cu``, replacing ``decode_attention_pallas``): a
-  split-KV flash-decode with a deterministic merge of the splits.
+  split-KV flash-decode with a deterministic merge of the splits, its split
+  kernel chosen by ``decode_variant`` (the bf16 tensor-core kernel or the
+  scalar one).  A call is two launches and copies nothing: the kernels read
+  q and write the output in their (B, m, Hq, D) layout.
 * ``decode_attention`` — the dispatcher: ``impl="auto"`` picks the kernel
   for CUDA tensors and the plain version for CPU tensors.
 """
@@ -37,12 +42,35 @@ _BLOCK_KV = 512
 # the kernel's limits: head dims, and query rows (m * g) per kv head
 MAX_HEAD_DIM = 128
 MAX_ROWS = 64
-# keys per shared-memory tile of the kernel (csrc/decode_attention.cu TILE)
+# keys per shared-memory tile of the kernels (csrc/decode_attention.cu TILE)
 _TILE = 64
+# splits per (b, h) at most: the merge stages every split's (m, l) per row
+# in shared memory
+MAX_SPLIT = 64
+#: (Dk, Dv) pairs the bf16 tensor-core kernel is instantiated for (the
+#: REPRO_DECODE_MMA_CASE lines of the source): eat-paper-8b's and
+#: qwen3-1.7b's 128, and the GPU tests' (64, 32) and (96, 64)
+MMA_HEAD_DIMS = frozenset({(128, 128), (64, 32), (96, 64)})
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                                    _P]}
+_SIGNATURES = {
+    "decode_attention": [_I] + [_P] * 8 + [_I] * 10 + [_F, _P],
+    "decode_attention_mma": [_P] * 8 + [_I] * 10 + [_F, _P],
+    "decode_attention_occupancy": [_I] * 5 + [ctypes.POINTER(ctypes.c_int)],
+}
+# per device: SM count; per (device, variant, dtype, Dk, Dv, rows): resident
+# blocks per SM of the split kernel
+_SM_COUNT: dict[int, int] = {}
+_OCCUPANCY: dict[tuple, int] = {}
+
+
+def decode_variant(dtype, Dk: int, Dv: int) -> str:
+    """Which split kernel ``decode_attention_cuda`` launches: ``"mma"`` (bf16
+    on the tensor cores) for bfloat16 at a pair of ``MMA_HEAD_DIMS``, else
+    ``"scalar"``.  float32 stays scalar: on the tensor cores it would run
+    in TF32, short of the 1e-5 float32 bar.  ``dtype`` is a torch dtype or
+    a config's dtype name."""
+    name = str(dtype).removeprefix("torch.")
+    return "mma" if name == "bfloat16" and (Dk, Dv) in MMA_HEAD_DIMS else "scalar"
 
 
 def decode_attention_plain(q, k, v, q_pos, kv_pos, *, window: int = 0,
@@ -63,14 +91,35 @@ def decode_attention_plain(q, k, v, q_pos, kv_pos, *, window: int = 0,
     return softmax_finish(carry, q.dtype)
 
 
-def split_plan(C: int, bh: int, n_sm: int) -> tuple[int, int]:
-    """(n_split, keys per split): whole kernel tiles per split, and enough
-    splits that the (B·Hkv, n_split) grid covers the SMs at least twice
-    where the cache has that many tiles."""
+def split_plan(C: int, bh: int, slots: int) -> tuple[int, int]:
+    """(n_split, keys per split): whole kernel tiles per split, and as many
+    splits (at most ``MAX_SPLIT``, at most one per tile) as fit the
+    (B·Hkv, n_split) grid into ``slots`` resident blocks -- the SMs times
+    the split kernel's blocks per SM -- so that the grid runs in one wave
+    where the cache has the tiles for it.  One split when B·Hkv alone
+    fills the slots."""
     n_tiles = -(-C // _TILE)
-    target = min(n_tiles, -(-2 * n_sm // bh))
-    split_len = (n_tiles // target) * _TILE
+    target = max(1, min(n_tiles, MAX_SPLIT, slots // bh))
+    split_len = -(-n_tiles // target) * _TILE
     return -(-C // split_len), split_len
+
+
+def _slots(lib, device, variant: str, code: int, Dk: int, Dv: int,
+           rows: int) -> int:
+    """Resident blocks of the split kernel on the whole card: the SM count
+    times its blocks per SM at this shape, each cached per device."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    key = (idx, variant, code, Dk, Dv, rows)
+    if key not in _OCCUPANCY:
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            err = lib.decode_attention_occupancy(int(variant == "mma"), code, Dk,
+                                                 Dv, rows, ctypes.byref(blocks))
+        _build.check(err, "decode_attention occupancy")
+        _OCCUPANCY[key] = max(1, blocks.value)
+    return _SM_COUNT[idx] * _OCCUPANCY[key]
 
 
 def decode_attention_cuda(q, k, v, q_pos, kv_pos, *, window: int = 0,
@@ -78,11 +127,11 @@ def decode_attention_cuda(q, k, v, q_pos, kv_pos, *, window: int = 0,
     B, m, Hq, Dk = q.shape
     C, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     code = _build.dtype_code(q)
+    _build.expect(q, q.dtype, 4, "q")
     _build.expect(k, q.dtype, 4, "k")
     _build.expect(v, q.dtype, 4, "v")
+    _build.expect(q_pos, torch.int32, 2, "q_pos")
     _build.expect(kv_pos, torch.int32, 2, "kv_pos")
-    if not q.is_cuda or q_pos.dtype != torch.int32:
-        raise TypeError("q must be a CUDA tensor and q_pos int32")
     if (k.shape[0], k.shape[3]) != (B, Dk) or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)}")
@@ -96,30 +145,42 @@ def decode_attention_cuda(q, k, v, q_pos, kv_pos, *, window: int = 0,
         raise ValueError(f"decode_attention kernel takes head dims <= "
                          f"{MAX_HEAD_DIM} and m*g <= {MAX_ROWS} rows; got Dk "
                          f"{Dk}, Dv {Dv}, m*g {rows}")
-    # regroup q to (B, Hkv, m*g, Dk): row r = position r // g, head r % g
-    qg = q.reshape(B, m, Hkv, g, Dk).permute(0, 2, 1, 3, 4).reshape(
-        B, Hkv, rows, Dk).contiguous()
-    qpg = q_pos[:, :, None].expand(B, m, g).reshape(B, rows).contiguous()
-    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_split, split_len = split_plan(C, B * Hkv, n_sm)
+    variant = decode_variant(q.dtype, Dk, Dv)
+    if variant == "mma":
+        # its copies move 16 bytes at a time
+        for x, name in ((q, "q"), (k, "k"), (v, "v")):
+            if x.data_ptr() % 16:
+                raise ValueError(f"decode_attention (mma): {name} must be "
+                                 "16-byte aligned")
     lib = _build.load("decode_attention", _SIGNATURES)
+    n_split, split_len = split_plan(
+        C, B * Hkv, _slots(lib, q.device, variant, code, Dk, Dv, rows))
+    decode_attention_cuda.last_split = (n_split, split_len)
     part_ml = torch.empty((B * Hkv, n_split, rows, 2), dtype=torch.float32,
                           device=q.device)
     part_acc = torch.empty((B * Hkv, n_split, rows, Dv), dtype=torch.float32,
                            device=q.device)
-    out = torch.empty((B, Hkv, rows, Dv), dtype=q.dtype, device=q.device)
-    err = lib.decode_attention(
-        code, _build.ptr(qg), _build.ptr(k), _build.ptr(v),
-        _build.ptr(qpg), _build.ptr(kv_pos), _build.ptr(part_ml),
-        _build.ptr(part_acc), _build.ptr(out), B, Hkv, C, rows, Dk, Dv,
-        n_split, split_len, int(window), float(scale), _build.stream_ptr(q))
-    _build.check(err, "decode_attention")
+    out = torch.empty((B, m, Hq, Dv), dtype=q.dtype, device=q.device)
+    tensors = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(q_pos),
+               _build.ptr(kv_pos), _build.ptr(part_ml), _build.ptr(part_acc),
+               _build.ptr(out))
+    dims = (B, Hkv, C, m, g, Dk, Dv, n_split, split_len, int(window),
+            float(scale), _build.stream_ptr(q))
+    if variant == "mma":
+        err = lib.decode_attention_mma(*tensors, *dims)
+    else:
+        err = lib.decode_attention(code, *tensors, *dims)
+    _build.check(err, f"decode_attention ({variant})")
     decode_attention_cuda.launches += 1
-    return out.reshape(B, Hkv, m, g, Dv).permute(0, 2, 1, 3, 4).reshape(
-        B, m, Hq, Dv)
+    decode_attention_cuda.variant_launches[variant] += 1
+    return out
 
 
 decode_attention_cuda.launches = 0
+#: (n_split, keys per split) of the latest call
+decode_attention_cuda.last_split = None
+#: launches per split kernel (``decode_variant``); they sum to ``launches``
+decode_attention_cuda.variant_launches = {"mma": 0, "scalar": 0}
 
 
 def decode_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,

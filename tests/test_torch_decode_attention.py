@@ -107,14 +107,20 @@ def test_cuda_impl_on_cpu_tensors_raises():
         da.decode_attention_cuda(*t, scale=0.25)
 
 
-@pytest.mark.parametrize("C,bh,n_split,split_len", [
-    (4096, 32, 10, 448),     # eat-paper-8b at B 4: 320 blocks >= 2 x 132 SMs
-    (70, 4, 2, 64),          # a ragged last tile
-    (64, 32, 1, 64),         # one tile: one split
-    (4096, 512, 1, 4096),    # enough (b, h) blocks already
+@pytest.mark.parametrize("C,bh,slots,n_split,split_len", [
+    (4096, 32, 264, 8, 512),     # eat-paper-8b at B 4, 2 blocks/SM x 132 SMs
+    (4096, 32, 396, 11, 384),    # the same at 3 blocks per SM
+    (70, 4, 264, 2, 64),         # a ragged last tile
+    (64, 32, 264, 1, 64),        # one tile: one split
+    (4096, 512, 264, 1, 4096),   # enough (b, h) blocks already
+    (65536, 1, 264, 64, 1024),   # at most MAX_SPLIT splits
 ])
-def test_split_plan_covers_the_sms(C, bh, n_split, split_len):
-    assert da.split_plan(C, bh, 132) == (n_split, split_len)
+def test_split_plan_covers_the_sms(C, bh, slots, n_split, split_len):
+    """Whole tiles per split, the grid within one wave of ``slots``
+    resident blocks and at least half of it where the cache has the
+    tiles."""
+    assert da.split_plan(C, bh, slots) == (n_split, split_len)
     n, ln = n_split, split_len
-    assert (n - 1) * ln < C <= n * ln and ln % 64 == 0
-    assert n * bh >= min(2 * 132, bh * -(-C // 64))
+    assert (n - 1) * ln < C <= n * ln and ln % 64 == 0 and n <= da.MAX_SPLIT
+    assert n * bh <= max(slots, bh)
+    assert 2 * n * bh > min(slots, bh * min(-(-C // 64), da.MAX_SPLIT))
