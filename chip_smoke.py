@@ -29,7 +29,16 @@ imports nothing of JAX or of the JAX package.  Phases:
    cases on the tensor-core kernel); each case prints the kernels of one
    call (two, by the profiler), the worst ratio of its error to the bar,
    and its time and SDPA's by graph replay in turns (5 rounds, medians,
-   eager readings beside); the ptxas lines of its kernels come first;
+   eager readings beside); the ptxas lines of its kernels come first.
+   The SSD scan against its plain version at ``mamba2-2.7b``'s prefill
+   shapes (zero and nonzero initial state), both variants
+   (``ops.ssd_variant``: the chunk-parallel tensor-core kernels, which
+   mamba2-2.7b takes, and the scalar kernel), with the kernels of one call
+   (profiler), the ptxas lines of every scan kernel, both variants timed at
+   B 4 and B 1, S 512 (the serve's cohort and admission prefills) by
+   CUDA-graph replay in turns, the plain time, and two bounds of the
+   function's work, C B^T once per group (3xTF32 on the tensor cores;
+   float32 FMAs), with the same two for the TPU kernel's work beside;
 4. ``eat-paper-8b`` at full width with seeded random weights made on the
    card: kernel path vs plain path on a short input (float32 with the depth
    cut to 4 layers, then bfloat16 at the full 36), then a paged self-EAT
@@ -43,9 +52,7 @@ imports nothing of JAX or of the JAX package.  Phases:
    and depth, with the generator's probe count 0 in both and every launch
    attributed to its tier (flash: 36 per 8B prefill and 28 per
    ``qwen3-1.7b`` prefill, all of them the tensor-core kernel);
-5. ``mamba2-2.7b`` (the 8B model freed first): the SSD scan kernel against
-   its plain version at the main-path prefill shapes (zero and nonzero
-   initial state) with its times and bound; kernel path vs plain path of
+5. ``mamba2-2.7b`` (the 8B model freed first): kernel path vs plain path of
    the model (float32 cut to 4 layers, then bfloat16 at the full 64); a ring
    self-EAT serve of 8 requests through 4 slots at full width and depth
    with the launches of its kernels counted;
@@ -73,7 +80,7 @@ SRC = ROOT / "src"
 
 # H100 SXM (NVIDIA data sheet): HBM rate and dense peak per input type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 L2_BYTES = 50 * 2**20
 
 # kernel vs plain, on the card: both compute in float32 from the same
@@ -184,21 +191,29 @@ def turns_text(ts) -> str:
     return f"{statistics.median(ts):.4f} ms (range {min(ts):.4f}-{max(ts):.4f})"
 
 
-def device_kernels(torch, fn) -> list[tuple[str, float]]:
+def device_kernels(torch, fn, sessions: int = 5) -> list[tuple[str, float]]:
     """(name, device µs) of each kernel one call of ``fn`` runs on the
-    card, by torch.profiler (after one unprofiled call)."""
+    card, by torch.profiler (after one unprofiled call).  Now and then a
+    session this short reads no device event at all on the card, which no
+    call that launches a kernel can give: such a session is repeated, up to
+    ``sessions`` in all (the list stays empty if every one is)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [(e.key.removeprefix("void ").removeprefix("(anonymous namespace)::")
-             .split("<")[0].split("(")[0], e.self_device_time_total / e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            for _ in range(e.count)]
+    kernels = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [(e.key.removeprefix("void ").removeprefix("(anonymous namespace)::")
+                    .split("<")[0].split("(")[0], e.self_device_time_total / e.count)
+                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                   for _ in range(e.count)]
+        if kernels:
+            break
+    return kernels
 
 
 def n_sets(bytes_per_set: int) -> int:
@@ -247,16 +262,17 @@ def nbytes(*ts) -> int:
 
 
 def ptxas_report(log: str, kernel: str) -> list[str]:
-    """``nvcc -Xptxas=-v`` lines of each instantiation of ``kernel`` in a
-    build log, as "name<element type, int template args>: N registers, S
-    bytes spill stores, L bytes spill loads"."""
+    """``nvcc -Xptxas=-v`` lines of each instantiation of ``kernel`` (a
+    template or a plain function) in a build log, as "name<element type, int
+    template args>: N registers, S bytes spill stores, L bytes spill
+    loads"."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             mangled = m.group(1)
             name = None
-            if re.search(rf"\d{kernel}I", mangled):
+            if re.search(rf"\d{kernel}[IE]", mangled):
                 args = (["bf16"] if "bfloat16" in mangled else ["float"]) + \
                     re.findall(r"Li(\d+)E", mangled)
                 name = f"{kernel}<{','.join(args)}>"
@@ -690,56 +706,101 @@ def ssd_case(torch, seed=0, B=4, S=512, nh=80, hp=64, G=1, N=128, h0=True):
     return c
 
 
-def ssd_check(torch, ss, L=128):
-    """Phase 5a: the scan kernel against its plain version at the main-path
-    prefill shapes, initial state zero (None) and nonzero; then kernel,
-    plain and bound at the serve's own call (the cache's state passed as
-    h0).  Returns the kernel's record."""
+def ssd_check(torch, ss, ptxas, L=128):
+    """Phase 3, the SSD scan: the scan against its plain version at the main-path
+    prefill shapes, initial state zero (None) and nonzero, through each
+    variant (``ss.ssd_variant`` must pick the tensor cores at these shapes);
+    the kernels of one call by the profiler; then, at the serve's own calls
+    (the cache's state passed as h0) at B 4 and B 1, S 512, both variants by
+    CUDA-graph replay in turns (5 rounds, medians; eager beside), the plain
+    version, the tensor-core bound (3xTF32: three products per product at
+    the TF32 rate) and the float32-FMA bound of the function's work, and
+    both for the TPU kernel's work (C B^T per head) beside.  ``ptxas``: the
+    lines of the scan's kernels.  Returns the record of the variant the op picks at B 4."""
+    N, hp = 128, 64
+    variant = ss.ssd_variant(L, N, hp)
+    check(variant == "mma", f"ssd_scan: mamba2-2.7b's shapes route to {variant}")
+    for line in ptxas:
+        print(f"[kernels] ssd_scan ptxas {line}")
     bad, err = [], 0.0
     for with_h0 in (False, True):
         c = ssd_case(torch, seed=int(with_h0), h0=with_h0)
         args = (c["u"], c["logd"], c["Bm"], c["Cm"])
-        out = ss.ssd_scan_cuda(*args, chunk=L, h0=c["h0"])
         ref = ss.ssd_scan_plain(*args, chunk=L, h0=c["h0"])
-        for what, o, r in zip(("y", "h_final"), out, ref):
-            e = (o - r).abs().max().item()
-            bar = SSD_REL_TOL * r.abs().max().item()
-            ok = bool(torch.isfinite(o).all()) and e <= bar
-            if not ok:
-                bad.append(f"ssd_scan h0={with_h0} {what}: max abs err {e:.3e} > {bar:.3e}")
-            if what == "y":
-                err = max(err, e)
-            print(f"[kernels] ssd_scan float32 B4 S512 nh80 hp64 G1 N128 L{L} "
-                  f"h0={'nonzero' if with_h0 else 'none'} {what}: max_abs_err "
-                  f"{e:.3e} (tol {SSD_REL_TOL:g} x max|{what}| = {bar:.3e})")
-        del out, ref
+        for v in ss.KERNELS_PER_CALL:
+            out = ss.ssd_scan_cuda(*args, chunk=L, h0=c["h0"], variant=v)
+            for what, o, r in zip(("y", "h_final"), out, ref):
+                e = (o - r).abs().max().item()
+                bar = SSD_REL_TOL * r.abs().max().item()
+                if not (bool(torch.isfinite(o).all()) and e <= bar):
+                    bad.append(f"ssd_scan {v} h0={with_h0} {what}: max abs err "
+                               f"{e:.3e} > {bar:.3e}")
+                if what == "y" and v == variant:
+                    err = max(err, e)
+                print(f"[kernels] ssd_scan float32 B4 S512 nh80 hp64 G1 N128 L{L} "
+                      f"variant {v} h0={'nonzero' if with_h0 else 'none'} {what}: "
+                      f"max_abs_err {e:.3e} (tol {SSD_REL_TOL:g} x max|{what}| = "
+                      f"{bar:.3e}; {e / bar:.3f} of it)")
+            del out
+        del ref
     check(not bad, "; ".join(bad))
-    c = ssd_case(torch, seed=2)
-    args = (c["u"], c["logd"], c["Bm"], c["Cm"])
-    B, S, nh, hp = c["u"].shape
-    N = c["Bm"].shape[3]
-    y, hf = ss.ssd_scan_cuda(*args, chunk=L, h0=c["h0"])
-    per_set = nbytes(*args, c["h0"], y, hf)
-    sets = [c] + [ssd_case(torch, seed=s) for s in range(3, 2 + n_sets(per_set))]
-    k_ms = time_ms(torch, [lambda s=s: ss.ssd_scan_cuda(
-        s["u"], s["logd"], s["Bm"], s["Cm"], chunk=L, h0=s["h0"]) for s in sets])
-    p_ms = time_ms(torch, [lambda s=s: ss.ssd_scan_plain(
-        s["u"], s["logd"], s["Bm"], s["Cm"], chunk=L, h0=s["h0"]) for s in sets],
-        iters=6)
-    # per (b, head, chunk of l steps): y_t sums s <= t only, so C B^T and
-    # its product with U need the causal triangle, l (l + 1) / 2 entries at
-    # 2 N and 2 hp FLOPs each; C h_prev and the state update 2 l N hp each.
-    # A partial last chunk counts at its own length.
-    lens = [min(L, S - c0) for c0 in range(0, S, L)]
-    flops = B * nh * sum(l * (l + 1) * (N + hp) + 4 * l * N * hp for l in lens)
-    b_ms, b_by = bound_ms(per_set, flops, "float32")
-    print(f"[kernels] ssd_scan float32 B{B} S{S} nh{nh} hp{hp} G1 N{N} L{L}: "
-          f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}: "
-          f"{per_set / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); library: none, no "
-          f"single PyTorch call computes the chunked scan")
-    del sets, c, y, hf
-    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+    rec = None
+    for B in (4, 1):
+        c = ssd_case(torch, seed=2, B=B)
+        args = (c["u"], c["logd"], c["Bm"], c["Cm"])
+        S, nh = c["u"].shape[1:3]
+        y, hf = ss.ssd_scan_cuda(*args, chunk=L, h0=c["h0"])
+        per_set = nbytes(*args, c["h0"], y, hf)
+        sets = [c] + [ssd_case(torch, seed=s, B=B) for s in range(3, 2 + n_sets(per_set))]
+        calls = {v: [lambda s=s, v=v: ss.ssd_scan_cuda(
+            s["u"], s["logd"], s["Bm"], s["Cm"], chunk=L, h0=s["h0"], variant=v)
+            for s in sets] for v in ss.KERNELS_PER_CALL}
+        kernels = {v: device_kernels(torch, calls[v][0]) for v in calls}
+        for v, ks in kernels.items():
+            if len(ks) != ss.KERNELS_PER_CALL[v]:
+                bad.append(f"ssd_scan {v} B{B}: one call ran {ks}, not "
+                           f"{ss.KERNELS_PER_CALL[v]} kernels")
+        m_turns, s_turns = in_turns(torch, calls["mma"], calls["scalar"])
+        eager = {v: time_ms(torch, calls[v]) for v in calls}
+        p_ms = time_ms(torch, [lambda s=s: ss.ssd_scan_plain(
+            s["u"], s["logd"], s["Bm"], s["Cm"], chunk=L, h0=s["h0"]) for s in sets],
+            iters=6)
+        # the function's work: per (b, group, chunk of l steps), C B^T over
+        # the causal triangle, l (l + 1) / 2 entries at 2 N FLOPs (G = 1:
+        # every head shares it); per (b, head, chunk), its product with U at
+        # 2 hp FLOPs an entry, C h_prev and the state update 2 l N hp each.
+        # A partial last chunk counts at its own length.  The TPU kernel
+        # (and the scalar variant) computes C B^T per head: its work is
+        # printed beside, as a yardstick.
+        lens = [min(L, S - c0) for c0 in range(0, S, L)]
+        cb_flops = B * sum(l * (l + 1) * N for l in lens)
+        flops = cb_flops + B * nh * sum(l * (l + 1) * hp + 4 * l * N * hp for l in lens)
+        tpu_flops = flops + (nh - 1) * cb_flops
+        b_ms, b_by = bound_ms(per_set, 3 * flops, "tf32")
+        f_ms, f_by = bound_ms(per_set, flops, "float32")
+        t_ms, _ = bound_ms(per_set, 3 * tpu_flops, "tf32")
+        tf_ms, _ = bound_ms(per_set, tpu_flops, "float32")
+        m_ms, s_ms = statistics.median(m_turns), statistics.median(s_turns)
+        print(f"[kernels] ssd_scan float32 B{B} S{S} nh{nh} hp{hp} G1 N{N} L{L} "
+              f"h0=nonzero: graph replay in turns, 5 rounds: mma {turns_text(m_turns)}, "
+              f"scalar {turns_text(s_turns)}, mma / scalar {m_ms / s_ms:.3f}; eager: "
+              f"mma {eager['mma']:.4f} ms, scalar {eager['scalar']:.4f} ms; plain "
+              f"{p_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: 3 x {flops / 1e9:.2f} "
+              f"GFLOP at the TF32 rate, {per_set / 1e6:.1f} MB), float32-FMA bound "
+              f"{f_ms:.4f} ms ({f_by}); the TPU kernel's work (C B^T per head, "
+              f"{tpu_flops / 1e9:.2f} GFLOP): 3xTF32 {t_ms:.4f} ms, float32-FMA "
+              f"{tf_ms:.4f} ms; library: none, no single PyTorch call computes "
+              f"the chunked scan")
+        for v, ks in kernels.items():
+            print(f"[kernels] ssd_scan B{B} variant {v}: one call = {len(ks)} kernels ("
+                  + ", ".join(f"{n} {us:.1f} us" for n, us in ks) + ", profiled)")
+        if B == 4:
+            rec = dict(max_abs_err=err, ms=m_ms, plain_ms=p_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=None, variant=variant)
+        del sets, calls, c, y, hf
+    torch.cuda.empty_cache()
+    check(not bad, "; ".join(bad))
+    return rec
 
 
 # ------------------------------------------------------------------ phase 4
@@ -792,7 +853,7 @@ def rel_l2(a, b) -> float:
 
 
 def mamba_phase(torch, np, kernels, phases, profile_dir=None) -> dict:
-    """Phase 5b-c: mamba2-2.7b, kernel path vs plain path, then the ring
+    """Phase 5: mamba2-2.7b, kernel path vs plain path, then the ring
     self-EAT serve with the launches of every kernel counted (and, with
     ``profile_dir``, one more serve under the profiler).  Returns the launch
     counts of the serve."""
@@ -921,6 +982,10 @@ def mamba_phase(torch, np, kernels, phases, profile_dir=None) -> dict:
     check(launches["ssd_scan"] == cfg.n_layers * prefills,
           f"mamba2: ssd_scan launched {launches['ssd_scan']} times, expected "
           f"{cfg.n_layers} per prefill x {prefills}")
+    ssd_variants = dict(kernels["ssd_scan"].variant_launches)
+    check(ssd_variants == {"mma": cfg.n_layers * prefills, "scalar": 0},
+          f"mamba2: ssd_scan op calls per variant {ssd_variants}, expected every "
+          f"one on the tensor cores")
     check(launches["entropy_probe"] > 0, "mamba2: entropy_probe was not launched")
     n_tok = sum(r["n_reasoning"] for r in res)
     wall = phases["mamba_serve_s"]
@@ -930,7 +995,8 @@ def mamba_phase(torch, np, kernels, phases, profile_dir=None) -> dict:
           f"reasoning tokens {[r['n_reasoning'] for r in res]}, {wall:.3f} s, "
           f"{n_tok / wall:.1f} reasoning tokens/s")
     print(f"[serve] launches during the {cfg.name} serve: {json.dumps(launches)} "
-          f"(ssd_scan {cfg.n_layers} per prefill x {prefills} prefills)")
+          f"(ssd_scan {cfg.n_layers} op calls per prefill x {prefills} prefills, per "
+          f"variant {json.dumps(ssd_variants)})")
     if profile_dir:
         profile_serve(torch, serve, wall, Path(profile_dir) / "profile_mamba2.txt",
                       "profile mamba2")
@@ -997,6 +1063,16 @@ def main() -> None:
                     for line in ptxas_report(_build.BUILD_LOG.get("decode_attention", ""),
                                              kernel)]
     rec["decode_attention"], decode_launches = decode_check(torch, F, da, decode_ptxas)
+    # the scan, at mamba2-2.7b's prefill shapes; its launches come from the
+    # mamba2 serve of phase 5.  Here, before any serve is profiled: after a
+    # long profiled serve, torch.profiler sessions as short as one call
+    # have read no device events.
+    from repro_torch.kernels.ssd_scan import ops as ss
+
+    ssd_ptxas = [line for kernel in ("ssd_state_kernel", "ssd_pass_kernel",
+                                     "ssd_out_kernel", "ssd_scan_kernel")
+                 for line in ptxas_report(_build.BUILD_LOG.get("ssd_scan", ""), kernel)]
+    rec["ssd_scan"] = ssd_check(torch, ss, ssd_ptxas)
     phases["kernel_checks_s"] = time.perf_counter() - t0
 
     # ---- 4. eat-paper-8b, full width and depth, random weights on the card
@@ -1239,10 +1315,7 @@ def main() -> None:
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    from repro_torch.kernels.ssd_scan import ops as ss
-
     t0 = time.perf_counter()
-    rec["ssd_scan"] = ssd_check(torch, ss)
     kernels["ssd_scan"] = ss.ssd_scan_cuda
     m_launches = mamba_phase(torch, np, kernels, phases, args.profile)
     launches["ssd_scan"] = m_launches["ssd_scan"]

@@ -12,8 +12,13 @@ state before the first step (zeros when None).
 
 * ``ssd_scan_plain`` — the plain PyTorch version (``ssd_chunked``, with a
   sequential loop over chunks in place of ``lax.associative_scan``).
-* ``ssd_scan_cuda`` — the hand-written kernel (``csrc/ssd_scan.cu``,
-  replacing ``ssd_scan_pallas``), which also takes ``h0``.
+* ``ssd_scan_cuda`` — the hand-written kernels (``csrc/ssd_scan.cu``,
+  replacing ``ssd_scan_pallas``), which also take ``h0``.  ``ssd_variant``
+  picks one by shape: ``"mma"``, the chunk-parallel tensor-core scan (three
+  launches: the chunk states and C B^T per group; the pass over chunks;
+  the outputs; every product 3xTF32), or ``"scalar"``, one block per
+  (b, h) walking its chunks in order with float32 FMAs.  Neither keeps
+  state between calls: calls on different streams may run at once.
 * ``ssd_scan`` — the dispatcher: ``impl="auto"`` picks the kernel for CUDA
   tensors and the plain version for CPU tensors.
 """
@@ -31,8 +36,23 @@ from repro_torch.kernels import _build
 #: SSM config of the repo)
 MAX_CHUNK = MAX_STATE = 128
 MAX_HEAD_DIM = 64
+#: the tensor-core variant's tile unit: chunk, d_state and head_dim must be
+#: multiples of it (mma.m16n8k8: k and n steps of 8)
+MMA_ALIGN = 8
+#: launches per op call of each variant
+KERNELS_PER_CALL = {"mma": 3, "scalar": 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"ssd_scan": [_P] * 7 + [_I] * 7 + [_P]}
+_SIGNATURES = {"ssd_scan": [_P] * 7 + [_I] * 7 + [_P],
+               "ssd_scan_mma": [_P] * 10 + [_I] * 7 + [_P]}
+
+
+def ssd_variant(chunk: int, d_state: int, head_dim: int) -> str:
+    """The kernel a call takes, by shape alone: ``"mma"`` (tensor cores)
+    where chunk, d_state and head_dim are multiples of ``MMA_ALIGN``, else
+    ``"scalar"``."""
+    if all(x % MMA_ALIGN == 0 for x in (chunk, d_state, head_dim)):
+        return "mma"
+    return "scalar"
 
 
 def _segsum(cs: torch.Tensor) -> torch.Tensor:
@@ -94,8 +114,12 @@ def ssd_scan_plain(u, logd, Bm, Cm, *, chunk: int, h0=None):
     return y.to(u.dtype), h
 
 
-def ssd_scan_cuda(u, logd, Bm, Cm, *, chunk: int, h0=None):
-    """float32 in and out; every tensor contiguous."""
+def ssd_scan_cuda(u, logd, Bm, Cm, *, chunk: int, h0=None, variant=None):
+    """float32 in and out; every tensor contiguous, and for the mma
+    variant 16-byte aligned (its copies move 16 bytes at a time).
+    ``variant``: None for ``ssd_variant``'s choice, or ``"mma"`` /
+    ``"scalar"`` to force one (the comparisons and timings of
+    ``chip_smoke.py``)."""
     Bsz, S, nh, hp = u.shape
     G, N = Bm.shape[2], Bm.shape[3]
     for x, name, nd in ((u, "u", 4), (logd, "logd", 3), (Bm, "Bm", 4),
@@ -113,19 +137,41 @@ def ssd_scan_cuda(u, logd, Bm, Cm, *, chunk: int, h0=None):
         _build.expect(h0, torch.float32, 4, "h0")
         if tuple(h0.shape) != (Bsz, nh, N, hp):
             raise ValueError(f"h0 must be {(Bsz, nh, N, hp)}, got {tuple(h0.shape)}")
+    variant = variant or ssd_variant(chunk, N, hp)
+    if variant not in KERNELS_PER_CALL:
+        raise ValueError(f"unknown ssd_scan variant {variant!r}")
+    if variant == "mma" and ssd_variant(chunk, N, hp) != "mma":
+        raise ValueError(f"the mma variant needs chunk, d_state and head_dim "
+                         f"multiples of {MMA_ALIGN}; got {chunk}, {N}, {hp}")
+    if variant == "mma":
+        for x, name in ((u, "u"), (Bm, "Bm"), (Cm, "Cm"), (h0, "h0")):
+            if x is not None and x.data_ptr() % 16:
+                raise ValueError(f"the mma variant needs {name} 16-byte aligned")
     lib = _build.load("ssd_scan", _SIGNATURES)
     y = torch.empty_like(u)
     hf = torch.empty((Bsz, nh, N, hp), dtype=torch.float32, device=u.device)
-    err = lib.ssd_scan(
-        _build.ptr(u), _build.ptr(logd), _build.ptr(Bm), _build.ptr(Cm),
-        None if h0 is None else _build.ptr(h0), _build.ptr(y), _build.ptr(hf),
-        Bsz, S, nh, hp, G, N, int(chunk), _build.stream_ptr(u))
-    _build.check(err, "ssd_scan")
+    tensors = (_build.ptr(u), _build.ptr(logd), _build.ptr(Bm), _build.ptr(Cm),
+               None if h0 is None else _build.ptr(h0), _build.ptr(y), _build.ptr(hf))
+    dims = (Bsz, S, nh, hp, G, N, int(chunk), _build.stream_ptr(u))
+    if variant == "mma":
+        nc, Lp = -(-S // chunk), -(-chunk // 16) * 16
+        f32 = dict(dtype=torch.float32, device=u.device)
+        states = torch.empty((Bsz, nh, nc, N, hp), **f32)
+        tot = torch.empty((Bsz, nh, nc), **f32)
+        cb = torch.empty((Bsz, nc, G, Lp, Lp), **f32)
+        err = lib.ssd_scan_mma(*tensors, _build.ptr(states), _build.ptr(tot),
+                               _build.ptr(cb), *dims)
+    else:
+        err = lib.ssd_scan(*tensors, *dims)
+    _build.check(err, f"ssd_scan ({variant})")
     ssd_scan_cuda.launches += 1
+    ssd_scan_cuda.variant_launches[variant] += 1
     return y, hf
 
 
 ssd_scan_cuda.launches = 0
+#: op calls per variant (``ssd_variant``); they sum to ``launches``
+ssd_scan_cuda.variant_launches = {"mma": 0, "scalar": 0}
 
 
 def ssd_scan(u, logd, Bm, Cm, *, chunk: int, h0=None, impl: str = "auto"):

@@ -12,7 +12,7 @@ the reference's attention kernel tests) and 3e-2 in bfloat16 (one output
 rounding at most); 1e-5 for the entropy, whose float32 output is computed
 in float32 from either input type; 1e-5 of the largest output magnitude for
 the SSD scan (float32 only; y and the final state each against their own
-largest value).  The paged kernel is held to chip_smoke.py's bars: 1e-6
+largest value; the tensor-core variant, 3xTF32, and the scalar one alike).  The paged kernel is held to chip_smoke.py's bars: 1e-6
 in float32 and one bf16 ulp of the larger output in bfloat16 (it rounds
 every probability where the plain scan does: against the running max of
 every earlier page, from scores summed in the plain version's order), and
@@ -305,14 +305,18 @@ def test_entropy_uniform_is_log_vocab(cuda):
 
 SSD_CASES = [
     # B, S, nh, hp, G, N, chunk: tests/test_ssm.py's sweep (G < nh, ragged S,
-    # chunk 4), mamba2-2.7b's head shapes over a ragged 3-chunk prompt, and
-    # the main-path prefill (B 4, S 512, 80 heads)
+    # chunk 4), mamba2-2.7b's head shapes over a ragged 3-chunk prompt, the
+    # main-path prefill (B 4, S 512, 80 heads) and the serve's admissions
+    # (B 1, S 512 and a ragged S 300).  Every case but chunk 4 takes the
+    # tensor-core variant.
     (1, 16, 2, 8, 1, 8, 8),
     (2, 37, 4, 8, 2, 16, 16),
     (2, 64, 8, 16, 1, 32, 32),
     (1, 20, 6, 8, 3, 8, 4),
     (2, 300, 4, 64, 1, 128, 128),
     (4, 512, 80, 64, 1, 128, 128),
+    (1, 512, 80, 64, 1, 128, 128),
+    (1, 300, 80, 64, 1, 128, 128),
 ]
 
 
@@ -335,15 +339,64 @@ def _ssd_inputs(rng, case, dev, with_h0):
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_ssd_scan_kernel_matches_plain(cuda, case, with_h0):
     args, h0 = _ssd_inputs(np.random.default_rng(4), case, cuda, with_h0)
-    chunk = case[-1]
+    B, S, nh, hp, G, N, chunk = case
+    variant = ss.ssd_variant(chunk, N, hp)
+    assert variant == ("scalar" if chunk == 4 else "mma")
     n = ss.ssd_scan_cuda.launches
+    before = dict(ss.ssd_scan_cuda.variant_launches)
     y, h = ss.ssd_scan(*args, chunk=chunk, h0=h0)          # auto -> the kernel
+    after = ss.ssd_scan_cuda.variant_launches
     assert ss.ssd_scan_cuda.launches == n + 1
+    assert {x: after[x] - before[x] for x in after} == \
+        {x: int(x == variant) for x in after}
     yr, hr = ss.ssd_scan_plain(*args, chunk=chunk, h0=h0)
-    for out, ref in ((y, yr), (h, hr)):
+    _within_ssd_bar((y, h), (yr, hr))
+
+
+def _within_ssd_bar(outs, refs):
+    """y and h_final each within 1e-5 of the largest magnitude of its
+    plain counterpart, finite and of its shape."""
+    for out, ref in zip(outs, refs):
         assert out.shape == ref.shape and bool(torch.isfinite(out).all())
         err = (out - ref).abs().max().item()
         assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("case", [SSD_CASES[i] for i in (0, 1, 4, 6)])
+def test_ssd_scan_scalar_variant_matches_plain(cuda, case):
+    """The scalar kernel, forced at shapes the rule sends to the tensor
+    cores, stays within the same bar (chip_smoke.py times it beside the
+    mma variant)."""
+    args, h0 = _ssd_inputs(np.random.default_rng(5), case, cuda, True)
+    chunk = case[-1]
+    out = ss.ssd_scan_cuda(*args, chunk=chunk, h0=h0, variant="scalar")
+    _within_ssd_bar(out, ss.ssd_scan_plain(*args, chunk=chunk, h0=h0))
+
+
+@pytest.mark.parametrize("variant", ["mma", "scalar"])
+def test_ssd_scan_kernels_per_call(cuda, variant):
+    """One op call runs ssd_scan.KERNELS_PER_CALL[variant] kernels on the
+    card (the profiler's count), at the admission shape B 1, S 512.  A
+    session that reads no device event at all (a short one now and then
+    does) is repeated, up to 5 in all, as chip_smoke.py's device_kernels
+    does."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args, h0 = _ssd_inputs(np.random.default_rng(6), SSD_CASES[6], cuda, True)
+    ss.ssd_scan_cuda(*args, chunk=128, h0=h0, variant=variant)
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ss.ssd_scan_cuda(*args, chunk=128, h0=h0, variant=variant)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA for _ in range(e.count)]
+        if names:
+            break
+    ours = [n for n in names if "ssd_" in n]
+    assert len(ours) == ss.KERNELS_PER_CALL[variant], names
 
 
 def test_ssd_scan_refuses_bad_inputs(cuda):
@@ -356,6 +409,38 @@ def test_ssd_scan_refuses_bad_inputs(cuda):
         ss.ssd_scan_cuda(*args, chunk=256)
     with pytest.raises(ValueError):
         ss.ssd_scan_cuda(*args, chunk=8, h0=torch.zeros((1, 2, 8, 4), device=cuda))
+    with pytest.raises(ValueError):                        # chunk 4: no mma tiles
+        ss.ssd_scan_cuda(*args, chunk=4, variant="mma")
+    shifted = torch.empty(args[0].numel() + 1, device=cuda)[1:].view(args[0].shape)
+    with pytest.raises(ValueError, match="aligned"):      # mma copies 16 bytes
+        ss.ssd_scan_cuda(shifted, *args[1:], chunk=8)
+
+
+def test_ssd_scan_mma_keeps_no_state_between_calls(cuda):
+    """Two calls of the mma variant at once on two streams, and calls
+    replayed from a CUDA graph, each give what an eager call on its own
+    gives, bit for bit (at the admission shape B 1, S 512)."""
+    rng = np.random.default_rng(7)
+    sets = [_ssd_inputs(rng, SSD_CASES[6], cuda, True) for _ in range(2)]
+    run = [lambda a=a, h=h: ss.ssd_scan_cuda(*a, chunk=128, h0=h) for a, h in sets]
+    refs = [f() for f in run]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in run]
+    outs = []
+    for st, f in zip(streams, run):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append(f())
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = [f() for f in run]
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    for got in (outs, replayed):
+        for out, ref in zip(got, refs):
+            assert all(torch.equal(o, r) for o, r in zip(out, ref))
 
 
 def test_wrappers_refuse_bad_inputs(cuda):
