@@ -30,6 +30,15 @@ imports nothing of JAX or of the JAX package.  Phases:
    call (two, by the profiler), the worst ratio of its error to the bar,
    and its time and SDPA's by graph replay in turns (5 rounds, medians,
    eager readings beside); the ptxas lines of its kernels come first.
+   The entropy probe at ``eat-paper-8b`` width (B 4 and B 32), at
+   ``qwen3-1.7b``'s tied table (its transposed view) and at
+   ``mamba2-2.7b``'s width, each bf16 case routed to the tensor-core
+   variant (``ops.entropy_variant``; checked) and both variants held to the
+   plain version, timed in turns by CUDA-graph replay (5 rounds, medians),
+   the routed call eager, the plain version, a bf16 ``torch.matmul(h, w)``
+   as a yardstick of part of the work, the byte bound, and the kernels of
+   one call (two, by the profiler); float32 on the scalar kernel; the
+   ptxas lines of its kernels first.
    The SSD scan against its plain version at ``mamba2-2.7b``'s prefill
    shapes (zero and nonzero initial state), both variants
    (``ops.ssd_variant``: the chunk-parallel tensor-core kernels, which
@@ -43,7 +52,8 @@ imports nothing of JAX or of the JAX package.  Phases:
    card: kernel path vs plain path on a short input (float32 with the depth
    cut to 4 layers, then bfloat16 at the full 36), then a paged self-EAT
    serve of 8 requests through 4 slots with every launch counted (every
-   flash launch the tensor-core kernel: 36 per prefill, none scalar), and a
+   flash launch the tensor-core kernel: 36 per prefill, none scalar; every
+   entropy call the tensor-core kernel), and a
    ring serve of the same workload that must give bitwise identical token
    streams;
    then the same workload served black-box (``monitor_mode == "proxy"``):
@@ -51,11 +61,13 @@ imports nothing of JAX or of the JAX package.  Phases:
    paged serve bitwise, and once monitored by ``qwen3-1.7b`` at full width
    and depth, with the generator's probe count 0 in both and every launch
    attributed to its tier (flash: 36 per 8B prefill and 28 per
-   ``qwen3-1.7b`` prefill, all of them the tensor-core kernel);
+   ``qwen3-1.7b`` prefill, all of them the tensor-core kernel; the proxy's
+   entropy calls, on its tied table, too);
 5. ``mamba2-2.7b`` (the 8B model freed first): kernel path vs plain path of
    the model (float32 cut to 4 layers, then bfloat16 at the full 64); a ring
    self-EAT serve of 8 requests through 4 slots at full width and depth
-   with the launches of its kernels counted;
+   with the launches of its kernels counted (every entropy call the
+   tensor-core kernel);
 6. one JSON line per the contract: ``{"kernels": [...]}`` (five records), the card line,
    and the last line ``{"ok": true, "device": {...}}``.
 
@@ -285,6 +297,13 @@ def ptxas_report(log: str, kernel: str) -> list[str]:
     return [f"{n}: {r}, {sp}" for n, r, sp in out]
 
 
+def check_entropy_mma(what: str, counts: dict, calls: int) -> None:
+    """Every entropy call of a bf16 serve is the tensor-core kernel."""
+    check(calls > 0 and counts == {"mma": calls, "scalar": 0},
+          f"{what}: entropy_probe calls per variant {counts}, expected all "
+          f"{calls} on mma")
+
+
 def reset_counts(kernels: dict) -> None:
     """Every launch count to 0 (the flash kernel's per-variant counts too)."""
     for fn in kernels.values():
@@ -351,11 +370,101 @@ def paged_case(torch, pa, dtype, m, seed=0, B=4, Hq=32, Hkv=8, D=128, ps=16,
                 num_blocks=NB), (k_ring, v_ring, kv_pos)
 
 
-def entropy_case(torch, dtype, seed=0, B=4, d=4096, vocab=151_936, Vp=152_064):
-    g = torch.Generator(device="cuda").manual_seed(seed)
+def entropy_case(torch, dtype, B, d, Vp, vocab, tied):
+    """h (B, d) and the unembedding w (d, Vp) at a model's width: untied, or
+    for a tied config the transposed view of a (Vp, d) table."""
+    g = torch.Generator(device="cuda").manual_seed(0)
     h = torch.randn((B, d), generator=g, device="cuda").to(dtype)
-    w = (torch.randn((d, Vp), generator=g, device="cuda") * (2.0 / d ** 0.5)).to(dtype)
-    return dict(h=h, w=w, vocab=vocab)
+    shape = (Vp, d) if tied else (d, Vp)
+    w = (torch.randn(shape, generator=g, device="cuda") * (2.0 / d ** 0.5)).to(dtype)
+    return dict(h=h, w=w.t() if tied else w, vocab=vocab)
+
+
+# the entropy probe's phase-3 cases: (what, dtype name, B, d, Vp, vocab,
+# tied): eat-paper-8b at the serve's 4 slots and at 32, qwen3-1.7b's tied
+# table, mamba2-2.7b's; float32 at 8B width on the scalar kernel
+ENTROPY_CASES = [
+    ("eat-paper-8b", "bfloat16", 4, 4096, 152_064, 151_936, False),
+    ("eat-paper-8b", "bfloat16", 32, 4096, 152_064, 151_936, False),
+    ("qwen3-1.7b", "bfloat16", 4, 2048, 152_064, 151_936, True),
+    ("mamba2-2.7b", "bfloat16", 4, 2560, 50_432, 50_280, False),
+    ("eat-paper-8b", "float32", 4, 4096, 152_064, 151_936, False),
+    ("eat-paper-8b", "float32", 32, 4096, 152_064, 151_936, False),
+]
+
+
+def entropy_check(torch, ep, ptxas):
+    """Phase 3, the entropy probe: each case of ENTROPY_CASES against the
+    plain version through the variant ``ep.entropy_variant`` picks (bf16:
+    the tensor-core kernel, checked) and, for bf16, both variants forced;
+    the kernels of one mma call by the profiler (two); both variants by
+    CUDA-graph replay in turns (5 rounds, medians), the routed call eager,
+    the plain version, ``torch.matmul(h, w)`` in bf16 by graph replay as a
+    yardstick of part of the work (it writes the logits and computes no
+    entropy) and the byte bound.  ``ptxas``: the lines of its kernels.
+    Returns the record of the bf16 eat-paper-8b B 4 case, its error the
+    largest of the bf16 cases'."""
+    for line in ptxas:
+        print(f"[kernels] entropy_probe ptxas {line}")
+    bad, rec, err_bf16 = [], None, 0.0
+    for what, dn, B, d, Vp, vocab, tied in ENTROPY_CASES:
+        dtype = getattr(torch, dn)
+        c = entropy_case(torch, dtype, B=B, d=d, vocab=vocab, Vp=Vp, tied=tied)
+        h, w = c["h"], c["w"]
+        variant = ep.entropy_variant(h, w)
+        want = "mma" if dn == "bfloat16" else "scalar"
+        if variant != want:
+            bad.append(f"entropy_probe {what} {dn} B{B}: routes to {variant}, not {want}")
+        ref = ep.next_token_entropy_plain(h, w, vocab)
+        variants = ("mma", "scalar") if variant == "mma" else ("scalar",)
+        errs = {}
+        for v in variants:
+            out = ep.entropy_probe_cuda(h, w, vocab, variant=v)
+            errs[v], ok, tol = agree(torch, "entropy_probe", dn, out, ref)
+            if not (ok and bool(torch.isfinite(out).all())
+                    and float(out.max()) <= math.log(vocab)):
+                bad.append(f"entropy_probe {what} {dn} B{B} {v}: max abs err "
+                           f"{errs[v]:.3e} ({tol}), entropies {out.tolist()[:4]}...")
+        if dn == "bfloat16":
+            err_bf16 = max(err_bf16, errs[variant])
+        calls = {v: [lambda v=v: ep.entropy_probe_cuda(h, w, vocab, variant=v)]
+                 for v in variants}
+        if variant == "mma":
+            kernels = device_kernels(torch, calls["mma"][0])
+            if len(kernels) != ep.KERNELS_PER_CALL["mma"]:
+                bad.append(f"entropy_probe {what} B{B}: one mma call ran {kernels}")
+            m_turns, s_turns = in_turns(torch, calls["mma"], calls["scalar"])
+            timed = (f"graph replay in turns, 5 rounds: mma {turns_text(m_turns)}, "
+                     f"scalar {turns_text(s_turns)}, mma / scalar "
+                     f"{statistics.median(m_turns) / statistics.median(s_turns):.3f}; "
+                     f"one mma call = {len(kernels)} kernels ("
+                     + ", ".join(f"{n} {us:.1f} us" for n, us in kernels) + ", profiled)")
+            k_ms = statistics.median(m_turns)
+        else:
+            k_ms = graph_ms(torch, calls["scalar"])
+            timed = f"scalar {k_ms:.4f} ms (graph replay)"
+        eager = time_ms(torch, [lambda: ep.entropy_probe_cuda(h, w, vocab)])
+        p_ms = time_ms(torch, [lambda: ep.next_token_entropy_plain(h, w, vocab)], iters=6)
+        mm_ms = graph_ms(torch, [lambda: torch.matmul(h, w)]) if dn == "bfloat16" else None
+        b_ms, b_by = bound_ms(nbytes(h, w) + 4 * B, 2 * B * d * Vp, dn)
+        print(f"[kernels] entropy_probe {what} {dn} B{B} d{d} Vp{Vp} vocab {vocab} "
+              f"{'tied (Vp, d) table, transposed view' if tied else 'untied (d, Vp)'}: "
+              f"variant {variant}; max_abs_err "
+              + ", ".join(f"{v} {e:.3e}" for v, e in errs.items())
+              + f" (tol {TOL['entropy_probe', dn]:g}); {timed}; eager {eager:.4f} ms; "
+              f"plain {p_ms:.4f} ms; "
+              + (f"matmul yardstick {mm_ms:.4f} ms (graph replay; logits only); "
+                 if mm_ms is not None else "")
+              + f"bound {b_ms:.4f} ms ({b_by}: {nbytes(h, w) / 1e6:.1f} MB), kernel at "
+              f"{b_ms / k_ms:.3f} of it")
+        if (what, dn, B) == ("eat-paper-8b", "bfloat16", 4):
+            rec = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None, variant=variant)
+        del c, h, w, ref, calls
+        torch.cuda.empty_cache()
+    check(not bad, "; ".join(bad))
+    rec["max_abs_err"] = err_bf16
+    return rec
 
 
 def valid_pairs(torch, q_pos, kv_pos, window=0):
@@ -367,7 +476,7 @@ def valid_pairs(torch, q_pos, kv_pos, window=0):
     return int(valid.sum())
 
 
-def kernel_checks(torch, F, fa, pa, ep, flash_ptxas, paged_ptxas):
+def kernel_checks(torch, F, fa, pa, flash_ptxas, paged_ptxas):
     """Phase 3.  Returns {kernel name: record} for the bf16 main-path case
     and prints every comparison; fails after all of them if any disagreed.
     ``flash_ptxas`` / ``paged_ptxas``: the ptxas lines of the flash and
@@ -508,37 +617,6 @@ def kernel_checks(torch, F, fa, pa, ep, flash_ptxas, paged_ptxas):
             for line in paged_ptxas:
                 print(f"[kernels] paged_attention ptxas {line}")
 
-        # ---------------- entropy probe
-        c = entropy_case(torch, dtype)
-        out = ep.entropy_probe_cuda(c["h"], c["w"], c["vocab"])
-        ref = ep.next_token_entropy_plain(c["h"], c["w"], c["vocab"])
-        err, ok, tol = agree(torch, "entropy_probe", dn, out, ref)
-        held(ok, f"entropy_probe {dn}: max abs err {err:.3e} ({tol})")
-        held(bool(torch.isfinite(out).all()) and float(out.max()) <= math.log(c["vocab"]),
-             f"entropy_probe {dn}: entropies out of range: {out.tolist()}")
-        k_ms = time_ms(torch, [lambda: ep.entropy_probe_cuda(c["h"], c["w"], c["vocab"])])
-        p_ms = time_ms(torch, [lambda: ep.next_token_entropy_plain(
-            c["h"], c["w"], c["vocab"])], iters=6)
-        B, d = c["h"].shape
-        b_ms, b_by = bound_ms(nbytes(c["h"], c["w"], out),
-                              2 * B * d * c["w"].shape[1], dn)
-        print(f"[kernels] entropy_probe {dn} B{B} d{d} Vp{c['w'].shape[1]}: "
-              f"max_abs_err {err:.3e} ({tol}) kernel {k_ms:.4f} ms "
-              f"plain {p_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
-        if dtype == torch.bfloat16:
-            rec["entropy_probe"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        del c
-        # a serve of 32 slots probes 32 rows: two row groups of the kernel
-        c = entropy_case(torch, dtype, seed=1, B=32)
-        out = ep.entropy_probe_cuda(c["h"], c["w"], c["vocab"])
-        ref = ep.next_token_entropy_plain(c["h"], c["w"], c["vocab"])
-        err, ok, tol = agree(torch, "entropy_probe", dn, out, ref)
-        held(ok, f"entropy_probe {dn} B32: max abs err {err:.3e} ({tol})")
-        k_ms = time_ms(torch, [lambda: ep.entropy_probe_cuda(c["h"], c["w"], c["vocab"])])
-        print(f"[kernels] entropy_probe {dn} B32 d4096 Vp152064: "
-              f"max_abs_err {err:.3e} ({tol}) kernel {k_ms:.4f} ms")
-        del c
         torch.cuda.empty_cache()
     check(not bad, "kernel vs plain: " + "; ".join(bad))
     return rec
@@ -986,7 +1064,8 @@ def mamba_phase(torch, np, kernels, phases, profile_dir=None) -> dict:
     check(ssd_variants == {"mma": cfg.n_layers * prefills, "scalar": 0},
           f"mamba2: ssd_scan op calls per variant {ssd_variants}, expected every "
           f"one on the tensor cores")
-    check(launches["entropy_probe"] > 0, "mamba2: entropy_probe was not launched")
+    entropy_variants = dict(kernels["entropy_probe"].variant_launches)
+    check_entropy_mma("mamba2 serve", entropy_variants, launches["entropy_probe"])
     n_tok = sum(r["n_reasoning"] for r in res)
     wall = phases["mamba_serve_s"]
     print(f"[serve] {cfg.name} ring: {sum(r['status'] in ('exited', 'exhausted') for r in res)}"
@@ -996,7 +1075,8 @@ def mamba_phase(torch, np, kernels, phases, profile_dir=None) -> dict:
           f"{n_tok / wall:.1f} reasoning tokens/s")
     print(f"[serve] launches during the {cfg.name} serve: {json.dumps(launches)} "
           f"(ssd_scan {cfg.n_layers} op calls per prefill x {prefills} prefills, per "
-          f"variant {json.dumps(ssd_variants)})")
+          f"variant {json.dumps(ssd_variants)}; entropy_probe per variant "
+          f"{json.dumps(entropy_variants)})")
     if profile_dir:
         profile_serve(torch, serve, wall, Path(profile_dir) / "profile_mamba2.txt",
                       "profile mamba2")
@@ -1055,7 +1135,12 @@ def main() -> None:
                                        "paged_merge_kernel")
                    for line in ptxas_report(_build.BUILD_LOG.get("paged_attention", ""),
                                             kernel)]
-    rec = kernel_checks(torch, F, fa, pa, ep, flash_ptxas, paged_ptxas)
+    rec = kernel_checks(torch, F, fa, pa, flash_ptxas, paged_ptxas)
+    entropy_ptxas = [line for kernel in ("entropy_mma_kernel", "tile_stats_kernel",
+                                         "merge_kernel")
+                     for line in ptxas_report(_build.BUILD_LOG.get("entropy_probe", ""),
+                                              kernel)]
+    rec["entropy_probe"] = entropy_check(torch, ep, entropy_ptxas)
     from repro_torch.kernels.decode_attention import ops as da
 
     decode_ptxas = [line for kernel in ("decode_mma_kernel", "decode_split_kernel",
@@ -1191,6 +1276,7 @@ def main() -> None:
     paged_res, phases["paged_serve_s"] = serve("paged")
     launches = {name: fn.launches for name, fn in kernels.items()}
     flash_variants = dict(fa.flash_attention_cuda.variant_launches)
+    entropy_variants = dict(ep.entropy_probe_cuda.variant_launches)
     ring_res, phases["ring_serve_s"] = serve("ring")
 
     check(len(paged_res) == n_req and all(r["status"] in ("exited", "exhausted")
@@ -1212,6 +1298,7 @@ def main() -> None:
               f"expected {want} ({per_prefill} per prefill x {prefills} prefills)")
 
     check_flash_variants("paged serve", flash_variants, cfg.n_layers)
+    check_entropy_mma("paged serve", entropy_variants, launches["entropy_probe"])
     for a, b in zip(paged_res, ring_res):
         check(a["n_reasoning"] == b["n_reasoning"]
               and a["exit_reason"] == b["exit_reason"]
@@ -1228,7 +1315,7 @@ def main() -> None:
     print(f"[serve] launches during the paged serve: {json.dumps(launches)} "
           f"(paged_attention: op calls, three kernel launches each); flash "
           f"per variant {json.dumps(flash_variants)} ({cfg.n_layers} mma per prefill "
-          f"x {prefills})")
+          f"x {prefills}); entropy per variant {json.dumps(entropy_variants)}")
 
     # ---- 4b. the same workload served black-box: the generator decodes
     # unmonitored and a proxy model's EAT supplies the exits
@@ -1248,6 +1335,7 @@ def main() -> None:
                         record_trace=True)
         torch.cuda.synchronize()
         tiers["flash_per_variant"] = dict(fa.flash_attention_cuda.variant_launches)
+        tiers["entropy_per_variant"] = dict(ep.entropy_probe_cuda.variant_launches)
         return res, time.perf_counter() - t, tiers
 
     def check_proxy_flash(what, tiers, proxy_layers):
@@ -1256,6 +1344,8 @@ def main() -> None:
               f"{what}: flash launches per tier {tiers}")
         check_flash_variants(what, tiers["flash_per_variant"],
                              cfg.n_layers + proxy_layers)
+        check_entropy_mma(what, tiers["entropy_per_variant"],
+                          tiers["proxy"]["entropy_probe"])
 
     def proxy_line(name, res, wall, tiers):
         n_tok = sum(r["n_reasoning"] for r in res)

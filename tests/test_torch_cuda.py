@@ -10,7 +10,8 @@ Tolerances: kernel and plain version both compute in float32 from the same
 inputs and differ only by summation order, so 2e-5 in float32 (the bar of
 the reference's attention kernel tests) and 3e-2 in bfloat16 (one output
 rounding at most); 1e-5 for the entropy, whose float32 output is computed
-in float32 from either input type; 1e-5 of the largest output magnitude for
+in float32 from either input type (both variants: bf16 products are exact
+in float32 on the tensor cores); 1e-5 of the largest output magnitude for
 the SSD scan (float32 only; y and the final state each against their own
 largest value; the tensor-core variant, 3xTF32, and the scalar one alike).  The paged kernel is held to chip_smoke.py's bars: 1e-6
 in float32 and one bf16 ulp of the larger output in bfloat16 (it rounds
@@ -283,17 +284,109 @@ def test_paged_kernel_splits_match_plain_and_ring(cuda, name, dtype):
                                   (40, 128, 1024, 1000)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_entropy_kernel_matches_plain(cuda, case, dtype):
-    """B = 40 spans three row groups of the kernel (16 + 16 + 8)."""
+    """B = 40 spans three row groups of the scalar kernel (16 + 16 + 8) and
+    two of the tensor-core kernel (32 + 8).  W as given and as the tied
+    view, each through the route ``entropy_variant`` picks and through
+    every variant it may take, forced."""
     B, d, Vp, vocab = case
     rng = np.random.default_rng(2)
     h = _randn(rng, (B, d), dtype, cuda)
     w = _randn(rng, (d, Vp), dtype, cuda, scale=0.3)
-    out = ep.entropy_probe_cuda(h, w, vocab)
     ref = ep.next_token_entropy_plain(h, w, vocab)
-    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
     # a tied config passes the transposed (Vp, d) table as a strided view
     wt = w.t().contiguous().t()
-    torch.testing.assert_close(ep.entropy_probe_cuda(h, wt, vocab), out)
+    bf16 = dtype == torch.bfloat16
+    assert ep.entropy_variant(h, wt) == ("mma" if bf16 else "scalar")
+    assert ep.entropy_variant(h, w) == ("mma" if bf16 and Vp % 8 == 0 else "scalar")
+    for ww in (w, wt):
+        want = ep.entropy_variant(h, ww)
+        n = ep.entropy_probe_cuda.launches
+        before = dict(ep.entropy_probe_cuda.variant_launches)
+        out = ep.entropy_probe_cuda(h, ww, vocab)
+        after = ep.entropy_probe_cuda.variant_launches
+        assert ep.entropy_probe_cuda.launches == n + 1
+        assert {x: after[x] - before[x] for x in after} == \
+            {x: int(x == want) for x in after}
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+        for variant in (("mma", "scalar") if want == "mma" else ("scalar",)):
+            torch.testing.assert_close(
+                ep.entropy_probe_cuda(h, ww, vocab, variant=variant), ref,
+                atol=1e-5, rtol=1e-5)
+
+
+def test_entropy_misaligned_layouts_take_the_scalar_kernel(cuda):
+    """bf16 W off 16-byte alignment, a table row of 68 (sv % 8), d 60, and
+    float32 each take the scalar kernel, within the bar; forcing the mma
+    variant on them raises."""
+    rng = np.random.default_rng(3)
+    h = _randn(rng, (4, 64), torch.bfloat16, cuda)
+    w = _randn(rng, (64, 1024), torch.bfloat16, cuda, scale=0.3)
+    shifted = torch.empty(w.numel() + 1, dtype=w.dtype, device=cuda)[1:].view(w.shape)
+    shifted.copy_(w)
+    table = _randn(rng, (1024, 68), torch.bfloat16, cuda, scale=0.3)
+    h60 = _randn(rng, (4, 60), torch.bfloat16, cuda)
+    w60 = _randn(rng, (60, 1024), torch.bfloat16, cuda, scale=0.3)
+    cases = [(h, shifted), (h, table[:, :64].t()), (h60, w60),
+             (h.float(), w.float())]
+    for hh, ww in cases:
+        assert ep.entropy_variant(hh, ww) == "scalar", ww.stride()
+        before = ep.entropy_probe_cuda.variant_launches["scalar"]
+        out = ep.entropy_probe_cuda(hh, ww, 1000)
+        assert ep.entropy_probe_cuda.variant_launches["scalar"] == before + 1
+        torch.testing.assert_close(out, ep.next_token_entropy_plain(hh, ww, 1000),
+                                   atol=1e-5, rtol=1e-5)
+        with pytest.raises(ValueError, match="mma variant"):
+            ep.entropy_probe_cuda(hh, ww, 1000, variant="mma")
+    with pytest.raises(ValueError, match="unknown"):
+        ep.entropy_probe_cuda(h, w, 1000, variant="tensor")
+
+
+@pytest.mark.parametrize("layout", ["untied", "tied"])
+def test_entropy_mma_two_launches_and_no_state(cuda, layout):
+    """One call of the tensor-core variant runs two kernels (the profiler's
+    count; an empty session is repeated, as chip_smoke.py's device_kernels
+    does); repeated calls, calls on two streams at once and a CUDA-graph
+    replay each give the eager output bit for bit."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(4)
+    sets = []
+    for _ in range(2):
+        h = _randn(rng, (4, 256), torch.bfloat16, cuda)
+        w = _randn(rng, (256, 8192), torch.bfloat16, cuda, scale=0.3)
+        sets.append((h, w.t().contiguous().t() if layout == "tied" else w))
+    run = [lambda h=h, w=w: ep.entropy_probe_cuda(h, w, 8000) for h, w in sets]
+    assert all(ep.entropy_variant(h, w) == "mma" for h, w in sets)
+    refs = [f() for f in run]
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run[0]()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA for _ in range(e.count)]
+        if names:
+            break
+    assert len(names) == ep.KERNELS_PER_CALL["mma"], names
+    assert sum("entropy_mma_kernel" in n for n in names) == 1, names
+    streams = [torch.cuda.Stream() for _ in run]
+    outs = []
+    for st, f in zip(streams, run):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append(f())
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = [f() for f in run]
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    for got in (outs, replayed, [f() for f in run]):
+        for out, ref in zip(got, refs):
+            assert torch.equal(out, ref)
 
 
 def test_entropy_uniform_is_log_vocab(cuda):
