@@ -7,7 +7,9 @@
 Needs one CUDA card (an H100 for the numbers in PERF.md) and ``nvcc``; it
 imports nothing of JAX or of the JAX package.  Phases:
 
-1. the card (``nvidia-smi`` name and power limit);
+1. the card (``nvidia-smi`` name and power limit), and whether torch's
+   ``CUDAGraph`` has the conditional-node methods a chunk run by the
+   device alone needs;
 2. build every CUDA kernel of the serving path from ``src/repro_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the serving path gives it at ``eat-paper-8b`` width, in bf16 and f32,
@@ -68,6 +70,11 @@ imports nothing of JAX or of the JAX package.  Phases:
    self-EAT serve of 8 requests through 4 slots at full width and depth
    with the launches of its kernels counted (every entropy call the
    tensor-core kernel);
+Every serve prints its host reads (``[serve] ... host reads``): the
+decode chunks it ran, its device-to-host snapshot copies, which must be
+one per chunk after the setup's (one per shadow chunk for the proxy
+tier), and the ``device_if`` predicate reads, the only other host reads
+in a chunk; and the wall of its first (cold) serve beside the timed one.
 6. one JSON line per the contract: ``{"kernels": [...]}`` (five records), the card line,
    and the last line ``{"ok": true, "device": {...}}``.
 
@@ -302,6 +309,48 @@ def check_entropy_mma(what: str, counts: dict, calls: int) -> None:
     check(calls > 0 and counts == {"mma": calls, "scalar": 0},
           f"{what}: entropy_probe calls per variant {counts}, expected all "
           f"{calls} on mma")
+
+
+class HostReads:
+    """The host reads of one engine's serve: decode (and shadow) chunk
+    calls, snapshot copies and ``device_if`` predicate reads, counted from
+    construction to ``line``."""
+
+    CHUNK = {"executor": "decode_chunk", "proxy_executor": "observe_chunk"}
+
+    def __init__(self, eng, device_loop):
+        self.device_loop = device_loop
+        self.tiers = {}
+        for attr, method in self.CHUNK.items():
+            ex = getattr(eng, attr, None)
+            if ex is None:
+                continue
+            calls = [0]
+            fn = getattr(ex, method)
+
+            def counted(*a, _fn=fn, _calls=calls, **kw):
+                _calls[0] += 1
+                return _fn(*a, **kw)
+
+            setattr(ex, method, counted)
+            self.tiers[attr] = (ex, calls)
+        self.base = {t: (ex.snapshot_reads, c[0]) for t, (ex, c) in self.tiers.items()}
+        self.if_base = device_loop.device_if.calls
+
+    def line(self, what: str) -> str:
+        """Checks one snapshot per chunk (plus the setup's) in every tier;
+        returns the tiers' counts as text."""
+        parts = []
+        for tier, (ex, calls) in self.tiers.items():
+            reads = ex.snapshot_reads - self.base[tier][0]
+            chunks = calls[0] - self.base[tier][1]
+            check(chunks > 0 and reads == chunks + 1,
+                  f"{what} {tier}: {reads} snapshot reads for {chunks} chunks")
+            parts.append(f"{tier} {chunks} chunks, {reads} snapshot reads")
+        ifs = self.device_loop.device_if.calls - self.if_base
+        chunks = sum(c[0] - self.base[t][1] for t, (_, c) in self.tiers.items())
+        return (f"{'; '.join(parts)}; {ifs} device_if predicate reads "
+                f"({ifs / chunks:.1f} per chunk)")
 
 
 def reset_counts(kernels: dict) -> None:
@@ -1036,18 +1085,25 @@ def mamba_phase(torch, np, kernels, phases, profile_dir=None) -> dict:
         chunk_len=chunk, sampler=SamplerConfig(greedy=True),
         cache=CacheConfig(kind="ring"))
 
+    from repro_torch.serving import device_loop
+
+    reads = []
+
     def serve():
         mon = ReasoningMonitor(stopper=EATStopper(alpha=0.2, delta=1e9),
                                probe=probe, schedule="every_n", every_n=8,
                                min_evals=2)
+        eng = ReasoningEngine(model, ecfg, mon)
+        host = HostReads(eng, device_loop)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        res = ReasoningEngine(model, ecfg, mon).serve(
-            prompts, lens, None, batch_size=batch, answer_len=4)
+        res = eng.serve(prompts, lens, None, batch_size=batch, answer_len=4)
         torch.cuda.synchronize()
-        return res, time.perf_counter() - t
+        wall = time.perf_counter() - t
+        reads[:] = [host.line("mamba2 serve")]
+        return res, wall
 
-    serve()                                         # warm-up
+    _, phases["mamba_cold_serve_s"] = serve()       # first loads of the kernels
     reset_counts(kernels)
     res, phases["mamba_serve_s"] = serve()
     launches = {name: fn.launches for name, fn in kernels.items()}
@@ -1072,7 +1128,9 @@ def mamba_phase(torch, np, kernels, phases, profile_dir=None) -> dict:
           f"/{n_req} requests finished through {batch} slots "
           f"{[r['slot'] for r in res]}, exits {exits} ({exits.count('eat')} by EAT), "
           f"reasoning tokens {[r['n_reasoning'] for r in res]}, {wall:.3f} s, "
-          f"{n_tok / wall:.1f} reasoning tokens/s")
+          f"{n_tok / wall:.1f} reasoning tokens/s (cold serve "
+          f"{phases['mamba_cold_serve_s']:.3f} s)")
+    print(f"[serve] {cfg.name} host reads: {reads[0]}")
     print(f"[serve] launches during the {cfg.name} serve: {json.dumps(launches)} "
           f"(ssd_scan {cfg.n_layers} op calls per prefill x {prefills} prefills, per "
           f"variant {json.dumps(ssd_variants)}; entropy_probe per variant "
@@ -1108,6 +1166,13 @@ def main() -> None:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[card] {card}  torch {torch.__version__} cuda {torch.version.cuda}")
+    missing = [name for name in ("begin_capture_to_if_node",
+                                 "end_capture_to_conditional_node",
+                                 "register_generator_state")
+               if not hasattr(torch.cuda.CUDAGraph, name)]
+    print("[card] CUDAGraph conditional nodes: "
+          + (f"missing {', '.join(missing)}: decode chunks run as the eager "
+             f"loop" if missing else "present"))
 
     # ---- 2. build
     from repro_torch.kernels import _build
@@ -1260,18 +1325,26 @@ def main() -> None:
                                min_evals=2)
         return ReasoningEngine(model, ecfg, mon, proxy=proxy)
 
+    from repro_torch.serving import device_loop
+
+    reads = {}
+
     def serve(kind: str):
+        eng = engine(kind)
+        host = HostReads(eng, device_loop)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        res = engine(kind).serve(prompts, lens, None, batch_size=batch,
-                                 answer_len=4, record_trace=True)
+        res = eng.serve(prompts, lens, None, batch_size=batch, answer_len=4,
+                        record_trace=True)
         torch.cuda.synchronize()
-        return res, time.perf_counter() - t
+        wall = time.perf_counter() - t
+        reads[kind] = host.line(f"{kind} serve")
+        return res, wall
 
     kernels = {"flash_attention": fa.flash_attention_cuda,
                "paged_attention": pa.paged_attention_cuda,
                "entropy_probe": ep.entropy_probe_cuda}
-    serve("paged")                                  # warm-up
+    _, phases["paged_cold_serve_s"] = serve("paged")  # first loads of the kernels
     reset_counts(kernels)
     paged_res, phases["paged_serve_s"] = serve("paged")
     launches = {name: fn.launches for name, fn in kernels.items()}
@@ -1310,8 +1383,11 @@ def main() -> None:
     print(f"[serve] paged: {n_req} requests through {batch} slots {slots}, exits {exits}, "
           f"reasoning tokens {[r['n_reasoning'] for r in paged_res]}, "
           f"{phases['paged_serve_s']:.3f} s, {n_tok / phases['paged_serve_s']:.1f} "
-          f"reasoning tokens/s; ring {phases['ring_serve_s']:.3f} s; paged == ring "
+          f"reasoning tokens/s (cold serve {phases['paged_cold_serve_s']:.3f} s); "
+          f"ring {phases['ring_serve_s']:.3f} s; paged == ring "
           f"bitwise (tokens, answers, EAT traces)")
+    for name in ("paged", "ring"):
+        print(f"[serve] {name} host reads: {reads[name]}")
     print(f"[serve] launches during the paged serve: {json.dumps(launches)} "
           f"(paged_attention: op calls, three kernel launches each); flash "
           f"per variant {json.dumps(flash_variants)} ({cfg.n_layers} mma per prefill "
@@ -1325,6 +1401,7 @@ def main() -> None:
         """A paged proxy-mode serve; returns (results, wall s, launches and
         probe calls per tier)."""
         eng = engine("paged", proxy=ProxyConfig(model=proxy_model))
+        host = HostReads(eng, device_loop)
         tiers = {"generator": {}, "proxy": {}}
         tally_launches(eng.model, kernels, tiers["generator"])
         tally_launches(eng.proxy_executor.model, kernels, tiers["proxy"])
@@ -1334,9 +1411,11 @@ def main() -> None:
         res = eng.serve(prompts, lens, None, batch_size=batch, answer_len=4,
                         record_trace=True)
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t
         tiers["flash_per_variant"] = dict(fa.flash_attention_cuda.variant_launches)
         tiers["entropy_per_variant"] = dict(ep.entropy_probe_cuda.variant_launches)
-        return res, time.perf_counter() - t, tiers
+        reads["proxy"] = host.line("proxy serve")
+        return res, wall, tiers
 
     def check_proxy_flash(what, tiers, proxy_layers):
         check(tiers["generator"]["flash_attention"] == cfg.n_layers * prefills
@@ -1356,6 +1435,7 @@ def main() -> None:
               f"{[r['n_reasoning'] for r in res]}, {wall:.3f} s, {n_tok / wall:.1f} "
               f"reasoning tokens/s; generator probe calls "
               f"{tiers['generator']['probe_calls']}; launches per tier {json.dumps(tiers)}")
+        print(f"[serve] proxy {name} host reads: {reads['proxy']}")
 
     # (i) the 8B model monitoring itself: self-EAT's serve, bitwise
     res, phases["proxy_self_serve_s"], tiers = proxy_serve(model)

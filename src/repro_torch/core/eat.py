@@ -33,8 +33,10 @@ def eval_eat(model, cache, probe: ProbeSpec, next_pos: torch.Tensor, *,
     committed."""
     B = next_pos.shape[0]
     m = len(probe)
-    toks = torch.tensor(probe.tokens, dtype=torch.long,
-                        device=next_pos.device).expand(B, m)
+    # one fill per token: a host-to-device copy would synchronise the host
+    toks = torch.stack([torch.full((B,), t, dtype=torch.long,
+                                   device=next_pos.device)
+                        for t in probe.tokens], 1)
     pos1d = (next_pos[:, None]
              + torch.arange(m, dtype=torch.int32, device=next_pos.device)[None, :])
     return model.probe_entropy(toks, pos1d, pos1d, cache,

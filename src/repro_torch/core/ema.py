@@ -45,6 +45,6 @@ def ema_debiased_var(state: EMAState, alpha: float) -> torch.Tensor:
     """V'_n; inf where no updates yet (never stops before the first
     evaluation)."""
     n = state.count.clamp_min(1).float()
-    denom = 1.0 - torch.pow(torch.tensor(1.0 - alpha, device=n.device), n)
+    denom = 1.0 - torch.pow(torch.full((), 1.0 - alpha, device=n.device), n)
     v = state.var / denom.clamp_min(1e-12)
     return torch.where(state.count > 0, v, torch.inf)

@@ -1,10 +1,10 @@
 """Reasoning-stream monitor: evaluation scheduling + stopper wiring (port of
 ``repro/core/monitor.py``).
 
-All state is tensors and every decision a mask; the one host decision is
-the lazy probe in ``observe`` — the reference's ``lax.cond`` becomes a
-Python branch on ``(due & active).any()``, so steps with no evaluation due
-pay no probe forward.
+All state is tensors and every decision a mask.  The lazy probe in
+``observe`` is the reference's ``lax.cond``: ``device_if`` on ``(due &
+active).any()`` (``serving/device_loop.py``), so steps with no evaluation
+due pay no probe forward.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core.eat import ProbeSpec
 from repro_torch.core.stopping import EATState, EATStopper
+from repro_torch.serving.device_loop import device_if
 
 
 class MonitorState(NamedTuple):
@@ -67,6 +68,8 @@ class ReasoningMonitor:
         the probe forward; with ``lazy`` it runs only when some active
         sequence hits an evaluation point."""
         due = self.due(state, new_token)
-        if not lazy or bool((due & active).any()):
+        if not lazy:
             return self.update(state, eat_fn(), due, active)
-        return self.tick_no_eval(state, active)
+        return device_if((due & active).any(),
+                         lambda: self.update(state, eat_fn(), due, active),
+                         lambda: self.tick_no_eval(state, active))

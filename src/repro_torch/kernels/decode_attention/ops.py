@@ -176,6 +176,8 @@ def decode_attention_cuda(q, k, v, q_pos, kv_pos, *, window: int = 0,
     return out
 
 
+#: op calls, counted in Python as each call launches (an eager call, or a
+#: CUDA-graph capture: a captured launch counts once, its replays not at all)
 decode_attention_cuda.launches = 0
 #: (n_split, keys per split) of the latest call
 decode_attention_cuda.last_split = None

@@ -168,6 +168,8 @@ def entropy_probe_cuda(h, w, vocab: int, *, variant=None) -> torch.Tensor:
     return out
 
 
+#: op calls, counted in Python as each call launches (an eager call, or a
+#: CUDA-graph capture: a captured launch counts once, its replays not at all)
 entropy_probe_cuda.launches = 0
 #: op calls per statistics kernel (``entropy_variant``); they sum to
 #: ``launches``

@@ -97,7 +97,7 @@ def attention_plain(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     B, Sq, Hq, Dk = q.shape
     Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     g = Hq // Hkv
-    qs = q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    qs = q * torch.full((), scale, dtype=q.dtype, device=q.device)
     qf = qs.float().reshape(B, Sq, Hkv, g, Dk)
     qp = q_pos[:, None, None, :, None]
     carry = softmax_init(B, Hkv, g, Sq, Dv, q.device)
@@ -150,6 +150,8 @@ def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     return out
 
 
+#: op calls, counted in Python as each call launches (an eager call, or a
+#: CUDA-graph capture: a captured launch counts once, its replays not at all)
 flash_attention_cuda.launches = 0
 #: launches per kernel (``flash_variant``); they sum to ``launches``
 flash_attention_cuda.variant_launches = {"mma": 0, "scalar": 0}

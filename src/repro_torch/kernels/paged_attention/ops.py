@@ -84,7 +84,7 @@ def paged_attention_plain(q, k_pool, v_pool, pages, counts, bpos, q_pos, *,
     B, m, Hq, Dk = q.shape
     Hkv, Dv = k_pool.shape[2], v_pool.shape[-1]
     g = Hq // Hkv
-    qs = q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    qs = q * torch.full((), scale, dtype=q.dtype, device=q.device)
     qf = qs.float().reshape(B, m, Hkv, g, Dk)
     qp = q_pos[:, None, None, :, None]
     carry = softmax_init(B, Hkv, g, m, Dv, q.device)
@@ -155,6 +155,8 @@ def paged_attention_cuda(q, k_pool, v_pool, pages, counts, bpos, q_pos, *,
     return out
 
 
+#: op calls, counted in Python as each call launches (an eager call, or a
+#: CUDA-graph capture: a captured launch counts once, its replays not at all)
 paged_attention_cuda.launches = 0
 
 

@@ -169,6 +169,8 @@ def ssd_scan_cuda(u, logd, Bm, Cm, *, chunk: int, h0=None, variant=None):
     return y, hf
 
 
+#: op calls, counted in Python as each call launches (an eager call, or a
+#: CUDA-graph capture: a captured launch counts once, its replays not at all)
 ssd_scan_cuda.launches = 0
 #: op calls per variant (``ssd_variant``); they sum to ``launches``
 ssd_scan_cuda.variant_launches = {"mma": 0, "scalar": 0}

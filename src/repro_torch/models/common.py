@@ -105,7 +105,8 @@ def embed_init(gen, cfg: ModelConfig, dtype, device) -> dict:
 def embed_apply(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = p["embedding"][tokens]
     if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
+                           device=x.device)
     return x
 
 

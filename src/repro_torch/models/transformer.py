@@ -10,14 +10,15 @@ Cache layout (built in ``serving/cache.py``)::
                                            # paged: pools (P, ps, Hkv, hd)
               | [ {"ssm", "conv": {"x", "bc"}} per layer ],   # arch "ssm"
      "pos": (B, C) int32 slot positions (-1 = empty),
-     "cur": int committed length (the shared ring pointer),
+     "cur": 0-dim int64 committed length (the shared ring pointer),
      ["page_table": (B, NB) int32, "blocks": {"pages","logical","count"}]}
 
 The JAX reference is pure: a probe's forward returns a new cache that the
 caller drops.  Here K/V are written into the cache tensors in place, so a
 non-committing forward (``commit=False``) builds its ``kv_pos`` as a new
 tensor and leaves ``pos`` and ``cur`` alone, and ``preserved_slots`` puts
-back any live slot such a forward overwrites.  A recurrent state has no
+back the slots such a forward overwrites.  ``cur`` stays on the device:
+nothing here reads device data on the host.  A recurrent state has no
 slots: an SSM layer returns a new state, and only a committing forward puts
 it in the cache (replacing the layer's entry, never writing into its
 tensors), so a probe or a rollout leaves the live state as it was.
@@ -36,9 +37,10 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import mlp_apply, rmsnorm
 
 
-def write_slots(cur: int, m: int, capacity: int, device) -> torch.Tensor:
+def write_slots(cur, m: int, capacity: int, device) -> torch.Tensor:
     """Slot indices (m,) for the next ``m`` tokens (ring when capacity is
-    exceeded) — the slot convention ``forward_cached`` expects."""
+    exceeded) — the slot convention ``forward_cached`` expects.  ``cur``:
+    the cache's 0-dim device tensor."""
     return (cur + torch.arange(m, device=device)) % capacity
 
 
@@ -93,12 +95,13 @@ def _slot_views(cache, slots):
 @contextlib.contextmanager
 def preserved_slots(cache, slots):
     """Run a non-committing forward that writes K/V at ``slots``: on exit,
-    every such slot that was live (``pos >= 0``) in some row gets its K/V
-    back.  Slots with ``pos == -1`` are invisible to every later read, so
-    only a ring wrap (a probe or rollout past the capacity, onto slot 0 and
-    the prompt) costs a save and a restore."""
+    every such slot gets its K/V back.  Only a slot that was live (``pos >=
+    0``: a ring wrap, a probe or rollout past the capacity onto slot 0 and
+    the prompt) needs it, but the save and restore run unconditionally, so
+    no host read of ``pos`` decides them: writing an invisible (``pos ==
+    -1``) slot's old K/V back changes no output."""
     kv = [e for e in cache["layers"] if "k" in e]
-    if not kv or not bool((cache["pos"][:, slots] >= 0).any()):
+    if not kv:
         yield
         return
     read, write = _slot_views(cache, slots)
@@ -211,7 +214,7 @@ def forward_cached(layers, final_norm, x, positions, pos1d, slots, cache,
         x = _ssm_layers(layers, x, pos1d, cache, cfg, commit=commit,
                         scan_impl=scan_impl)
         if commit:
-            cache["cur"] += m
+            cache["cur"].add_(m)
         return rmsnorm(x, final_norm, cfg.norm_eps, cfg.rmsnorm_one_plus)
     native = paged_impl != "gather" and page_native_ok(cfg, m)
     paged = None
@@ -237,5 +240,5 @@ def forward_cached(layers, final_norm, x, positions, pos1d, slots, cache,
             attn_impl=attn_impl, paged=paged, native=native,
             paged_impl=paged_impl, page_block=page_block)
     if commit:
-        cache["cur"] += m
+        cache["cur"].add_(m)
     return rmsnorm(x, final_norm, cfg.norm_eps, cfg.rmsnorm_one_plus)

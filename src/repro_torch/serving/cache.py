@@ -7,7 +7,9 @@ Layout (consumed by ``models.transformer.forward_cached``)::
     cache = {"layers": [{"k", "v"} per layer]
                      | [{"ssm", "conv": {"x", "bc"}} per layer],   # arch "ssm"
              "pos": (B, C) int32 — absolute position held in each slot, -1 = empty,
-             "cur": int — committed length (the shared ring pointer)}
+             "cur": 0-dim int64 on the cache's device — committed length
+                    (the shared ring pointer; the host keeps a mirror of it
+                    from each chunk's snapshot, never reads it mid-chunk)}
 
 SSM: ``ssm`` is the (B, nh, N, hp) float32 scan state, ``conv`` the
 (B, w-1, ·) causal-conv tails; there is no capacity axis, so no paged
@@ -80,6 +82,10 @@ def _kv(cfg: ModelConfig, lead: tuple, dtype, device) -> dict:
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _cur(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int64, device=device)
+
+
 def alloc_cache(cfg: ModelConfig, batch: int, capacity: int, *, device,
                 dtype=None) -> dict:
     """An empty ring cache with ``capacity`` kv slots per sequence (a zero
@@ -93,7 +99,7 @@ def alloc_cache(cfg: ModelConfig, batch: int, capacity: int, *, device,
                   for _ in range(cfg.n_layers)]
     return {
         "pos": torch.full((batch, capacity), -1, dtype=torch.int32, device=device),
-        "cur": 0,
+        "cur": _cur(device),
         "layers": layers,
     }
 
@@ -126,7 +132,7 @@ def alloc_paged_cache(cfg: ModelConfig, batch: int, capacity: int,
     NB = capacity // page_size
     cache = {
         "pos": torch.full((batch, capacity), -1, dtype=torch.int32, device=device),
-        "cur": 0,
+        "cur": _cur(device),
         "page_table": torch.full((batch, NB), PAGE_TRASH, dtype=torch.int32,
                                  device=device),
         "layers": [_kv(cfg, (num_pages, page_size), dtype, device)
@@ -168,7 +174,7 @@ def pack_paged_cache(paged: dict, dense: dict, table) -> dict:
     nbp = C_pre // ps
     paged["page_table"] = table
     paged["pos"][:, :C_pre] = dense["pos"]
-    paged["cur"] = dense["cur"]
+    paged["cur"].copy_(dense["cur"])
     idx = table[:, :nbp].long()
     for pe, de in zip(paged["layers"], dense["layers"]):
         for name in ("k", "v"):
@@ -195,7 +201,7 @@ def merge_paged_row(cache: dict, one: dict, row: int, row_table) -> dict:
     row_pos = torch.full((C,), -1, dtype=torch.int32, device=dev)
     row_pos[:C_pre] = one["pos"][0]
     cache["pos"][row] = row_pos
-    cache["cur"] = max(cache["cur"], one["cur"])
+    torch.maximum(cache["cur"], one["cur"], out=cache["cur"])
     idx = row_table[:nbp].long()
     for pe, oe in zip(cache["layers"], one["layers"]):
         for name in ("k", "v"):
@@ -220,7 +226,7 @@ def merge_cache_row(cache: dict, one: dict, row: int) -> dict:
     same capacity); the shared ring pointer advances to
     ``max(cur, one_cur)``."""
     cache["pos"][row] = one["pos"][0]
-    cache["cur"] = max(cache["cur"], one["cur"])
+    torch.maximum(cache["cur"], one["cur"], out=cache["cur"])
     for ce, oe in zip(cache["layers"], one["layers"]):
         for c, o in zip(_leaves(ce), _leaves(oe)):
             c[row] = o[0]

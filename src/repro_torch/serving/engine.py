@@ -12,6 +12,11 @@ list the moment it exits; the token streams, exit steps and EAT traces are
 bitwise those of the ring backend.  With ``proxy=ProxyConfig(...)`` a
 second model shadows the emitted stream and supplies the exits (black-box
 monitoring, ``serving/proxy.py``).
+
+The loop reads a chunk's outcome in one device-to-host copy
+(``Executor.snapshot``); the host's ``Snapshot`` is also its mirror of
+``cur`` and of the rows it admits between chunks, which the capacity checks
+and the page mapping read.
 """
 from __future__ import annotations
 
@@ -59,10 +64,6 @@ class EngineConfig:
     chunk_len: int = 32                  # decode steps per host round trip
     sampler: SamplerConfig = dataclasses.field(default_factory=SamplerConfig)
     cache: CacheConfig = dataclasses.field(default_factory=CacheConfig)
-
-
-def _host(x: torch.Tensor) -> np.ndarray:
-    return x.cpu().numpy()
 
 
 def _view(model, ccfg: CacheConfig):
@@ -165,7 +166,7 @@ class ReasoningEngine:
         while True:
             state = self.executor.decode_chunk(state, budget, chunk,
                                                use_monitor=use_monitor)
-            if not bool(state.active.any()):
+            if not self.executor.snapshot(state).active.any():
                 return state
 
     def _serve_setup(self, prompts, prompt_len, rng, *, batch_size: int,
@@ -224,11 +225,12 @@ class ReasoningEngine:
                               [req.slot for req in cohort])
         for req in cohort:
             req.begin_decode()
-        sched.check_capacity(int(state.cache["cur"]), "the initial batch")
+        snap = self.executor.snapshot(state)
+        sched.check_capacity(snap.cur, "the initial batch")
         if ptier is not None:
             ptier.check_capacity("the initial batch")
         return SimpleNamespace(
-            requests=requests, sched=sched, state=state, alloc=alloc,
+            requests=requests, sched=sched, state=state, snap=snap, alloc=alloc,
             paged=paged, S=S, budget=budget, chunk=chunk, C_pre=C_pre,
             ptier=ptier, gen_monitor=use_monitor and not proxy_mode,
             # the generator pays a probe tail only when IT probes; in proxy
@@ -256,46 +258,47 @@ class ReasoningEngine:
         each chunk, so harvest, traces and exit reasons read as in self-EAT
         serving.  Admissions gate on both page pools
         (``scheduler.admit_or_defer``).
+
+        The loop reads the device once per chunk (``Executor.snapshot``,
+        after the proxy's retract in proxy mode); between chunks it works
+        from that ``Snapshot``, updated for each admission.
         """
         ss = self._serve_setup(prompts, prompt_len, rng, batch_size=batch_size,
                                max_tokens=max_tokens, use_monitor=use_monitor,
                                chunk_len=chunk_len)
         sched, state, alloc, paged = ss.sched, ss.state, ss.alloc, ss.paged
         S, budget, chunk, C_pre = ss.S, ss.budget, ss.chunk, ss.C_pre
-        tail, ptier = ss.tail, ss.ptier
+        tail, ptier, snap = ss.tail, ss.ptier, ss.snap
 
         def ensure_pages(span: int, *, clamp_to_budget: bool = False):
             return self.executor.ensure_chunk_pages(
                 alloc, state, [s for s, _ in sched.bound()], span, tail=tail,
-                budget=budget if clamp_to_budget else None)
+                budget=budget if clamp_to_budget else None, cur=snap.cur,
+                n_reasoning=snap.n_reasoning)
 
         while sched.running:
-            if bool(state.active.any()):
+            if snap.active.any():
                 if paged:
                     # a chunk writes <= chunk decode tokens (fewer near the
                     # budget), each probe another len(probe) slots past them
                     state = ensure_pages(chunk + tail, clamp_to_budget=True)
-                # host copy BEFORE the chunk: it writes out_len in place
-                n_start = _host(state.out_len) if ptier is not None else None
+                # the per-row counts before the chunk, on the device
+                n_start = state.out_len.clone() if ptier is not None else None
                 state = self.executor.decode_chunk(state, budget, chunk,
                                                    use_monitor=ss.gen_monitor)
                 if ptier is not None:
                     # shadow the chunk through the proxy, then rewind
                     # overshoot rows to its exit step and install its monitor
-                    n_emitted = _host(state.out_len) - n_start
                     ptier.begin_chunk(chunk, [s for s, _ in sched.bound()])
                     new_n, pmon = ptier.observe(state.out_tokens, n_start,
-                                                n_emitted, chunk)
+                                                state.out_len - n_start, chunk)
                     state = self.executor.retract(state, new_n, pmon)
-            active_np = _host(state.active)
+                snap = self.executor.snapshot(state)
             if record_trace:
-                n_np = _host(state.n_reasoning)
-                ev_np = _host(state.monitor.n_evals)
-                var_np = _host(self.monitor.stopper.debiased_var(
-                    state.monitor.stop_state))
                 for s, req in sched.bound():
-                    req.record_trace(n_np[s], ev_np[s], var_np[s])
-            done = sched.finished_slots(active_np)
+                    req.record_trace(snap.n_reasoning[s], snap.n_evals[s],
+                                     snap.var[s])
+            done = sched.finished_slots(snap.active)
             if not done:
                 continue
             # harvest (answers roll out from the still-intact cache rows)
@@ -306,19 +309,14 @@ class ReasoningEngine:
                     # a rollout writes </think> + answer_len slots past cur
                     state = ensure_pages(answer_len + 1)
                 toks, _ = self.force_answer(state, answer_len, greedy=True)
-                ans = _host(toks)
-            out_tokens = _host(state.out_tokens)
-            out_len = _host(state.out_len)
-            n_reasoning = _host(state.n_reasoning)
-            ended = _host(state.ended_think)
-            eat_stop = _host(state.monitor.stop_flag)
+                ans = toks.cpu().numpy()
             for s, req in done:
                 sched.release(s)
                 req.finish(
-                    reasoning_tokens=out_tokens[s, :out_len[s]].copy(),
-                    n_reasoning=int(n_reasoning[s]),
-                    ended_think=bool(ended[s]),
-                    eat_stop=bool(eat_stop[s]),
+                    reasoning_tokens=snap.tokens[s, :snap.out_len[s]].copy(),
+                    n_reasoning=int(snap.n_reasoning[s]),
+                    ended_think=bool(snap.ended_think[s]),
+                    eat_stop=bool(snap.stop_flag[s]),
                     answer_tokens=ans[s].copy() if ans is not None else None,
                 )
                 if paged:
@@ -332,7 +330,7 @@ class ReasoningEngine:
             for s in (s for s, r in enumerate(sched.slots) if r is None):
                 if sched.pending == 0:
                     continue
-                sched.check_capacity(int(state.cache["cur"]), "another admission")
+                sched.check_capacity(snap.cur, "another admission")
                 if ptier is not None:
                     ptier.check_capacity("another admission")
                 # every pool must cover the prompt (all-or-nothing): the
@@ -345,10 +343,11 @@ class ReasoningEngine:
                 one = self.start(nxt.prompt[None], [nxt.prompt_len], rng,
                                  capacity=C_pre if paged else None)
                 if paged:
-                    row_table = alloc.admit_row(s, S, int(state.cache["cur"]))
+                    row_table = alloc.admit_row(s, S, snap.cur)
                     state = self.executor.admit_paged(state, one, s, row_table)
                 else:
                     state = self.executor.admit(state, one, s)
+                snap.admit(s, S)
                 if ptier is not None:
                     ptier.admit(s, nxt.prompt, nxt.prompt_len, S)
                 nxt.begin_decode()

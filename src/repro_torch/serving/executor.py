@@ -7,8 +7,11 @@ decode state into it.  PyTorch runs eagerly, so each operation here is a
 method that updates the state's cache in place, and the decode chunk is a
 Python loop over the canonical EAT step (``make_eat_step``, non-fused: a
 committed ``decode_step`` followed by a lazily gated, non-committing
-``probe_entropy``).  A caller must treat a state it hands to a mutating
-method (``decode_chunk``, ``admit``, ``admit_paged``, ``retract``,
+``probe_entropy``): the reference's chunk ``while_loop``, each step under
+``device_if`` (``serving/device_loop.py``), whose predicate reads are the
+only host reads in a chunk.  The host reads a chunk's outcome once, through
+``snapshot``.  A caller must treat a state it hands to a mutating method
+(``decode_chunk``, ``admit``, ``admit_paged``, ``retract``,
 ``observe_chunk``) as consumed and go on from the returned one.
 
   prefill        prompt -> cache fill (the cache it is given)
@@ -20,6 +23,7 @@ method (``decode_chunk``, ``admit``, ``admit_paged``, ``retract``,
   rollout        forced answer generation; leaves the cache as it was
   retract        proxy mode: rewind rows to the proxy's exit step
   observe_chunk  (ProxyExecutor) shadow a generator chunk through the proxy
+  snapshot       the packed host copy of a state (one device-to-host read)
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from repro_torch.serving.cache import (
     merge_paged_row,
     pack_paged_cache,
 )
+from repro_torch.serving.device_loop import device_if
 from repro_torch.serving.sampler import SamplerConfig, logprob_of, sample
 
 
@@ -55,6 +60,51 @@ class ServeState(NamedTuple):
     ended_think: torch.Tensor   # (B,) bool emitted </think> naturally
     out_tokens: torch.Tensor    # (B, T_buf) int64 generated reasoning tokens
     out_len: torch.Tensor       # (B,) int64
+
+
+#: Column order of the integer block of a packed snapshot (the reference's
+#: ``SNAP_ROWS``); ``cur`` (the shared ring pointer) is broadcast per row.
+#: The debiased EMA variance follows as float32 bits, then ``out_tokens``.
+SNAP_ROWS = ("active", "n_reasoning", "out_len", "ended_think", "stop_flag",
+             "n_evals", "cur")
+
+
+@dataclasses.dataclass
+class Snapshot:
+    """The host's copy of a decode state after a chunk (``Executor.snapshot``),
+    and between chunks the host's mirror of it: an admission updates the
+    recycled row (``admit``) without reading the device."""
+
+    active: np.ndarray          # (B,) bool
+    n_reasoning: np.ndarray     # (B,) int64
+    out_len: np.ndarray         # (B,) int64
+    ended_think: np.ndarray     # (B,) bool
+    stop_flag: np.ndarray       # (B,) bool
+    n_evals: np.ndarray         # (B,) int64
+    cur: int                    # the cache's committed length
+    var: np.ndarray             # (B,) float32 debiased EMA variance
+    tokens: np.ndarray          # (B, T_buf) int64 out_tokens
+    steps: int = 0              # steps the last chunk took (host count)
+
+    @classmethod
+    def unpack(cls, host: np.ndarray, steps: int = 0) -> "Snapshot":
+        n = len(SNAP_ROWS)
+        f = {name: host[:, i].copy() for i, name in enumerate(SNAP_ROWS)}
+        for name in ("active", "ended_think", "stop_flag"):
+            f[name] = f[name].astype(bool)
+        f["cur"] = int(f["cur"][0])
+        var = host[:, n].astype(np.int32).view(np.float32)
+        return cls(var=var, tokens=host[:, n + 1:].copy(), steps=steps, **f)
+
+    def admit(self, row: int, prompt_width: int) -> None:
+        """A fresh request in ``row`` (prefilled over ``prompt_width``
+        slots, its first token sampled): active, one token, and ``cur`` at
+        least the prompt width, as the device's admission sets them."""
+        self.active[row] = True
+        self.n_reasoning[row] = self.out_len[row] = 1
+        self.stop_flag[row] = False
+        self.n_evals[row] = 0
+        self.cur = max(self.cur, prompt_width)
 
 
 def prompt_positions(prompt_len, S: int, device) -> torch.Tensor:
@@ -138,6 +188,9 @@ class Executor:
         self._recurrent = model.cfg.arch_type == "ssm"
         self._step_mon = make_eat_step(model, monitor, ecfg.sampler)
         self._step_plain = make_eat_step(model, None, ecfg.sampler)
+        self._steps = 0              # steps the last chunk took
+        #: device-to-host snapshot copies made (``snapshot``)
+        self.snapshot_reads = 0
 
     # ---------------------------------------------------------- decode
     def _advance(self, state: ServeState, budget: int, step_fn) -> ServeState:
@@ -174,16 +227,51 @@ class Executor:
             out_len=state.out_len + inc,
         )
 
-    def decode_chunk(self, state: ServeState, budget: int, chunk_len: int, *,
-                     use_monitor: bool = True) -> ServeState:
-        """Advance up to ``chunk_len`` tokens, stopping early once no row is
-        active.  CONSUMES ``state``."""
-        step_fn = self._step_mon if use_monitor else self._step_plain
-        for _ in range(chunk_len):
-            if not bool(state.active.any()):
-                break
-            state = self._advance(state, budget, step_fn)
+    def _guarded(self, state: ServeState, chunk_len: int, cond, advance, *,
+                 stop_early: bool = True) -> ServeState:
+        """The reference's chunk ``while_loop``: ``chunk_len`` steps, step
+        ``i`` run as ``device_if(cond(state, i), advance(state, i))``.  The
+        predicate only falls inside a chunk, so the loop leaves at the first
+        false one; ``stop_early=False`` evaluates every step's predicate
+        instead (what a chunk the device runs on its own would do) and
+        gives the same state."""
+        self._steps = 0
+        for i in range(chunk_len):
+            nxt = device_if(cond(state, i), lambda: advance(state, i))
+            if nxt is None:
+                if stop_early:
+                    break
+                continue
+            state = nxt
+            self._steps += 1
         return state
+
+    def decode_chunk(self, state: ServeState, budget: int, chunk_len: int, *,
+                     use_monitor: bool = True, stop_early: bool = True
+                     ) -> ServeState:
+        """Advance up to ``chunk_len`` tokens, stopping early once no row is
+        active (``stop_early=False``: every step's guard evaluated, see
+        ``_guarded``).  CONSUMES ``state``."""
+        step_fn = self._step_mon if use_monitor else self._step_plain
+        return self._guarded(
+            state, chunk_len, lambda s, i: s.active.any(),
+            lambda s, i: self._advance(s, budget, step_fn),
+            stop_early=stop_early)
+
+    def snapshot(self, state: ServeState) -> Snapshot:
+        """The packed host copy of ``state`` after a chunk: one int64 block
+        (``SNAP_ROWS`` columns, the debiased EMA variance's bits, then
+        ``out_tokens``) in ONE device-to-host copy."""
+        B = state.active.shape[0]
+        cols = [state.active, state.n_reasoning, state.out_len,
+                state.ended_think, state.monitor.stop_flag,
+                state.monitor.n_evals, state.cache["cur"].expand(B)]
+        var = self.monitor.stopper.debiased_var(state.monitor.stop_state)
+        packed = torch.cat([torch.stack([c.long() for c in cols], 1),
+                            var.float().view(torch.int32).long()[:, None],
+                            state.out_tokens.long()], 1)
+        self.snapshot_reads += 1
+        return Snapshot.unpack(packed.cpu().numpy(), self._steps)
 
     # ---------------------------------------------------------- prefill/probe
     def prefill(self, tokens, positions, pos1d, cache) -> torch.Tensor:
@@ -232,15 +320,21 @@ class Executor:
         return state
 
     def ensure_chunk_pages(self, alloc, state: ServeState, slots, span: int,
-                           *, tail: int = 0, budget: int | None = None
+                           *, tail: int = 0, budget: int | None = None,
+                           cur: int | None = None, n_reasoning=None
                            ) -> ServeState:
         """Map (and push) pages covering the next ``span`` logical slots for
         every slot in ``slots`` before a writing operation.  With ``budget``
         the span is clamped per row to the tokens it can still emit plus
-        the probe ``tail``.  The upload is skipped while the mapping is
-        unchanged."""
-        cur0 = int(state.cache["cur"])
-        n_r = state.n_reasoning.cpu().numpy() if budget is not None else None
+        the probe ``tail``.  ``cur`` and ``n_reasoning`` are the host's
+        mirror of the state (the serve loop's ``Snapshot``); without them
+        they are read from the device.  The upload is skipped while the
+        mapping is unchanged."""
+        cur0 = int(state.cache["cur"]) if cur is None else cur
+        n_r = None
+        if budget is not None:
+            n_r = (state.n_reasoning.cpu().numpy() if n_reasoning is None
+                   else n_reasoning)
         for s in slots:
             sp = span
             if n_r is not None:
@@ -307,6 +401,7 @@ class Executor:
         B = next_pos.shape[0]
         local = dict(cache)
         local["pos"] = cache["pos"].clone()
+        local["cur"] = cache["cur"].clone()
         local["layers"] = list(cache["layers"])
         slots = write_slots(cache["cur"], n + 1, cache["pos"].shape[1],
                             next_pos.device)
@@ -353,30 +448,33 @@ class ProxyExecutor(Executor):
         self._shadow = make_shadow_step(model, monitor)
 
     def observe_chunk(self, pstate: ServeState, gen_tokens, n_start,
-                      n_emitted, chunk_len: int) -> ServeState:
+                      n_emitted, chunk_len: int, *, stop_early: bool = True
+                      ) -> ServeState:
         """Shadow one generator chunk through the proxy model.
 
         ``gen_tokens`` (B, T) is the generator's ``out_tokens`` after the
         chunk; ``n_start`` (B,) the per-row emitted count before it and
-        ``n_emitted`` (B,) the tokens it added (host copies).  Step ``i``
-        commits the token the generator consumed
+        ``n_emitted`` (B,) the tokens it added (device tensors or host
+        arrays).  Step ``i`` commits the token the generator consumed
         (``gen_tokens[b, n_start + i - 1]``) and due-checks the one it
         emitted (``gen_tokens[b, n_start + i]``).  A row stops consuming the
         moment its stop latches, so the proxy cache never ingests overshoot
         tokens.  The loop runs exactly while ``i < chunk_len`` and some row
-        is valid: each step advances the proxy cache's shared ``cur``, so an
-        extra masked step would move every later slot.  CONSUMES
-        ``pstate``."""
+        is valid (``valid = (i < n_emitted) & ~stop_flag``, which only falls
+        as ``i`` grows): each step advances the proxy cache's shared
+        ``cur``, so an extra masked step would move every later slot.
+        ``stop_early`` as in ``decode_chunk``.  CONSUMES ``pstate``."""
         dev = pstate.active.device
         toks = torch.as_tensor(gen_tokens, device=dev)
-        n_start = torch.as_tensor(np.asarray(n_start), device=dev).long()
-        n_emitted = torch.as_tensor(np.asarray(n_emitted), device=dev).long()
+        n_start = torch.as_tensor(n_start, device=dev).long()
+        n_emitted = torch.as_tensor(n_emitted, device=dev).long()
         last_col = toks.shape[1] - 1
-        s = pstate
-        for i in range(chunk_len):
-            valid = (i < n_emitted) & ~s.monitor.stop_flag
-            if not bool(valid.any()):
-                break
+
+        def valid_of(s, i):
+            return (i < n_emitted) & ~s.monitor.stop_flag
+
+        def advance(s, i):
+            valid = valid_of(s, i)
             # a valid row's columns lie inside the buffer; an invalid row's
             # token only feeds a masked write, so its column is clamped
             tok_in = toks.gather(1, (n_start + i - 1).clamp(0, last_col)[:, None])
@@ -384,7 +482,7 @@ class ProxyExecutor(Executor):
             mon, new_pos = self._shadow(s.cache, tok_in, tok_out, s.next_pos,
                                         s.monitor, valid)
             inc = valid.long()
-            s = s._replace(
+            return s._replace(
                 monitor=mon,
                 next_pos=new_pos,
                 last_token=torch.where(valid, tok_out, s.last_token),
@@ -392,4 +490,7 @@ class ProxyExecutor(Executor):
                 out_len=s.out_len + inc,
                 active=valid & ~mon.stop_flag,
             )
-        return s
+
+        return self._guarded(pstate, chunk_len,
+                             lambda s, i: valid_of(s, i).any(), advance,
+                             stop_early=stop_early)

@@ -35,6 +35,7 @@ from repro_torch.serving.cache import (
 from repro_torch.serving.executor import (
     ProxyExecutor,
     ServeState,
+    Snapshot,
     prompt_positions,
 )
 from repro_torch.serving.scheduler import PageAllocator
@@ -152,7 +153,10 @@ class ProxyTier:
 
     The tier never sees generator logits and never decides tokens: it
     consumes the emitted stream and returns exit decisions, which the
-    engine applies through the generator executor's ``retract``."""
+    engine applies through the generator executor's ``retract``.  It reads
+    the proxy's state once per generator chunk (``snap``, the proxy's
+    ``Snapshot``: its mirror of the proxy cache's ``cur`` and of the rows'
+    emitted counts, updated for each admission)."""
 
     def __init__(self, executor: ProxyExecutor, ecfg, monitor: ReasoningMonitor,
                  cache_cfg: CacheConfig, capacity: int, budget: int):
@@ -165,6 +169,7 @@ class ProxyTier:
         self.paged = cache_cfg.kind == "paged"
         self.probe_m = len(monitor.probe)
         self.state: ServeState | None = None
+        self.snap: Snapshot | None = None
         self.alloc: PageAllocator | None = None
         self._C_pre: int | None = None
 
@@ -203,6 +208,7 @@ class ProxyTier:
         B, S = prompts_np.shape
         if not self.paged:
             self.state = self._fresh(prompts_np, plen_np, self.capacity)
+            self.snap = self.ex.snapshot(self.state)
             return
         ps = self.ccfg.page_size
         C_log = page_align(self.capacity, ps)
@@ -221,6 +227,7 @@ class ProxyTier:
             alloc=self.alloc, native=self.ccfg.attn_impl != "gather")
         self.state = st._replace(cache=self.ex.pack_paged(
             template, st.cache, self.alloc.table))
+        self.snap = self.ex.snapshot(self.state)
 
     # ------------------------------------------------------- chunk shadowing
     def begin_chunk(self, chunk: int, bound: list[int]) -> None:
@@ -232,15 +239,17 @@ class ProxyTier:
             return
         self.state = self.ex.ensure_chunk_pages(
             self.alloc, self.state, bound, chunk + self.probe_m,
-            tail=self.probe_m, budget=self.budget)
+            tail=self.probe_m, budget=self.budget, cur=self.snap.cur,
+            n_reasoning=self.snap.n_reasoning)
 
     def observe(self, gen_out_tokens, n_start, n_emitted, chunk: int):
         """Shadow one generator chunk; returns ``(new_n, proxy monitor)``
-        for the generator executor's ``retract``.  ``n_start`` /
-        ``n_emitted`` are the per-row host copies the engine took around
-        the chunk."""
+        (device tensors) for the generator executor's ``retract``.
+        ``n_start`` / ``n_emitted`` are the per-row counts before the chunk
+        and in it.  Reads the proxy's snapshot once."""
         self.state = self.ex.observe_chunk(self.state, gen_out_tokens,
                                            n_start, n_emitted, chunk)
+        self.snap = self.ex.snapshot(self.state)
         return self.state.n_reasoning, self.state.monitor
 
     # ------------------------------------------------------ harvest / admit
@@ -258,7 +267,7 @@ class ProxyTier:
         capacity the scheduler's own guard fires first)."""
         if self.paged:
             return
-        used = int(self.state.cache["cur"])
+        used = self.snap.cur
         if used + self.budget > self.capacity:
             raise RuntimeError(
                 f"proxy cache capacity {self.capacity} cannot hold {when}: "
@@ -272,7 +281,8 @@ class ProxyTier:
         one = self._fresh(prompt_np[None], [prompt_len],
                           self._C_pre if self.paged else self.capacity)
         if self.paged:
-            row_table = self.alloc.admit_row(slot, S, int(self.state.cache["cur"]))
+            row_table = self.alloc.admit_row(slot, S, self.snap.cur)
             self.state = self.ex.admit_paged(self.state, one, slot, row_table)
         else:
             self.state = self.ex.admit(self.state, one, slot)
+        self.snap.admit(slot, S)

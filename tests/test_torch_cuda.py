@@ -777,3 +777,122 @@ def test_proxy_serve_kernels_match_plain_tokens(cuda):
         np.testing.assert_array_equal(r["answer_tokens"], o["answer_tokens"])
         assert r["exit_reason"] == o["exit_reason"]
     assert "eat" in [r["exit_reason"] for r in runs["cuda"]]
+
+
+# ------------------------------------------------------------ the device loop
+
+
+def test_graph_conditional_node_api(cuda):
+    """What a chunk the device runs alone needs from torch: ``CUDAGraph``
+    records if-nodes on a device bool (nested two deep here) and registers
+    a generator, so a replay skips a body whose predicate is false and a
+    draw inside a body is fresh on every replay.  Skipped, with the missing
+    methods named, on a torch whose CUDAGraph lacks them (torch
+    2.11.0+cu128 on the H100, as PERF.md records)."""
+    missing = [name for name in ("begin_capture_to_if_node",
+                                 "end_capture_to_conditional_node",
+                                 "register_generator_state")
+               if not hasattr(torch.cuda.CUDAGraph, name)]
+    if missing:
+        pytest.skip(f"torch {torch.__version__}: CUDAGraph has no "
+                    f"{', '.join(missing)}")
+    gen = torch.Generator(cuda).manual_seed(0)
+    outer = torch.zeros((), dtype=torch.bool, device=cuda)
+    x = torch.zeros((), dtype=torch.int64, device=cuda)
+    hits = torch.zeros(3, dtype=torch.int64, device=cuda)
+    draws = torch.zeros(3, dtype=torch.int64, device=cuda)
+    probs = torch.ones((1, 1000), device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        torch.multinomial(probs, 1, generator=gen)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    g.register_generator_state(gen)
+    with torch.cuda.graph(g):
+        for i in range(3):
+            g.begin_capture_to_if_node(outer)
+            x.add_(1)
+            g.begin_capture_to_if_node(x >= 2)
+            hits[i].add_(1)
+            draws[i].copy_(torch.multinomial(probs, 1, generator=gen)[0, 0])
+            g.end_capture_to_conditional_node()
+            g.end_capture_to_conditional_node()
+    g.replay()
+    torch.cuda.synchronize()
+    assert int(x) == 0 and hits.tolist() == [0, 0, 0]
+    outer.fill_(True)
+    g.replay()
+    first = draws.clone()
+    torch.cuda.synchronize()
+    assert int(x) == 3 and hits.tolist() == [0, 1, 1]
+    g.replay()
+    torch.cuda.synchronize()
+    assert int(x) == 6 and hits.tolist() == [1, 2, 2]
+    assert not torch.equal(draws[1:], first[1:])
+
+
+@pytest.mark.parametrize("kind,proxy", [("ring", False), ("paged", False),
+                                        ("paged", True)])
+def test_chunk_syncs_the_host_only_in_device_if(cuda, monkeypatch, kind, proxy):
+    """On the card, with every ``device_if`` taking its then-branch without
+    reading its predicate, a decode chunk with a probe at every step (and,
+    with the proxy, a shadow chunk) runs under sync debug mode "error": the
+    predicate reads are the only host syncs in a chunk (no value read, no
+    host-to-device copy that waits)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import monitor as monitor_mod
+    from repro_torch.core.eat import make_probe
+    from repro_torch.core.monitor import ReasoningMonitor
+    from repro_torch.core.stopping import EATStopper
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.serving import executor as executor_mod
+    from repro_torch.serving.cache import CacheConfig
+    from repro_torch.serving.engine import EngineConfig, ReasoningEngine
+    from repro_torch.serving.proxy import ProxyConfig
+    from repro_torch.serving.sampler import SamplerConfig
+
+    cfg = get_config("tiny")
+    model = Model(cfg, init_params(cfg, torch.Generator(cuda).manual_seed(3),
+                                   device=cuda))
+    ecfg = EngineConfig(max_reasoning_tokens=24, capacity=256, chunk_len=4,
+                        sampler=SamplerConfig(greedy=True),
+                        cache=CacheConfig(kind=kind, attn_impl="auto"))
+    mon = ReasoningMonitor(stopper=EATStopper(delta=0.0), probe=make_probe(1, (6,)),
+                           schedule="every_n", every_n=1, min_evals=1)
+    eng = ReasoningEngine(model, ecfg, mon,
+                          proxy=ProxyConfig(model=model) if proxy else None)
+    rng = np.random.default_rng(7)
+    prompts = rng.integers(16, cfg.vocab, (4, 20))
+    ss = eng._serve_setup(prompts, np.full(4, 20), None, batch_size=4,
+                          max_tokens=24, chunk_len=4)
+
+    def strict(fn, *a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def chunk(state, run):
+        """One chunk, its page mapping first (host work between chunks)."""
+        if kind == "paged":
+            state = eng.executor.ensure_chunk_pages(ss.alloc, state,
+                                                    [0, 1, 2, 3], 8)
+        gen = run(eng.executor.decode_chunk, state, 24, 4,
+                  use_monitor=not proxy)
+        if proxy:
+            ss.ptier.begin_chunk(4, [0, 1, 2, 3])
+            ss.ptier.state = run(eng.proxy_executor.observe_chunk,
+                                 ss.ptier.state, gen.out_tokens, state.out_len,
+                                 gen.out_len - state.out_len, 4)
+        return gen
+
+    # the first chunk eagerly, as it comes: every kernel loaded
+    state = chunk(ss.state, lambda fn, *a, **kw: fn(*a, **kw))
+    taken = lambda pred, then_fn, else_fn=None: then_fn()  # noqa: E731
+    monkeypatch.setattr(executor_mod, "device_if", taken)
+    monkeypatch.setattr(monitor_mod, "device_if", taken)
+    state = chunk(state, strict)
+    assert int(state.out_len.max()) == 1 + 2 * 4
