@@ -2,14 +2,14 @@
 """On-chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py                      # from the root of a checkout
-    python3 chip_smoke.py --profile DIR        # + torch.profiler tables
+    python3 chip_smoke.py --profile DIR        # + the profiler's tables in DIR
 
 Needs one CUDA card (an H100 for the numbers in PERF.md) and ``nvcc``; it
 imports nothing of JAX or of the JAX package.  Phases:
 
 1. the card (``nvidia-smi`` name and power limit), and whether torch's
-   ``CUDAGraph`` has the conditional-node methods a chunk run by the
-   device alone needs;
+   ``CUDAGraph`` has the conditional-node methods a lazy probe inside a
+   chunk graph would need;
 2. build every CUDA kernel of the serving path from ``src/repro_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the serving path gives it at ``eat-paper-8b`` width, in bf16 and f32,
@@ -52,12 +52,21 @@ imports nothing of JAX or of the JAX package.  Phases:
    float32 FMAs), with the same two for the TPU kernel's work beside;
 4. ``eat-paper-8b`` at full width with seeded random weights made on the
    card: kernel path vs plain path on a short input (float32 with the depth
-   cut to 4 layers, then bfloat16 at the full 36), then a paged self-EAT
-   serve of 8 requests through 4 slots with every launch counted (every
+   cut to 4 layers, then bfloat16 at the full 36).  Then each serve
+   configuration runs on one engine three times: a cold serve, whose decode
+   (and shadow) chunks are captured as CUDA graphs (``[graphs]``: captures,
+   seconds each, graph keys, pool memory), a warm serve that must capture
+   nothing and replay every chunk (0 ``device_if`` reads), with every
+   launch counted (the wrappers' eager calls plus each graph's captured
+   calls once per replay), and an eager serve of the same engine (the
+   guarded Python loop), which must give the graph serve's tokens, exits,
+   slots, answers and EAT traces bitwise.  Each chunk is timed on the card
+   by CUDA events around the call (``[chunk]``: replay against the eager
+   loop).  The paged self-EAT serve of 8 requests through 4 slots (every
    flash launch the tensor-core kernel: 36 per prefill, none scalar; every
-   entropy call the tensor-core kernel), and a
-   ring serve of the same workload that must give bitwise identical token
-   streams;
+   entropy call the tensor-core kernel) also runs 3 eager and 3 warm graph
+   serves in turns, walls with medians and ranges; a ring serve of the same
+   workload must give bitwise identical token streams;
    then the same workload served black-box (``monitor_mode == "proxy"``):
    once with the 8B model monitoring itself, which must give the self-EAT
    paged serve bitwise, and once monitored by ``qwen3-1.7b`` at full width
@@ -67,14 +76,22 @@ imports nothing of JAX or of the JAX package.  Phases:
    entropy calls, on its tied table, too);
 5. ``mamba2-2.7b`` (the 8B model freed first): kernel path vs plain path of
    the model (float32 cut to 4 layers, then bfloat16 at the full 64); a ring
-   self-EAT serve of 8 requests through 4 slots at full width and depth
-   with the launches of its kernels counted (every entropy call the
-   tensor-core kernel);
+   self-EAT serve of 8 requests through 4 slots at full width and depth,
+   cold graph, warm graph and eager on one engine as above, with the
+   launches of its kernels counted (every entropy call the tensor-core
+   kernel);
 Every serve prints its host reads (``[serve] ... host reads``): the
-decode chunks it ran, its device-to-host snapshot copies, which must be
-one per chunk after the setup's (one per shadow chunk for the proxy
-tier), and the ``device_if`` predicate reads, the only other host reads
-in a chunk; and the wall of its first (cold) serve beside the timed one.
+decode chunks it ran with their median time on the card, its
+device-to-host snapshot copies, which must be one per chunk after the
+setup's (one per shadow chunk for the proxy tier), its graph replays and
+captures, and the ``device_if`` predicate reads, the only other host reads
+in an eager chunk and none in a replayed one.  One more warm graph serve of
+the 8B paged configuration and of ``mamba2-2.7b`` runs under the profiler:
+the wrappers' launch counts over it (eager calls, plus each graph's
+captured calls once per replay) must equal the kernels the profiler saw,
+and must equal the unprofiled warm serve's; these checked counts are the
+``launches`` of the result line.  ``--profile DIR`` writes their tables to
+DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
 6. one JSON line per the contract: ``{"kernels": [...]}`` (five records), the card line,
    and the last line ``{"ok": true, "device": {...}}``.
 
@@ -311,46 +328,124 @@ def check_entropy_mma(what: str, counts: dict, calls: int) -> None:
           f"{calls} on mma")
 
 
-class HostReads:
-    """The host reads of one engine's serve: decode (and shadow) chunk
-    calls, snapshot copies and ``device_if`` predicate reads, counted from
-    construction to ``line``."""
+class Watch:
+    """One engine, watched over its serves (its methods are wrapped once).
+    Per serve (``begin`` to ``end``): for each tier (``executor``, and the
+    ``proxy_executor`` in proxy mode) the decode or shadow chunks it ran,
+    each chunk's time on the card (CUDA events recorded around the call, no
+    host read), its snapshot copies (one per chunk plus the setup's,
+    checked), its chunk graphs' captures (seconds each), replays and the
+    memory they added to the graph pool, the kernel launches made inside
+    its calls and its model's probe calls; and the ``device_if`` predicate
+    reads of the serve."""
 
     CHUNK = {"executor": "decode_chunk", "proxy_executor": "observe_chunk"}
+    LAUNCHING = ("prefill", "rollout", "probe")
 
-    def __init__(self, eng, device_loop):
-        self.device_loop = device_loop
+    def __init__(self, torch, eng, device_loop, kernels: dict):
+        self.torch, self.device_loop, self.kernels = torch, device_loop, kernels
         self.tiers = {}
-        for attr, method in self.CHUNK.items():
+        for attr, chunk in self.CHUNK.items():
             ex = getattr(eng, attr, None)
             if ex is None:
                 continue
-            calls = [0]
-            fn = getattr(ex, method)
+            t = self.tiers[attr] = {"ex": ex, "chunks": [], "launches": {},
+                                    "probe_calls": 0, "depth": 0}
+            for method in (chunk, *self.LAUNCHING):
+                setattr(ex, method, self._wrap(t, getattr(ex, method),
+                                               method == chunk))
+            probe = ex.model.probe_entropy
 
-            def counted(*a, _fn=fn, _calls=calls, **kw):
-                _calls[0] += 1
+            def counted(*a, _fn=probe, _t=t, **kw):
+                _t["probe_calls"] += 1
                 return _fn(*a, **kw)
 
-            setattr(ex, method, counted)
-            self.tiers[attr] = (ex, calls)
-        self.base = {t: (ex.snapshot_reads, c[0]) for t, (ex, c) in self.tiers.items()}
-        self.if_base = device_loop.device_if.calls
+            ex.model.probe_entropy = counted
 
-    def line(self, what: str) -> str:
+    def _wrap(self, t, fn, is_chunk: bool):
+        torch = self.torch
+
+        def wrapped(*a, **kw):
+            before = {n: k.launches for n, k in self.kernels.items()}
+            t["depth"] += 1
+            if is_chunk:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            try:
+                return fn(*a, **kw)
+            finally:
+                t["depth"] -= 1
+                if is_chunk:
+                    ev[1].record()
+                    t["chunks"].append(ev)
+                if t["depth"] == 0:
+                    for n, k in self.kernels.items():
+                        t["launches"][n] = (t["launches"].get(n, 0)
+                                            + k.launches - before[n])
+
+        return wrapped
+
+    def begin(self) -> None:
+        for t in self.tiers.values():
+            g = t["ex"].graphs
+            t.update(chunks=[], launches={n: 0 for n in self.kernels},
+                     probe_calls=0, reads0=t["ex"].snapshot_reads,
+                     graphs0=(g.captures, len(g.capture_s), g.replays,
+                              g.pool_bytes))
+        self.if0 = self.device_loop.device_if.calls
+
+    def end(self, what: str) -> dict:
         """Checks one snapshot per chunk (plus the setup's) in every tier;
-        returns the tiers' counts as text."""
-        parts = []
-        for tier, (ex, calls) in self.tiers.items():
-            reads = ex.snapshot_reads - self.base[tier][0]
-            chunks = calls[0] - self.base[tier][1]
+        returns the serve's counts, with ``line`` the host-read text."""
+        self.torch.cuda.synchronize()
+        out, parts = {"tiers": {}}, []
+        for name, t in self.tiers.items():
+            g, (c0, s0, r0, p0) = t["ex"].graphs, t["graphs0"]
+            reads = t["ex"].snapshot_reads - t["reads0"]
+            chunks = len(t["chunks"])
             check(chunks > 0 and reads == chunks + 1,
-                  f"{what} {tier}: {reads} snapshot reads for {chunks} chunks")
-            parts.append(f"{tier} {chunks} chunks, {reads} snapshot reads")
-        ifs = self.device_loop.device_if.calls - self.if_base
-        chunks = sum(c[0] - self.base[t][1] for t, (_, c) in self.tiers.items())
-        return (f"{'; '.join(parts)}; {ifs} device_if predicate reads "
-                f"({ifs / chunks:.1f} per chunk)")
+                  f"{what} {name}: {reads} snapshot reads for {chunks} chunks")
+            ms = [a.elapsed_time(b) for a, b in t["chunks"]]
+            out["tiers"][name] = {
+                "chunks": chunks, "snapshots": reads, "chunk_ms": ms,
+                "captures": g.captures - c0, "capture_s": g.capture_s[s0:],
+                "replays": g.replays - r0, "pool_bytes": g.pool_bytes - p0,
+                "keys": len(g), "launches": dict(t["launches"]),
+                "probe_calls": t["probe_calls"]}
+            parts.append(
+                f"{name} {chunks} chunks ({statistics.median(ms):.2f} ms each, "
+                f"median on the card; range {min(ms):.2f}-{max(ms):.2f}), "
+                f"{reads} snapshot reads ({(reads - 1) / chunks:.1f} per chunk "
+                f"after the setup's), {g.replays - r0} graph replays, "
+                f"{g.captures - c0} captures")
+        out["device_if"] = self.device_loop.device_if.calls - self.if0
+        n = sum(v["chunks"] for v in out["tiers"].values())
+        out["line"] = (f"{'; '.join(parts)}; {out['device_if']} device_if "
+                       f"predicate reads ({out['device_if'] / n:.1f} per chunk)")
+        return out
+
+
+def graph_line(what: str, st: dict) -> str:
+    """A serve's chunk-graph work: captures with their seconds, graph keys,
+    replays and the pool memory the captures added, per tier."""
+    parts = []
+    for name, t in st["tiers"].items():
+        cs = ", ".join(f"{x:.2f}" for x in t["capture_s"]) or "none"
+        parts.append(f"{name} {t['captures']} captures ({cs} s), {t['keys']} "
+                     f"graph keys, {t['replays']} replays, pool +"
+                     f"{t['pool_bytes'] / 2**20:.1f} MiB")
+    return f"[graphs] {what}: " + "; ".join(parts)
+
+
+def same_results(a: list, b: list, np, *, slots: bool = True) -> bool:
+    """Two serves' tokens, exits, answers and EAT traces (and slots) equal."""
+    return len(a) == len(b) and all(
+        x["n_reasoning"] == y["n_reasoning"] and x["exit_reason"] == y["exit_reason"]
+        and (not slots or x["slot"] == y["slot"])
+        and np.array_equal(x["reasoning_tokens"], y["reasoning_tokens"])
+        and np.array_equal(x["answer_tokens"], y["answer_tokens"])
+        and x["eat_trace"] == y["eat_trace"] for x, y in zip(a, b))
 
 
 def reset_counts(kernels: dict) -> None:
@@ -794,29 +889,6 @@ def decode_check(torch, F, da, ptxas):
     return rec, launches
 
 
-def tally_launches(model, kernels: dict, tally: dict) -> None:
-    """Attribute to ``tally`` every kernel launch made inside this model
-    object's forwards and probes (and count its probe calls), by wrapping
-    the instance's ``_forward`` and ``probe_entropy``."""
-    depth = [0]
-    tally.update({name: 0 for name in kernels}, probe_calls=0)
-    for attr in ("_forward", "probe_entropy"):
-        fn = getattr(model, attr)
-
-        def wrapped(*a, _fn=fn, _probe=attr == "probe_entropy", **kw):
-            tally["probe_calls"] += _probe
-            before = {name: k.launches for name, k in kernels.items()}
-            depth[0] += 1
-            out = _fn(*a, **kw)
-            depth[0] -= 1
-            if depth[0] == 0:
-                for name, k in kernels.items():
-                    tally[name] += k.launches - before[name]
-            return out
-
-        setattr(model, attr, wrapped)
-
-
 def ssd_case(torch, seed=0, B=4, S=512, nh=80, hp=64, G=1, N=128, h0=True):
     """Scan inputs at mamba2-2.7b's prefill shapes, shaped as ssm_forward
     makes them: logd = -dt * (h + 1) with dt in [1e-3, 1e-1] (A = -exp(A_log)
@@ -945,34 +1017,64 @@ def serve_workload(np, n_req=8, vocab=151_936, seed=0):
     return prompts, lens.astype(np.int32)
 
 
-def profile_serve(torch, serve, unprofiled_s: float, path: Path, tag: str) -> None:
-    """One more serve under torch.profiler: its table to ``path``, the top
-    rows and the device busy share printed under ``[tag]``."""
+#: the kernels one op call of each wrapper launches (a first kernel of each
+#: variant, and the kernels every call of it launches)
+PROFILED = {"flash_attention": (("flash_mma_kernel", "flash_kernel"), ()),
+            "paged_attention": (("paged_max_kernel",),
+                                ("paged_fold_kernel", "paged_merge_kernel")),
+            "entropy_probe": (("entropy_mma_kernel", "tile_stats_kernel"),
+                              ("merge_kernel",)),
+            "ssd_scan": (("ssd_state_kernel", "ssd_scan_kernel"), ())}
+
+
+def profile_serve(torch, serve, unprofiled_s: float, path: Path | None, tag: str,
+                  kernels: dict) -> dict:
+    """One more serve under torch.profiler: its table to ``path`` (if
+    given), the top rows and the device busy share printed under ``[tag]``,
+    and each wrapper's launch count over the serve (eager calls, plus each
+    chunk graph's captured calls once per replay) checked against the
+    kernels the profiler saw.  Returns the checked counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    reset_counts(kernels)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = serve()
+    counted = {name: fn.launches for name, fn in kernels.items()}
     events = prof.key_averages()
     # device-side events only: an operator row repeats its kernels' time
     busy_ms = sum(e.self_device_time_total for e in events
                   if e.device_type == DeviceType.CUDA) / 1e3
     table = events.table(sort_by="cuda_time_total", row_limit=40)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(table)
+    if path is not None:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(table)
     print(f"[{tag}] " + f"\n[{tag}] ".join(table.splitlines()[:25]))
     # the port's own kernels (csrc/*.cu, in an unnamed namespace), whatever
     # their rank in the table
     ours = "(anonymous namespace)::"
+    seen = {}
     for e in events:
         name = e.key.removeprefix("void ")
         if (e.device_type == DeviceType.CUDA and name.startswith(ours)
                 and "at::" not in name):
-            print(f"[{tag}] kernel {name[len(ours):].split('(')[0]}: "
+            short = name[len(ours):].split("(")[0]
+            base = short.split("<")[0]
+            seen[base] = seen.get(base, 0) + e.count
+            print(f"[{tag}] kernel {short}: "
                   f"{e.self_device_time_total / 1e3:.3f} ms device, {e.count} calls")
+    for name, n in counted.items():
+        first, every = PROFILED[name]
+        got = [sum(seen.get(k, 0) for k in first)] + [seen.get(k, 0) for k in every]
+        check(all(g == n for g in got),
+              f"{tag}: {name} counted {n} launches, the profiler saw {got} "
+              f"kernels ({', '.join(first + every)})")
+    print(f"[{tag}] launches counted by the wrappers {json.dumps(counted)}: "
+          f"equal to the profiler's kernel counts")
     print(f"[{tag}] device busy {busy_ms:.1f} ms: {busy_ms / 1e3 / wall:.1%} of "
           f"the profiled serve ({wall:.3f} s), {busy_ms / 1e3 / unprofiled_s:.1%} "
           f"of the unprofiled one ({unprofiled_s:.3f} s)")
+    return counted
 
 
 def rel_l2(a, b) -> float:
@@ -981,9 +1083,10 @@ def rel_l2(a, b) -> float:
 
 def mamba_phase(torch, np, kernels, phases, profile_dir=None) -> dict:
     """Phase 5: mamba2-2.7b, kernel path vs plain path, then the ring
-    self-EAT serve with the launches of every kernel counted (and, with
-    ``profile_dir``, one more serve under the profiler).  Returns the launch
-    counts of the serve."""
+    self-EAT serve with the launches of every kernel counted, and one more
+    warm serve under the profiler (its table to ``profile_dir`` if given).
+    Returns the launch counts of the profiled serve, checked against the
+    profiler and equal to the warm serve's."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.eat import make_probe
     from repro_torch.core.monitor import ReasoningMonitor
@@ -1087,26 +1190,35 @@ def mamba_phase(torch, np, kernels, phases, profile_dir=None) -> dict:
 
     from repro_torch.serving import device_loop
 
-    reads = []
+    mon = ReasoningMonitor(stopper=EATStopper(alpha=0.2, delta=1e9), probe=probe,
+                           schedule="every_n", every_n=8, min_evals=2)
+    eng = ReasoningEngine(model, ecfg, mon)
+    watch = Watch(torch, eng, device_loop, kernels)
 
-    def serve():
-        mon = ReasoningMonitor(stopper=EATStopper(alpha=0.2, delta=1e9),
-                               probe=probe, schedule="every_n", every_n=8,
-                               min_evals=2)
-        eng = ReasoningEngine(model, ecfg, mon)
-        host = HostReads(eng, device_loop)
+    def serve(what: str, eager: bool = False):
+        watch.begin()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        res = eng.serve(prompts, lens, None, batch_size=batch, answer_len=4)
+        res = eng.serve(prompts, lens, None, batch_size=batch, answer_len=4,
+                        record_trace=True, eager=eager)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        reads[:] = [host.line("mamba2 serve")]
-        return res, wall
+        return res, wall, watch.end(f"mamba2 {what}")
 
-    _, phases["mamba_cold_serve_s"] = serve()       # first loads of the kernels
+    _, phases["mamba_cold_serve_s"], cold = serve("cold graph serve")
+    check(cold["tiers"]["executor"]["captures"] > 0, "mamba2: no chunk graph captured")
+    print(graph_line(f"{cfg.name} cold serve ({phases['mamba_cold_serve_s']:.3f} s)",
+                     cold))
     reset_counts(kernels)
-    res, phases["mamba_serve_s"] = serve()
+    res, phases["mamba_serve_s"], warm = serve("warm graph serve")
     launches = {name: fn.launches for name, fn in kernels.items()}
+    ssd_variants = dict(kernels["ssd_scan"].variant_launches)
+    entropy_variants = dict(kernels["entropy_probe"].variant_launches)
+    check(warm["tiers"]["executor"]["captures"] == 0 and warm["device_if"] == 0,
+          f"mamba2: the warm serve captured, or read device_if: {warm['line']}")
+    e_res, phases["mamba_eager_serve_s"], eager = serve("eager serve", eager=True)
+    check(same_results(res, e_res, np), "mamba2: the graph serve differs from the "
+          "eager serve")
     check(len(res) == n_req and all(r["status"] in ("exited", "exhausted") for r in res),
           "mamba2: not every request finished")
     exits = [r["exit_reason"] for r in res]
@@ -1116,38 +1228,51 @@ def mamba_phase(torch, np, kernels, phases, profile_dir=None) -> dict:
     check(launches["ssd_scan"] == cfg.n_layers * prefills,
           f"mamba2: ssd_scan launched {launches['ssd_scan']} times, expected "
           f"{cfg.n_layers} per prefill x {prefills}")
-    ssd_variants = dict(kernels["ssd_scan"].variant_launches)
     check(ssd_variants == {"mma": cfg.n_layers * prefills, "scalar": 0},
           f"mamba2: ssd_scan op calls per variant {ssd_variants}, expected every "
           f"one on the tensor cores")
-    entropy_variants = dict(kernels["entropy_probe"].variant_launches)
     check_entropy_mma("mamba2 serve", entropy_variants, launches["entropy_probe"])
     n_tok = sum(r["n_reasoning"] for r in res)
     wall = phases["mamba_serve_s"]
     print(f"[serve] {cfg.name} ring: {sum(r['status'] in ('exited', 'exhausted') for r in res)}"
           f"/{n_req} requests finished through {batch} slots "
           f"{[r['slot'] for r in res]}, exits {exits} ({exits.count('eat')} by EAT), "
-          f"reasoning tokens {[r['n_reasoning'] for r in res]}, {wall:.3f} s, "
-          f"{n_tok / wall:.1f} reasoning tokens/s (cold serve "
-          f"{phases['mamba_cold_serve_s']:.3f} s)")
-    print(f"[serve] {cfg.name} host reads: {reads[0]}")
-    print(f"[serve] launches during the {cfg.name} serve: {json.dumps(launches)} "
-          f"(ssd_scan {cfg.n_layers} op calls per prefill x {prefills} prefills, per "
-          f"variant {json.dumps(ssd_variants)}; entropy_probe per variant "
-          f"{json.dumps(entropy_variants)})")
-    if profile_dir:
-        profile_serve(torch, serve, wall, Path(profile_dir) / "profile_mamba2.txt",
-                      "profile mamba2")
-    return launches
+          f"reasoning tokens {[r['n_reasoning'] for r in res]}, {wall:.3f} s warm "
+          f"graph serve, {n_tok / wall:.1f} reasoning tokens/s (cold serve "
+          f"{phases['mamba_cold_serve_s']:.3f} s, eager serve "
+          f"{phases['mamba_eager_serve_s']:.3f} s); graph serve == eager serve "
+          f"bitwise (tokens, exits, slots, answers, EAT traces)")
+    print(f"[serve] {cfg.name} host reads, warm graph serve: {warm['line']}")
+    print(f"[serve] {cfg.name} host reads, eager serve: {eager['line']}")
+    g = warm["tiers"]["executor"]["chunk_ms"]
+    e = eager["tiers"]["executor"]["chunk_ms"]
+    print(f"[chunk] {cfg.name} executor: replay {statistics.median(g):.3f} ms (range "
+          f"{min(g):.3f}-{max(g):.3f}, {len(g)} chunks), eager "
+          f"{statistics.median(e):.3f} ms (range {min(e):.3f}-{max(e):.3f}, "
+          f"{len(e)} chunks), median on the card")
+    print(f"[graphs] {cfg.name}: graph pool {eng.executor.graphs.pool_bytes / 2**20:.1f} "
+          f"MiB added by its captures; {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB peak allocated over the process")
+    print(f"[serve] launches during the {cfg.name} warm graph serve: "
+          f"{json.dumps(launches)} (ssd_scan {cfg.n_layers} op calls per prefill x "
+          f"{prefills} prefills, per variant {json.dumps(ssd_variants)}; entropy_probe "
+          f"per variant {json.dumps(entropy_variants)})")
+    profiled = profile_serve(
+        torch, lambda: serve("profiled serve")[:2], wall,
+        Path(profile_dir) / "profile_mamba2.txt" if profile_dir else None,
+        "profile mamba2", kernels)
+    check(profiled == launches, f"mamba2: the profiled serve's launches {profiled} "
+          f"differ from the warm serve's {launches}")
+    return profiled
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="also write torch.profiler tables of one more paged "
-                         "8B serve (DIR/profile.txt), qwen3-1.7b proxy serve "
-                         "(DIR/profile_proxy.txt) and mamba2 serve "
-                         "(DIR/profile_mamba2.txt)")
+                    help="write the torch.profiler tables of the profiled paged "
+                         "8B serve (DIR/profile.txt) and mamba2 serve "
+                         "(DIR/profile_mamba2.txt), and profile one more "
+                         "qwen3-1.7b proxy serve (DIR/profile_proxy.txt)")
     args = ap.parse_args()
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repository")
@@ -1171,8 +1296,9 @@ def main() -> None:
                                  "register_generator_state")
                if not hasattr(torch.cuda.CUDAGraph, name)]
     print("[card] CUDAGraph conditional nodes: "
-          + (f"missing {', '.join(missing)}: decode chunks run as the eager "
-             f"loop" if missing else "present"))
+          + (f"missing {', '.join(missing)}" if missing else "present")
+          + "; decode and shadow chunks run as CUDA graphs of the fixed-length "
+          "masked chunk (a probe every step, no if-node)")
 
     # ---- 2. build
     from repro_torch.kernels import _build
@@ -1327,30 +1453,107 @@ def main() -> None:
 
     from repro_torch.serving import device_loop
 
-    reads = {}
-
-    def serve(kind: str):
-        eng = engine(kind)
-        host = HostReads(eng, device_loop)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = eng.serve(prompts, lens, None, batch_size=batch, answer_len=4,
-                        record_trace=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        reads[kind] = host.line(f"{kind} serve")
-        return res, wall
-
     kernels = {"flash_attention": fa.flash_attention_cuda,
                "paged_attention": pa.paged_attention_cuda,
                "entropy_probe": ep.entropy_probe_cuda}
-    _, phases["paged_cold_serve_s"] = serve("paged")  # first loads of the kernels
-    reset_counts(kernels)
-    paged_res, phases["paged_serve_s"] = serve("paged")
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    flash_variants = dict(fa.flash_attention_cuda.variant_launches)
-    entropy_variants = dict(ep.entropy_probe_cuda.variant_launches)
-    ring_res, phases["ring_serve_s"] = serve("ring")
+
+    def serve(eng, watch, what: str, eager: bool = False):
+        """One serve of ``eng`` (its chunks as graph replays, or with
+        ``eager`` the eager loop): (results, wall s, the watch's counts)."""
+        watch.begin()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = eng.serve(prompts, lens, None, batch_size=batch, answer_len=4,
+                        record_trace=True, eager=eager)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        return res, wall, watch.end(what)
+
+    def graph_serves(eng, watch, what: str):
+        """A cold graph serve (its captures counted and timed), a warm one
+        with every launch counted (no capture: checked), and an eager serve
+        of the same engine, which must give the warm serve's results
+        bitwise.  Returns (warm results, cold, warm, eager (wall, counts)),
+        the warm serve's launches per kernel and per variant."""
+        cold = serve(eng, watch, f"{what} cold graph serve")
+        check(all(t["captures"] > 0 for t in cold[2]["tiers"].values()),
+              f"{what}: the cold serve captured no chunk graph")
+        print(graph_line(f"{what} cold serve ({cold[1]:.3f} s)", cold[2]))
+        reset_counts(kernels)
+        res, w_wall, warm = serve(eng, watch, f"{what} warm graph serve")
+        counted = ({name: fn.launches for name, fn in kernels.items()},
+                   {name: dict(fn.variant_launches) for name, fn in kernels.items()
+                    if hasattr(fn, "variant_launches")})
+        check(all(t["captures"] == 0 and t["replays"] == t["chunks"]
+                  for t in warm["tiers"].values()) and warm["device_if"] == 0,
+              f"{what}: the warm serve captured, or read device_if: {warm['line']}")
+        check(same_results(res, cold[0], np), f"{what}: cold and warm graph "
+              f"serves differ")
+        e_res, e_wall, eager = serve(eng, watch, f"{what} eager serve", eager=True)
+        check(same_results(res, e_res, np),
+              f"{what}: the graph serve differs from the eager serve")
+        print(f"[serve] {what}: graph serve == eager serve bitwise (tokens, exits, "
+              f"slots, answers, EAT traces); walls: cold graph {cold[1]:.3f} s, "
+              f"warm graph {w_wall:.3f} s, eager {e_wall:.3f} s")
+        print(f"[serve] {what} host reads, warm graph serve: {warm['line']}")
+        print(f"[serve] {what} host reads, eager serve: {eager['line']}")
+        return res, ((cold[1], cold[2]), (w_wall, warm), (e_wall, eager)), counted
+
+    def chunk_line(what: str, runs) -> None:
+        """The chunk's own time on the card (CUDA events around each call):
+        graph replay against the eager loop, per tier."""
+        for tier in runs[1][1]["tiers"]:
+            g = runs[1][1]["tiers"][tier]["chunk_ms"]
+            e = runs[2][1]["tiers"][tier]["chunk_ms"]
+            print(f"[chunk] {what} {tier}: replay {statistics.median(g):.3f} ms "
+                  f"(range {min(g):.3f}-{max(g):.3f}, {len(g)} chunks), eager "
+                  f"{statistics.median(e):.3f} ms (range {min(e):.3f}-{max(e):.3f}, "
+                  f"{len(e)} chunks), median on the card")
+
+    eng_paged = engine("paged")
+    watch_paged = Watch(torch, eng_paged, device_loop, kernels)
+    paged_res, paged_runs, (launches, variants) = graph_serves(
+        eng_paged, watch_paged, "paged")
+    flash_variants, entropy_variants = (variants["flash_attention"],
+                                        variants["entropy_probe"])
+    phases["paged_cold_serve_s"] = paged_runs[0][0]
+    phases["paged_serve_s"] = paged_runs[1][0]
+    chunk_line("paged", paged_runs)
+    # warm graph and eager walls of the same engine in turns, 3 each
+    turns = {"graph": [], "eager": []}
+    for _ in range(3):
+        for mode in ("eager", "graph"):
+            r, wall, _ = serve(eng_paged, watch_paged, f"paged {mode} serve in turns",
+                               eager=mode == "eager")
+            check(same_results(r, paged_res, np), f"paged {mode} serve in turns "
+                  f"differs from the warm graph serve")
+            turns[mode].append(wall)
+    print(f"[serve] paged walls in turns (eager, graph) x 3: warm graph "
+          f"{statistics.median(turns['graph']):.3f} s (range "
+          f"{min(turns['graph']):.3f}-{max(turns['graph']):.3f}; "
+          f"{', '.join(f'{w:.3f}' for w in turns['graph'])}), eager "
+          f"{statistics.median(turns['eager']):.3f} s (range "
+          f"{min(turns['eager']):.3f}-{max(turns['eager']):.3f}; "
+          f"{', '.join(f'{w:.3f}' for w in turns['eager'])})")
+    phases["paged_graph_turns_s"] = statistics.median(turns["graph"])
+    phases["paged_eager_turns_s"] = statistics.median(turns["eager"])
+    # the launches of the result line: one more warm graph serve, under the
+    # profiler, whose kernel counts must equal the wrappers'
+    profiled = profile_serve(
+        torch, lambda: serve(eng_paged, watch_paged, "profiled paged")[:2],
+        phases["paged_serve_s"],
+        Path(args.profile) / "profile.txt" if args.profile else None,
+        "profile", kernels)
+    check(profiled == launches, f"paged: the profiled serve's launches {profiled} "
+          f"differ from the warm serve's {launches}")
+    launches = profiled
+
+    eng_ring = engine("ring")
+    ring_res, ring_runs, _ = graph_serves(eng_ring, Watch(torch, eng_ring,
+                                                          device_loop, kernels),
+                                          "ring")
+    phases["ring_serve_s"] = ring_runs[1][0]
+    chunk_line("ring", ring_runs)
 
     check(len(paged_res) == n_req and all(r["status"] in ("exited", "exhausted")
                                           for r in paged_res),
@@ -1372,86 +1575,71 @@ def main() -> None:
 
     check_flash_variants("paged serve", flash_variants, cfg.n_layers)
     check_entropy_mma("paged serve", entropy_variants, launches["entropy_probe"])
-    for a, b in zip(paged_res, ring_res):
-        check(a["n_reasoning"] == b["n_reasoning"]
-              and a["exit_reason"] == b["exit_reason"]
-              and np.array_equal(a["reasoning_tokens"], b["reasoning_tokens"])
-              and np.array_equal(a["answer_tokens"], b["answer_tokens"])
-              and a["eat_trace"] == b["eat_trace"],
-              f"request {a['request']}: paged and ring streams differ")
+    check(same_results(paged_res, ring_res, np, slots=False),
+          "paged and ring streams differ")
     n_tok = sum(r["n_reasoning"] for r in paged_res)
     print(f"[serve] paged: {n_req} requests through {batch} slots {slots}, exits {exits}, "
           f"reasoning tokens {[r['n_reasoning'] for r in paged_res]}, "
-          f"{phases['paged_serve_s']:.3f} s, {n_tok / phases['paged_serve_s']:.1f} "
-          f"reasoning tokens/s (cold serve {phases['paged_cold_serve_s']:.3f} s); "
-          f"ring {phases['ring_serve_s']:.3f} s; paged == ring "
-          f"bitwise (tokens, answers, EAT traces)")
-    for name in ("paged", "ring"):
-        print(f"[serve] {name} host reads: {reads[name]}")
-    print(f"[serve] launches during the paged serve: {json.dumps(launches)} "
-          f"(paged_attention: op calls, three kernel launches each); flash "
-          f"per variant {json.dumps(flash_variants)} ({cfg.n_layers} mma per prefill "
-          f"x {prefills}); entropy per variant {json.dumps(entropy_variants)}")
+          f"{phases['paged_serve_s']:.3f} s warm graph serve, "
+          f"{n_tok / phases['paged_serve_s']:.1f} reasoning tokens/s (cold serve "
+          f"{phases['paged_cold_serve_s']:.3f} s); ring {phases['ring_serve_s']:.3f} s; "
+          f"paged == ring bitwise (tokens, answers, EAT traces)")
+    print(f"[serve] launches during the paged warm graph serve: {json.dumps(launches)} "
+          f"(paged_attention: op calls, three kernel launches each; chunk graphs: "
+          f"their captured calls once per replay); flash per variant "
+          f"{json.dumps(flash_variants)} ({cfg.n_layers} mma per prefill x "
+          f"{prefills}); entropy per variant {json.dumps(entropy_variants)}")
 
     # ---- 4b. the same workload served black-box: the generator decodes
     # unmonitored and a proxy model's EAT supplies the exits
     from repro_torch.serving.proxy import ProxyConfig
 
-    def proxy_serve(proxy_model):
-        """A paged proxy-mode serve; returns (results, wall s, launches and
-        probe calls per tier)."""
+    def check_proxy(what, st, proxy_layers):
+        """Per tier: the generator never probes; flash per prefill of each
+        model, all on the tensor cores; every proxy entropy call too."""
+        tiers = st["tiers"]
+        gen, prx = tiers["executor"], tiers["proxy_executor"]
+        check(gen["probe_calls"] == 0 == gen["launches"]["entropy_probe"],
+              f"{what}: the generator probed: {tiers}")
+        check(gen["launches"]["flash_attention"] == cfg.n_layers * prefills
+              and prx["launches"]["flash_attention"] == proxy_layers * prefills,
+              f"{what}: flash launches per tier {gen['launches']} {prx['launches']}")
+        for name in kernels:
+            check(prx["launches"][name] > 0, f"{what}: proxy {name} not launched")
+        return {"generator": gen["launches"], "proxy": prx["launches"],
+                "generator_probe_calls": gen["probe_calls"]}
+
+    def proxy_phase(name, proxy_model, proxy_layers):
         eng = engine("paged", proxy=ProxyConfig(model=proxy_model))
-        host = HostReads(eng, device_loop)
-        tiers = {"generator": {}, "proxy": {}}
-        tally_launches(eng.model, kernels, tiers["generator"])
-        tally_launches(eng.proxy_executor.model, kernels, tiers["proxy"])
-        reset_counts(kernels)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = eng.serve(prompts, lens, None, batch_size=batch, answer_len=4,
-                        record_trace=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        tiers["flash_per_variant"] = dict(fa.flash_attention_cuda.variant_launches)
-        tiers["entropy_per_variant"] = dict(ep.entropy_probe_cuda.variant_launches)
-        reads["proxy"] = host.line("proxy serve")
-        return res, wall, tiers
-
-    def check_proxy_flash(what, tiers, proxy_layers):
-        check(tiers["generator"]["flash_attention"] == cfg.n_layers * prefills
-              and tiers["proxy"]["flash_attention"] == proxy_layers * prefills,
-              f"{what}: flash launches per tier {tiers}")
-        check_flash_variants(what, tiers["flash_per_variant"],
+        watch = Watch(torch, eng, device_loop, kernels)
+        res, runs, (_, variants) = graph_serves(eng, watch, f"proxy {name}")
+        chunk_line(f"proxy {name}", runs)
+        tiers = check_proxy(f"proxy {name}", runs[1][1], proxy_layers)
+        check_flash_variants(f"proxy {name}", variants["flash_attention"],
                              cfg.n_layers + proxy_layers)
-        check_entropy_mma(what, tiers["entropy_per_variant"],
+        check_entropy_mma(f"proxy {name}", variants["entropy_probe"],
                           tiers["proxy"]["entropy_probe"])
-
-    def proxy_line(name, res, wall, tiers):
+        wall = runs[1][0]
         n_tok = sum(r["n_reasoning"] for r in res)
         ex = [r["exit_reason"] for r in res]
         print(f"[serve] proxy {name} monitoring {cfg.name}, paged: {n_req} requests "
               f"through {batch} slots {[r['slot'] for r in res]}, exits {ex} "
               f"({ex.count('eat')} by EAT), reasoning tokens "
-              f"{[r['n_reasoning'] for r in res]}, {wall:.3f} s, {n_tok / wall:.1f} "
-              f"reasoning tokens/s; generator probe calls "
-              f"{tiers['generator']['probe_calls']}; launches per tier {json.dumps(tiers)}")
-        print(f"[serve] proxy {name} host reads: {reads['proxy']}")
+              f"{[r['n_reasoning'] for r in res]}, {wall:.3f} s warm graph serve, "
+              f"{n_tok / wall:.1f} reasoning tokens/s (cold {runs[0][0]:.3f} s, "
+              f"eager {runs[2][0]:.3f} s); generator probe calls "
+              f"{tiers['generator_probe_calls']}; launches per tier {json.dumps(tiers)}")
+        return eng, watch, res, runs
 
     # (i) the 8B model monitoring itself: self-EAT's serve, bitwise
-    res, phases["proxy_self_serve_s"], tiers = proxy_serve(model)
-    check(tiers["generator"]["probe_calls"] == 0 == tiers["generator"]["entropy_probe"],
-          f"same-params proxy: the generator probed: {tiers}")
-    for a, b in zip(paged_res, res):
-        check(a["n_reasoning"] == b["n_reasoning"]
-              and a["exit_reason"] == b["exit_reason"] and a["slot"] == b["slot"]
-              and np.array_equal(a["reasoning_tokens"], b["reasoning_tokens"])
-              and np.array_equal(a["answer_tokens"], b["answer_tokens"])
-              and a["eat_trace"] == b["eat_trace"],
-              f"request {a['request']}: same-params proxy serve differs from self-EAT")
-    check_proxy_flash("same-params proxy", tiers, cfg.n_layers)
-    proxy_line(f"{cfg.name} (same weights)", res, phases["proxy_self_serve_s"], tiers)
+    eng_self, _, res, runs = proxy_phase(f"{cfg.name} (same weights)", model,
+                                         cfg.n_layers)
+    phases["proxy_self_serve_s"] = runs[1][0]
+    check(same_results(paged_res, res, np),
+          "same-params proxy serve differs from self-EAT")
     print("[serve] same-params proxy == self-EAT paged serve bitwise (tokens, exits, "
           "slots, answers, EAT traces)")
+    del eng_self
 
     # (ii) qwen3-1.7b at full width and depth (seeded random weights, bf16,
     # tied 2048 x 151,936 table) monitoring the 8B generator
@@ -1459,27 +1647,26 @@ def main() -> None:
     check(qcfg.vocab == cfg.vocab, "the proxy must share the generator's vocabulary")
     qmodel = Model(qcfg, init_params(qcfg, torch.Generator(device="cuda").manual_seed(2),
                                      device="cuda"))
-    res, phases["proxy_qwen_serve_s"], tiers = proxy_serve(qmodel)
+    eng_q, watch_q, res, runs = proxy_phase(qcfg.name, qmodel, qcfg.n_layers)
+    phases["proxy_qwen_serve_s"] = runs[1][0]
     ex = [r["exit_reason"] for r in res]
     check(len(res) == n_req and all(r["status"] in ("exited", "exhausted") for r in res),
           "qwen3-1.7b proxy: not every request finished")
     check("eat" in ex, f"qwen3-1.7b proxy: no EAT exit: {ex}")
     slots = [r["slot"] for r in res]
     check(len(set(slots)) < len(slots), f"qwen3-1.7b proxy: no slot reuse: {slots}")
-    check(tiers["generator"]["probe_calls"] == 0 == tiers["generator"]["entropy_probe"],
-          f"qwen3-1.7b proxy: the generator probed: {tiers}")
-    for name in kernels:
-        check(tiers["proxy"][name] > 0, f"qwen3-1.7b proxy: {name} not launched")
-    check_proxy_flash("qwen3-1.7b proxy", tiers, qcfg.n_layers)
-    proxy_line(qcfg.name, res, phases["proxy_qwen_serve_s"], tiers)
+    pool = sum(ex_.graphs.pool_bytes for e in (eng_paged, eng_ring, eng_q)
+               for ex_ in (e.executor, e.proxy_executor) if ex_ is not None)
+    print(f"[graphs] 8B phase: graph pool {pool / 2**20:.1f} MiB added by the captures "
+          f"of the paged, ring and qwen3-1.7b proxy engines; "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak allocated")
 
     if args.profile:
-        profile_serve(torch, lambda: serve("paged"), phases["paged_serve_s"],
-                      Path(args.profile) / "profile.txt", "profile")
-        profile_serve(torch, lambda: proxy_serve(qmodel)[:2],
+        profile_serve(torch, lambda: serve(eng_q, watch_q, "profiled proxy")[:2],
                       phases["proxy_qwen_serve_s"],
-                      Path(args.profile) / "profile_proxy.txt", "profile proxy")
-    del qmodel
+                      Path(args.profile) / "profile_proxy.txt", "profile proxy",
+                      kernels)
+    del qmodel, eng_q, watch_q, eng_paged, watch_paged, eng_ring
 
     # ---- 5. mamba2-2.7b, the 8B model freed first
     del model
@@ -1494,8 +1681,8 @@ def main() -> None:
     print("[phases] " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
 
     # ---- 6. result lines: launches from the path each kernel serves (the
-    # 8B paged self-EAT serve; ssd_scan from the mamba2 serve;
-    # decode_attention, which no serve path calls, from its own phase)
+    # profiled 8B paged self-EAT serve; ssd_scan from the profiled mamba2
+    # serve; decode_attention, which no serve path calls, from its own phase)
     launches["decode_attention"] = decode_launches
     replaces = {
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:78",

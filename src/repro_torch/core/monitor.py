@@ -4,7 +4,8 @@
 All state is tensors and every decision a mask.  The lazy probe in
 ``observe`` is the reference's ``lax.cond``: ``device_if`` on ``(due &
 active).any()`` (``serving/device_loop.py``), so steps with no evaluation
-due pay no probe forward.
+due pay no probe forward.  ``lazy=False`` probes every step (the chunk
+graphs' step): ``update`` with ``use`` all false is ``tick_no_eval``.
 """
 from __future__ import annotations
 

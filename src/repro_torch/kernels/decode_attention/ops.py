@@ -176,12 +176,15 @@ def decode_attention_cuda(q, k, v, q_pos, kv_pos, *, window: int = 0,
     return out
 
 
-#: op calls, counted in Python as each call launches (an eager call, or a
-#: CUDA-graph capture: a captured launch counts once, its replays not at all)
+#: op calls, counted in Python as each call launches: eager calls, and calls
+#: recorded under a CUDA-graph capture.  A replay counts nothing here; the
+#: chunk graphs (``serving/device_loop.ChunkGraphs``) take a capture's counts
+#: back out and add them at each replay, so a serve counts what ran
 decode_attention_cuda.launches = 0
 #: (n_split, keys per split) of the latest call
 decode_attention_cuda.last_split = None
-#: launches per split kernel (``decode_variant``); they sum to ``launches``
+#: launches per split kernel (``decode_variant``), counted as ``launches``
+#: (eager calls and captures); they sum to ``launches``
 decode_attention_cuda.variant_launches = {"mma": 0, "scalar": 0}
 
 

@@ -168,11 +168,13 @@ def entropy_probe_cuda(h, w, vocab: int, *, variant=None) -> torch.Tensor:
     return out
 
 
-#: op calls, counted in Python as each call launches (an eager call, or a
-#: CUDA-graph capture: a captured launch counts once, its replays not at all)
+#: op calls, counted in Python as each call launches: eager calls, and calls
+#: recorded under a CUDA-graph capture.  A replay counts nothing here; the
+#: chunk graphs (``serving/device_loop.ChunkGraphs``) take a capture's counts
+#: back out and add them at each replay, so a serve counts what ran
 entropy_probe_cuda.launches = 0
-#: op calls per statistics kernel (``entropy_variant``); they sum to
-#: ``launches``
+#: op calls per statistics kernel (``entropy_variant``), counted as
+#: ``launches`` (eager calls and captures); they sum to ``launches``
 entropy_probe_cuda.variant_launches = {"mma": 0, "scalar": 0}
 
 

@@ -155,8 +155,10 @@ def paged_attention_cuda(q, k_pool, v_pool, pages, counts, bpos, q_pos, *,
     return out
 
 
-#: op calls, counted in Python as each call launches (an eager call, or a
-#: CUDA-graph capture: a captured launch counts once, its replays not at all)
+#: op calls, counted in Python as each call launches: eager calls, and calls
+#: recorded under a CUDA-graph capture.  A replay counts nothing here; the
+#: chunk graphs (``serving/device_loop.ChunkGraphs``) take a capture's counts
+#: back out and add them at each replay, so a serve counts what ran
 paged_attention_cuda.launches = 0
 
 

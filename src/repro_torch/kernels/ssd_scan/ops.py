@@ -169,10 +169,13 @@ def ssd_scan_cuda(u, logd, Bm, Cm, *, chunk: int, h0=None, variant=None):
     return y, hf
 
 
-#: op calls, counted in Python as each call launches (an eager call, or a
-#: CUDA-graph capture: a captured launch counts once, its replays not at all)
+#: op calls, counted in Python as each call launches: eager calls, and calls
+#: recorded under a CUDA-graph capture.  A replay counts nothing here; the
+#: chunk graphs (``serving/device_loop.ChunkGraphs``) take a capture's counts
+#: back out and add them at each replay, so a serve counts what ran
 ssd_scan_cuda.launches = 0
-#: op calls per variant (``ssd_variant``); they sum to ``launches``
+#: op calls per variant (``ssd_variant``), counted as ``launches`` (eager
+#: calls and captures); they sum to ``launches``
 ssd_scan_cuda.variant_launches = {"mma": 0, "scalar": 0}
 
 

@@ -118,7 +118,7 @@ class Model(nn.Module):
         return common.lm_head_apply(self.embed, hidden, self.cfg)
 
     def _forward(self, tokens, positions, pos1d, cache, *, commit: bool,
-                 window: int | None):
+                 window: int | None, live=None):
         cfg = self.cfg
         window = cfg.sliding_window if window is None else window
         x = common.embed_apply(self.embed, tokens, cfg)
@@ -128,7 +128,7 @@ class Model(nn.Module):
             self.layers, self.final_norm, x, positions, pos1d, slots, cache,
             cfg, commit=commit, attn_impl=self.attn_impl, window=window,
             paged_impl=self.paged_attn_impl, page_block=self.paged_attn_page,
-            scan_impl=self.scan_impl)
+            scan_impl=self.scan_impl, live=live)
         if commit:
             return run()
         with tfm.preserved_slots(cache, slots):
@@ -136,17 +136,18 @@ class Model(nn.Module):
 
     # ---------------------------------------------------------------- serve
     def prefill(self, tokens, positions, pos1d, cache, *,
-                window: int | None = None) -> torch.Tensor:
-        """Fill the cache with the prompt (in place); returns hidden (B,S,d)."""
+                window: int | None = None, live=None) -> torch.Tensor:
+        """Fill the cache with the prompt (in place); returns hidden (B,S,d).
+        ``live`` (0-dim bool) masks the commit (``forward_cached``)."""
         return self._forward(tokens, positions, pos1d, cache, commit=True,
-                             window=window)
+                             window=window, live=live)
 
     def decode_step(self, tokens, positions, pos1d, cache, *,
-                    window: int | None = None) -> torch.Tensor:
-        """One committed decode step (m new tokens, usually 1).
-        Returns logits (B, m, Vp)."""
+                    window: int | None = None, live=None) -> torch.Tensor:
+        """One committed decode step (m new tokens, usually 1), its commit
+        masked by ``live`` where given.  Returns logits (B, m, Vp)."""
         hidden = self._forward(tokens, positions, pos1d, cache, commit=True,
-                               window=window)
+                               window=window, live=live)
         return self.logits(hidden)
 
     def probe_entropy(self, probe_tokens, positions, pos1d, cache, *,

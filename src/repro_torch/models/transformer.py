@@ -22,6 +22,11 @@ nothing here reads device data on the host.  A recurrent state has no
 slots: an SSM layer returns a new state, and only a committing forward puts
 it in the cache (replacing the layer's entry, never writing into its
 tensors), so a probe or a rollout leaves the live state as it was.
+
+A committing forward may be masked by ``live``, a 0-dim bool device tensor
+(the masked decode step of a chunk run as one CUDA graph): where it is
+false, every slot write (``pos``, K/V) puts back the value it replaces and
+``cur`` advances by 0, so the forward leaves the cache exactly as it was.
 """
 from __future__ import annotations
 
@@ -60,12 +65,25 @@ def _page_index(table, slots, ps):
     return pages, offs
 
 
-def scatter_pages(pool, table, slots, new) -> None:
+def scatter_pages(pool, table, slots, new, live=None) -> None:
     """Write ``new`` (B, m, ...) at logical ``slots`` (m,) through the page
-    table, in place.  Rows whose block is unmapped land in the trash page —
-    a don't-care, since their ``pos`` stays -1."""
+    table, in place (masked by ``live``).  Rows whose block is unmapped land
+    in the trash page — a don't-care, since their ``pos`` stays -1."""
     pages, offs = _page_index(table, slots, pool.shape[1])
-    pool[pages, offs] = new.to(pool.dtype)
+    new = new.to(pool.dtype)
+    if live is not None:
+        new = torch.where(live, new, pool[pages, offs])
+    pool[pages, offs] = new
+
+
+def write_ring(t, slots, new, live=None) -> None:
+    """Write ``new`` (B, m, ...) at ``slots`` (m,) of a dense (B, C, ...)
+    cache tensor (K, V or ``pos``), in place; where ``live`` is false the
+    old values are written back."""
+    new = new.to(t.dtype)
+    if live is not None:
+        new = torch.where(live, new, t[:, slots])
+    t[:, slots] = new
 
 
 def page_native_ok(cfg: ModelConfig, m: int) -> bool:
@@ -120,19 +138,19 @@ def preserved_slots(cache, slots):
 def attn_block_cached(p, x, positions, pos1d, cfg: ModelConfig, entry: dict,
                       kv_pos, slots, *, window: int, attn_impl: str,
                       paged: tuple | None, native: bool, paged_impl: str,
-                      page_block: int):
+                      page_block: int, live=None):
     """One cached decoder block.  New K/V are written into ``entry`` at
-    ``slots`` before the attention read.  ``paged = (table, ps, blocks,
-    bpos)`` when the entry holds page pools; ``native`` selects the
-    page-native read (pools + compacted page list for paged caches, the
-    same block algorithm over the dense ring otherwise)."""
+    ``slots`` (masked by ``live``) before the attention read.  ``paged =
+    (table, ps, blocks, bpos)`` when the entry holds page pools; ``native``
+    selects the page-native read (pools + compacted page list for paged
+    caches, the same block algorithm over the dense ring otherwise)."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps, cfg.rmsnorm_one_plus)
     q, k_new, v_new = att.gqa_qkv(p["attn"], h, positions, cfg)
     scale = att.attn_scale(cfg)
     if paged is not None:
         table, ps, blocks, bpos = paged
-        scatter_pages(entry["k"], table, slots, k_new)
-        scatter_pages(entry["v"], table, slots, v_new)
+        scatter_pages(entry["k"], table, slots, k_new, live)
+        scatter_pages(entry["v"], table, slots, v_new, live)
         if native:
             o = paged_ops.paged_decode_attention(
                 q, entry["k"], entry["v"], blocks["pages"], blocks["count"],
@@ -144,8 +162,8 @@ def attn_block_cached(p, x, positions, pos1d, cfg: ModelConfig, entry: dict,
                           causal=True, window=window, scale=scale,
                           impl=attn_impl)
     else:
-        entry["k"][:, slots] = k_new.to(entry["k"].dtype)
-        entry["v"][:, slots] = v_new.to(entry["v"].dtype)
+        write_ring(entry["k"], slots, k_new, live)
+        write_ring(entry["v"], slots, v_new, live)
         if native:
             o = paged_ops.ring_decode_attention(
                 q, entry["k"], entry["v"], pos1d, kv_pos,
@@ -200,21 +218,25 @@ def forward_cached(layers, final_norm, x, positions, pos1d, slots, cache,
                    cfg: ModelConfig, *, commit: bool = True,
                    attn_impl: str = "auto", window: int = 0,
                    paged_impl: str = "gather", page_block: int = 16,
-                   scan_impl: str = "auto"):
+                   scan_impl: str = "auto", live=None):
     """Unified prefill (m = S) / decode / probe forward against a cache.
 
     Returns the final-normed hidden states (B, m, d).  With ``commit`` the
     cache's ``pos`` and ``cur`` advance over the new tokens; without it they
     are left as they were (the K/V writes still land in ``slots`` — wrap
-    them in ``preserved_slots``; SSM states are not written at all)."""
+    them in ``preserved_slots``; SSM states are not written at all).  A
+    committing forward masked by ``live`` (0-dim bool) writes its slots and
+    advances ``cur`` only where ``live`` is true; an SSM layer's new state
+    is still committed (the caller's ``freeze_inactive_rows`` takes it
+    back)."""
     m = x.shape[1]
     kv_pos = cache["pos"] if commit else cache["pos"].clone()
-    kv_pos[:, slots] = pos1d
+    write_ring(kv_pos, slots, pos1d, live)
     if cfg.arch_type == "ssm":
         x = _ssm_layers(layers, x, pos1d, cache, cfg, commit=commit,
                         scan_impl=scan_impl)
         if commit:
-            cache["cur"].add_(m)
+            _advance_cur(cache, m, live)
         return rmsnorm(x, final_norm, cfg.norm_eps, cfg.rmsnorm_one_plus)
     native = paged_impl != "gather" and page_native_ok(cfg, m)
     paged = None
@@ -229,8 +251,9 @@ def forward_cached(layers, final_norm, x, positions, pos1d, slots, cache,
                 # pairing (the ring side WOULD run the block algorithm)
                 raise ValueError(
                     f"paged_impl={paged_impl!r} needs the compacted page "
-                    f"list: allocate the cache with "
-                    f"serving.cache.alloc_paged_template(..., native=True)")
+                    f"list (cache['blocks'], serving.cache.blocks_arrays): "
+                    f"take the cache from the serving executor's "
+                    f"paged_cache_for(..., native=True)")
             bpos = paged_ops.block_positions(kv_pos, blocks["pages"],
                                              blocks["logical"], ps)
         paged = (table, ps, blocks, bpos)
@@ -238,7 +261,15 @@ def forward_cached(layers, final_norm, x, positions, pos1d, slots, cache,
         x = attn_block_cached(
             p, x, positions, pos1d, cfg, entry, kv_pos, slots, window=window,
             attn_impl=attn_impl, paged=paged, native=native,
-            paged_impl=paged_impl, page_block=page_block)
+            paged_impl=paged_impl, page_block=page_block, live=live)
     if commit:
-        cache["cur"].add_(m)
+        _advance_cur(cache, m, live)
     return rmsnorm(x, final_norm, cfg.norm_eps, cfg.rmsnorm_one_plus)
+
+
+def _advance_cur(cache, m: int, live) -> None:
+    """``cur`` += m, or m × ``live`` for a masked forward."""
+    if live is None:
+        cache["cur"].add_(m)
+    else:
+        cache["cur"].add_(live.long(), alpha=m)

@@ -21,7 +21,10 @@ page 0 is the trash page whose every read is position-masked.  Page-native reads
 carry the compacted mapped-page list ``blocks`` (``blocks_arrays``).
 
 Where the reference returns new caches, these functions update the cache
-they are given in place (the reference donated it) and return it.
+they are given in place (the reference donated it) and return it.  The
+serving executor keeps the caches it allocates across serves
+(``reset_cache`` empties one in place), so a chunk graph captured over
+their tensors replays.
 """
 from __future__ import annotations
 
@@ -114,12 +117,12 @@ def blocks_arrays(pages, logical, counts, *, device) -> dict:
 
 
 def alloc_paged_cache(cfg: ModelConfig, batch: int, capacity: int,
-                      page_size: int, num_pages: int, *, device, dtype=None,
-                      block_bucket: int = 0) -> dict:
+                      page_size: int, num_pages: int, *, device,
+                      dtype=None) -> dict:
     """An empty block-paged cache: ``capacity`` LOGICAL slots per row (a
     page multiple), ``num_pages`` physical pages shared by all rows, the
-    page table all-trash.  ``block_bucket`` > 0 adds all-trash ``blocks``
-    arrays of that width for the page-native read."""
+    page table all-trash.  The page-native read also needs ``blocks``
+    (``blocks_arrays``; the serving executor puts them in)."""
     dtype = dtype or torch_dtype(cfg.dtype)
     if cfg.arch_type == "ssm":
         raise ValueError("arch 'ssm' has no KV capacity axis to page — use "
@@ -138,26 +141,6 @@ def alloc_paged_cache(cfg: ModelConfig, batch: int, capacity: int,
         "layers": [_kv(cfg, (num_pages, page_size), dtype, device)
                    for _ in range(cfg.n_layers)],
     }
-    if block_bucket:
-        z = np.zeros((batch, block_bucket), np.int32)
-        cache["blocks"] = blocks_arrays(z, z, np.zeros((batch,), np.int32),
-                                        device=device)
-    return cache
-
-
-def alloc_paged_template(cfg: ModelConfig, batch: int, capacity: int,
-                         page_size: int, num_pages: int, *, device,
-                         alloc=None, native: bool = False, dtype=None) -> dict:
-    """The empty paged cache every paged serve starts from; in page-native
-    mode the allocator's current compacted page list is baked in (later
-    refreshes ride ``Executor.put_page_table``)."""
-    if not native:
-        return alloc_paged_cache(cfg, batch, capacity, page_size, num_pages,
-                                 device=device, dtype=dtype)
-    width = alloc.bucket_width()
-    cache = alloc_paged_cache(cfg, batch, capacity, page_size, num_pages,
-                              device=device, dtype=dtype, block_bucket=width)
-    cache["blocks"] = blocks_arrays(*alloc.block_buckets(width), device=device)
     return cache
 
 
@@ -172,7 +155,7 @@ def pack_paged_cache(paged: dict, dense: dict, table) -> dict:
     ps = paged["pos"].shape[1] // NB
     C_pre = dense["pos"].shape[1]
     nbp = C_pre // ps
-    paged["page_table"] = table
+    paged["page_table"].copy_(table)
     paged["pos"][:, :C_pre] = dense["pos"]
     paged["cur"].copy_(dense["cur"])
     idx = table[:, :nbp].long()
@@ -218,6 +201,43 @@ def _leaves(entry: dict):
             yield from _leaves(v)
         else:
             yield v
+
+
+def cache_leaves(cache: dict) -> list:
+    """Every tensor of a cache (``pos``, ``cur``, the page table and page
+    list, every layer's K/V or states), in a fixed order."""
+    out = list(_leaves({k: v for k, v in cache.items() if k != "layers"}))
+    for e in cache["layers"]:
+        out.extend(_leaves(e))
+    return out
+
+
+def reset_cache(cache: dict) -> dict:
+    """Empty ``cache`` in place: every slot empty (``pos`` -1), ``cur`` 0,
+    the page table all-trash, recurrent states zero.  K/V stay as they
+    are: a slot with ``pos`` -1 is masked out of every read."""
+    cache["pos"].fill_(-1)
+    cache["cur"].zero_()
+    if "page_table" in cache:
+        cache["page_table"].fill_(PAGE_TRASH)
+    for e in cache["layers"]:
+        if "k" not in e:
+            for t in _leaves(e):
+                t.zero_()
+    return cache
+
+
+def commit_layers(cache: dict, kept: list) -> dict:
+    """Copy the layer entries of ``cache`` (new state tensors, which a
+    commit or ``freeze_inactive_rows`` put there) into the entries
+    ``kept`` (those it held before), and put those back: the recurrent
+    state is then the same tensors as before, updated in place."""
+    for new, old in zip(cache["layers"], kept):
+        for n, o in zip(_leaves(new), _leaves(old)):
+            if n is not o:
+                o.copy_(n)
+    cache["layers"] = list(kept)
+    return cache
 
 
 def merge_cache_row(cache: dict, one: dict, row: int) -> dict:

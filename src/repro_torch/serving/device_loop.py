@@ -1,16 +1,25 @@
-"""The one branch on device data in a decode chunk (the reference's
-``lax.cond``, and the ``cond`` of its chunk ``lax.while_loop``).
+"""The decode chunk without the host: the eager chunk's one branch on
+device data (``device_if``), and the runner that replays a whole chunk as
+one CUDA graph (``ChunkGraphs``).
 
 ``device_if(pred, then_fn, else_fn)`` reads ``bool(pred)`` on the host and
-runs one branch.  Every host read of device data inside a decode chunk or a
-proxy shadow chunk goes through it: the guard of each step (some row still
-going) and the lazy EAT probe (some active row due).  ``device_if.calls``
-counts those reads.  A chunk that the device runs without the host (CUDA
-graphs with conditional nodes, as the reference's one-dispatch
-``while_loop`` chunk) replaces exactly these calls.
+runs one branch (the reference's ``lax.cond``, and the ``cond`` of its chunk
+``lax.while_loop``).  Every host read of device data inside an eager decode
+chunk or proxy shadow chunk goes through it: the guard of each step (some
+row still going) and the lazy EAT probe (some active row due).
+``device_if.calls`` counts those reads.
+
+On the card a chunk is instead a fixed-length masked body with no branch:
+``chunk_len`` steps, each masked by ``live`` (some row still going) on the
+device, the probe on every step (the reference's ``make_eat_step(
+probe_cond=False)``).  A step with ``live`` false is an identity on the
+state and the cache, so the body gives the guarded loop's state bitwise
+(``Executor.masked_chunk``).  ``ChunkGraphs`` captures that body once per
+program key and replays it: no ``device_if`` read, no launch from Python.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable
 
 import torch
@@ -28,3 +37,162 @@ def device_if(pred: torch.Tensor, then_fn: Callable,
 
 
 device_if.calls = 0
+
+
+def launch_counters() -> list:
+    """The kernel wrappers whose ``launches`` (and ``variant_launches``)
+    count their kernels' launches."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention_cuda
+    from repro_torch.kernels.entropy_probe.ops import entropy_probe_cuda
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.paged_attention.ops import paged_attention_cuda
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_cuda
+
+    return [flash_attention_cuda, paged_attention_cuda, entropy_probe_cuda,
+            ssd_scan_cuda, decode_attention_cuda]
+
+
+def _counts() -> list[tuple[int, dict]]:
+    return [(fn.launches, dict(getattr(fn, "variant_launches", {})))
+            for fn in launch_counters()]
+
+
+def _add_counts(delta, sign: int = 1) -> None:
+    for fn, (n, variants) in zip(launch_counters(), delta):
+        fn.launches += sign * n
+        for v, k in variants.items():
+            fn.variant_launches[v] += sign * k
+
+
+_POOLS: dict = {}
+
+
+def _pool(device: torch.device):
+    """The id of the one CUDA-graph memory pool of every chunk graph on
+    ``device``.  Graphs may share it: each copies what it keeps into
+    buffers made outside the pool, so nothing in the pool outlives a
+    replay.  The pool is a ``MemPool`` held here for the process: a bare
+    ``graph_pool_handle`` is freed with the last graph that used it, and
+    torch refuses to capture into its id again."""
+    if device not in _POOLS:
+        with torch.cuda.device(device):
+            _POOLS[device] = torch.cuda.MemPool()
+    return _POOLS[device].id
+
+
+class _Graph:
+    def __init__(self, graph, bufs, fixed, delta, n_out, generator):
+        self.graph, self.bufs, self.fixed = graph, bufs, fixed
+        self.delta, self.n_out, self.generator = delta, n_out, generator
+
+
+class ChunkGraphs:
+    """CUDA graphs of chunk programs, one per program key (the reference's
+    ``chunk_program`` key: batch, monitor on or off, cache kind and shape,
+    page-list bucket width, ``chunk_len``, budget).
+
+    ``run(key, body, inputs, ...)`` replays the graph of ``key`` on
+    ``inputs`` and returns new tensors holding its outputs.  On the first
+    call of a key it captures ``body``:
+
+    * fixed buffers, one per input (the small per-row state: a few KB), are
+      made outside the graph's pool; before each replay the inputs are
+      copied into them, and the body's outputs are copied back into the
+      same buffers at the end of the captured work;
+    * a warm-up runs the body once eagerly on a side stream, on ``idle``
+      inputs that make it an identity on the cache (no row live);
+    * ``fixed`` are the cache tensors the graph reads and writes in place
+      (K/V pools or ring, ``pos``, ``cur``, page table and page list, SSM
+      states): a replay on any other tensors raises, and nothing falls back
+      to the eager loop;
+    * a sampled body draws from the graph's own generator, registered with
+      the graph; before each replay the caller's generator state (seed and
+      offset) is copied into it, and the caller's generator is left as it
+      was (its owner moves it by the draws it keeps: ``Executor``);
+    * every graph of every runner on a device shares one memory pool.
+
+    Launch counts: a wrapper counts the calls that run it, eager or under a
+    capture.  The capture launches nothing, so its count delta is taken
+    back out and added again at every replay, which is when the kernels
+    run.  ``captures``, ``capture_s`` (seconds of each capture, warm-up
+    included), ``replays`` and ``pool_bytes`` (the memory the captures
+    added to the pool) describe the runner's work.
+    """
+
+    def __init__(self):
+        self._graphs: dict = {}
+        self.captures = 0
+        self.capture_s: list[float] = []
+        self.replays = 0
+        self.pool_bytes = 0
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def run(self, key, body: Callable, inputs: list, *, n_out: int,
+            idle: list, fixed: list,
+            generator: torch.Generator | None = None) -> tuple[list, int]:
+        """``body(bufs, gen) -> outs`` with ``outs[j]`` shaped as
+        ``inputs[j]`` for the first ``n_out`` inputs (the rest are read
+        only); ``gen`` is the generator the body draws from (the graph's
+        own, None without ``generator``).  Returns new tensors holding
+        ``outs``, and the Philox offset the replay's draws took from
+        ``generator``'s state (0 without one)."""
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = self._capture(body, inputs, idle, fixed,
+                                                  generator, n_out)
+        elif len(fixed) != len(g.fixed) or any(
+                a.data_ptr() != b.data_ptr() for a, b in zip(fixed, g.fixed)):
+            raise RuntimeError(
+                f"chunk graph {key}: the cache is not the one it captured "
+                f"(a cache the executor did not allocate, or one an eager "
+                f"chunk replaced); no eager fallback runs on the card")
+        for b, x in zip(g.bufs, inputs):
+            b.copy_(x)
+        drawn = 0
+        if generator is not None:
+            g.generator.set_state(generator.get_state())
+            start = g.generator.get_offset()
+        g.graph.replay()
+        if generator is not None:
+            drawn = g.generator.get_offset() - start
+        self.replays += 1
+        _add_counts(g.delta)
+        return [b.clone() for b in g.bufs[:g.n_out]], drawn
+
+    def _capture(self, body, inputs, idle, fixed, generator, n_out) -> _Graph:
+        t0 = time.perf_counter()
+        dev = inputs[0].device
+        bufs = [x.clone() for x in inputs]
+        for b, x in zip(bufs, idle):
+            b.copy_(x)
+        own = None
+        if generator is not None:
+            own = torch.Generator(device=dev)
+            own.set_state(generator.get_state())
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            body(bufs, own)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        before = _counts()
+        graph = torch.cuda.CUDAGraph()
+        if own is not None:
+            graph.register_generator_state(own)
+        with torch.cuda.graph(graph, pool=_pool(dev)):
+            outs = body(bufs, own)
+            for b, o in zip(bufs[:n_out], outs):
+                b.copy_(o)
+        del outs
+        after = _counts()
+        delta = [(a[0] - b[0], {v: a[1][v] - b[1].get(v, 0) for v in a[1]})
+                 for a, b in zip(after, before)]
+        _add_counts(delta, -1)
+        self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
+        self.captures += 1
+        self.capture_s.append(time.perf_counter() - t0)
+        return _Graph(graph, bufs, list(fixed), delta, n_out, own)

@@ -16,7 +16,9 @@ monitoring, ``serving/proxy.py``).
 The loop reads a chunk's outcome in one device-to-host copy
 (``Executor.snapshot``); the host's ``Snapshot`` is also its mirror of
 ``cur`` and of the rows it admits between chunks, which the capacity checks
-and the page mapping read.
+and the page mapping read.  On the card each decode chunk (and each proxy
+shadow chunk) is one CUDA-graph replay; ``eager=True`` runs the guarded
+Python loop instead (the comparator of the graph path).
 """
 from __future__ import annotations
 
@@ -31,12 +33,7 @@ import torch
 from repro_torch.core.eat import ProbeSpec
 from repro_torch.core.monitor import ReasoningMonitor
 from repro_torch.core.stopping import EATStopper
-from repro_torch.serving.cache import (
-    CacheConfig,
-    alloc_cache,
-    alloc_paged_template,
-    page_align,
-)
+from repro_torch.serving.cache import CacheConfig, alloc_cache, page_align
 from repro_torch.serving.executor import (
     Executor,
     ProxyExecutor,
@@ -121,15 +118,22 @@ class ReasoningEngine:
 
     # ------------------------------------------------------------- prefill
     def start(self, prompts, prompt_len, rng: torch.Generator | None = None,
-              *, capacity: int | None = None) -> ServeState:
+              *, capacity: int | None = None, fresh: bool = False) -> ServeState:
         """prompts: (B, S) LEFT-padded token ids; prompt_len: (B,).
-        Positions are 0..len-1 per sequence (pad slots get -1 = masked)."""
+        Positions are 0..len-1 per sequence (pad slots get -1 = masked).
+        The cache is the executor's kept one of (B, capacity), which the
+        chunk graphs capture (an earlier state on it is consumed); with
+        ``fresh`` a new one (an admission's or a paged prefill's, merged
+        into the serving cache and dropped)."""
         model, ecfg, dev = self.model, self.ecfg, self.device
         prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=dev)
         plen = torch.as_tensor(np.asarray(prompt_len), dtype=torch.int32, device=dev)
         B, S = prompts.shape
         pos1d = prompt_positions(plen, S, dev)
-        cache = alloc_cache(model.cfg, B, capacity or ecfg.capacity, device=dev)
+        capacity = capacity or ecfg.capacity
+        cache = (alloc_cache(model.cfg, B, capacity, device=dev) if fresh
+                 else self.executor.cache_for(B, capacity))
+        self.executor.settle_rng()
         hidden = self.executor.prefill(prompts, pos1d, pos1d, cache)
         logits_last = model.logits(hidden[:, -1:])[:, 0]
         first = sample(logits_last, model.cfg.vocab, ecfg.sampler, rng)
@@ -147,14 +151,15 @@ class ReasoningEngine:
             ended_think=first == ecfg.end_think_id,
             out_tokens=buf,
             out_len=torch.ones((B,), dtype=torch.long, device=dev),
+            steps=torch.zeros((), dtype=torch.long, device=dev),
         )
 
     # ------------------------------------------------------------- loop
     def reason(self, state: ServeState, *, max_tokens: int | None = None,
-               use_monitor: bool = True,
-               chunk_len: int | None = None) -> ServeState:
-        """Run the reasoning loop until every sequence exits.  CONSUMES
-        ``state``."""
+               use_monitor: bool = True, chunk_len: int | None = None,
+               eager: bool = False) -> ServeState:
+        """Run the reasoning loop until every sequence exits (``eager``: as
+        in ``serve``).  CONSUMES ``state``."""
         if use_monitor and self.proxy is not None:
             raise ValueError(
                 "monitor='proxy' runs through serve() (the proxy tier must "
@@ -165,7 +170,8 @@ class ReasoningEngine:
         chunk = max(1, chunk_len or self.ecfg.chunk_len)
         while True:
             state = self.executor.decode_chunk(state, budget, chunk,
-                                               use_monitor=use_monitor)
+                                               use_monitor=use_monitor,
+                                               eager=eager)
             if not self.executor.snapshot(state).active.any():
                 return state
 
@@ -211,13 +217,13 @@ class ReasoningEngine:
 
         cohort = sched.start_batch()
         state = self.start(prompts_np[:B], plen_np[:B], rng,
-                           capacity=C_pre if paged else None)
+                           capacity=C_pre if paged else None, fresh=paged)
         if paged:
             for req in cohort:
                 alloc.ensure(req.slot, 0, S - 1)       # the prompt pages
-            template = alloc_paged_template(
-                self.model.cfg, B, C_log, ps, num_pages, device=self.device,
-                alloc=alloc, native=ccfg.attn_impl != "gather")
+            template = self.executor.paged_cache_for(
+                B, C_log, ps, num_pages, alloc=alloc,
+                native=ccfg.attn_impl != "gather")
             state = state._replace(cache=self.executor.pack_paged(
                 template, state.cache, alloc.table))
         if ptier is not None:
@@ -240,7 +246,8 @@ class ReasoningEngine:
     def serve(self, prompts, prompt_len, rng: torch.Generator | None = None, *,
               batch_size: int, max_tokens: int | None = None,
               use_monitor: bool = True, chunk_len: int | None = None,
-              answer_len: int = 0, record_trace: bool = False) -> list[dict]:
+              answer_len: int = 0, record_trace: bool = False,
+              eager: bool = False) -> list[dict]:
         """Continuous-batching serving loop over N requests with
         ``batch_size`` slots (synchronous chunk boundaries).
 
@@ -261,7 +268,12 @@ class ReasoningEngine:
 
         The loop reads the device once per chunk (``Executor.snapshot``,
         after the proxy's retract in proxy mode); between chunks it works
-        from that ``Snapshot``, updated for each admission.
+        from that ``Snapshot``, updated for each admission.  On the card a
+        chunk is one CUDA-graph replay (captured at the first chunk of its
+        key; the executors keep their caches, so a later serve of this
+        engine replays without capturing); ``eager=True`` runs every chunk
+        as the guarded Python loop, with the same results under greedy
+        sampling.
         """
         ss = self._serve_setup(prompts, prompt_len, rng, batch_size=batch_size,
                                max_tokens=max_tokens, use_monitor=use_monitor,
@@ -285,13 +297,15 @@ class ReasoningEngine:
                 # the per-row counts before the chunk, on the device
                 n_start = state.out_len.clone() if ptier is not None else None
                 state = self.executor.decode_chunk(state, budget, chunk,
-                                                   use_monitor=ss.gen_monitor)
+                                                   use_monitor=ss.gen_monitor,
+                                                   eager=eager)
                 if ptier is not None:
                     # shadow the chunk through the proxy, then rewind
                     # overshoot rows to its exit step and install its monitor
                     ptier.begin_chunk(chunk, [s for s, _ in sched.bound()])
                     new_n, pmon = ptier.observe(state.out_tokens, n_start,
-                                                state.out_len - n_start, chunk)
+                                                state.out_len - n_start, chunk,
+                                                eager=eager)
                     state = self.executor.retract(state, new_n, pmon)
                 snap = self.executor.snapshot(state)
             if record_trace:
@@ -341,7 +355,7 @@ class ReasoningEngine:
                     continue
                 nxt = sched.admit_next(s)
                 one = self.start(nxt.prompt[None], [nxt.prompt_len], rng,
-                                 capacity=C_pre if paged else None)
+                                 capacity=C_pre if paged else None, fresh=True)
                 if paged:
                     row_table = alloc.admit_row(s, S, snap.cur)
                     state = self.executor.admit_paged(state, one, s, row_table)

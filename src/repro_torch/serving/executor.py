@@ -4,18 +4,38 @@ shadow decode, without the overlap pipeline's programs).
 
 The reference builds one jitted program per operation and donates the
 decode state into it.  PyTorch runs eagerly, so each operation here is a
-method that updates the state's cache in place, and the decode chunk is a
-Python loop over the canonical EAT step (``make_eat_step``, non-fused: a
-committed ``decode_step`` followed by a lazily gated, non-committing
-``probe_entropy``): the reference's chunk ``while_loop``, each step under
-``device_if`` (``serving/device_loop.py``), whose predicate reads are the
-only host reads in a chunk.  The host reads a chunk's outcome once, through
-``snapshot``.  A caller must treat a state it hands to a mutating method
-(``decode_chunk``, ``admit``, ``admit_paged``, ``retract``,
-``observe_chunk``) as consumed and go on from the returned one.
+method that updates the state's cache in place.  The decode chunk (the
+reference's one-dispatch ``while_loop`` over the canonical EAT step,
+``make_eat_step``, non-fused: a committed ``decode_step`` followed by a
+non-committing ``probe_entropy``) has two forms:
 
+* on the card, one replay of a CUDA graph (``device_loop.ChunkGraphs``)
+  of ``masked_chunk``: ``chunk_len`` steps with no branch, each masked by
+  ``live`` on the device and probing every step (``probe_cond=False``);
+  a step with no row live leaves the state and the cache exactly as they
+  were;
+* on the CPU, or with ``eager=True``, the guarded Python loop: each step
+  under ``device_if`` (``serving/device_loop.py``) with the lazy probe,
+  whose predicate reads are the only host reads in a chunk.
+
+Both give the same state bitwise.  A sampled replay draws on every step,
+masked or not, from the graph's own generator, which starts each replay
+from the state's generator; that generator then moves by the draws of the
+live steps only (``settle_rng``, when ``snapshot`` reads the step count),
+as the guarded loop moves it, so every later draw is the same on both
+paths.  The host reads a chunk's outcome once, through ``snapshot``.  The
+executor keeps the serving caches it allocates and the page-list buffers it
+fills, and empties them in place for the next serve, so the graphs it
+captured replay across serves.  A caller must treat a state it
+hands to a mutating method (``decode_chunk``, ``admit``, ``admit_paged``,
+``retract``, ``observe_chunk``) as consumed and go on from the returned
+one.
+
+  cache_for      the kept ring / recurrent cache of a batch, emptied
+  paged_cache_for  the kept paged cache of a batch, emptied
   prefill        prompt -> cache fill (the cache it is given)
-  decode_chunk   up to chunk_len monitored steps
+  decode_chunk   up to chunk_len monitored steps (a graph replay on the card)
+  masked_chunk   the chunk_len masked steps a chunk graph captures
   probe          non-committing EAT evaluation (the cache survives)
   admit          slot recycling row-merge (ring)
   admit_paged    row-merge through a page table
@@ -37,13 +57,18 @@ from repro_torch.core.eat import eval_eat
 from repro_torch.core.monitor import MonitorState, ReasoningMonitor
 from repro_torch.models.transformer import preserved_slots, write_slots
 from repro_torch.serving.cache import (
+    alloc_cache,
+    alloc_paged_cache,
     blocks_arrays,
+    cache_leaves,
+    commit_layers,
     freeze_inactive_rows,
     merge_cache_row,
     merge_paged_row,
     pack_paged_cache,
+    reset_cache,
 )
-from repro_torch.serving.device_loop import device_if
+from repro_torch.serving.device_loop import ChunkGraphs, device_if
 from repro_torch.serving.sampler import SamplerConfig, logprob_of, sample
 
 
@@ -60,13 +85,15 @@ class ServeState(NamedTuple):
     ended_think: torch.Tensor   # (B,) bool emitted </think> naturally
     out_tokens: torch.Tensor    # (B, T_buf) int64 generated reasoning tokens
     out_len: torch.Tensor       # (B,) int64
+    steps: torch.Tensor         # () int64 steps the last chunk took
 
 
 #: Column order of the integer block of a packed snapshot (the reference's
-#: ``SNAP_ROWS``); ``cur`` (the shared ring pointer) is broadcast per row.
-#: The debiased EMA variance follows as float32 bits, then ``out_tokens``.
+#: ``SNAP_ROWS``); ``cur`` (the shared ring pointer) and ``steps`` (the
+#: last chunk's step count) are broadcast per row.  The debiased EMA
+#: variance follows as float32 bits, then ``out_tokens``.
 SNAP_ROWS = ("active", "n_reasoning", "out_len", "ended_think", "stop_flag",
-             "n_evals", "cur")
+             "n_evals", "cur", "steps")
 
 
 @dataclasses.dataclass
@@ -84,17 +111,18 @@ class Snapshot:
     cur: int                    # the cache's committed length
     var: np.ndarray             # (B,) float32 debiased EMA variance
     tokens: np.ndarray          # (B, T_buf) int64 out_tokens
-    steps: int = 0              # steps the last chunk took (host count)
+    steps: int                  # steps the last chunk took (device count)
 
     @classmethod
-    def unpack(cls, host: np.ndarray, steps: int = 0) -> "Snapshot":
+    def unpack(cls, host: np.ndarray) -> "Snapshot":
         n = len(SNAP_ROWS)
         f = {name: host[:, i].copy() for i, name in enumerate(SNAP_ROWS)}
         for name in ("active", "ended_think", "stop_flag"):
             f[name] = f[name].astype(bool)
         f["cur"] = int(f["cur"][0])
+        f["steps"] = int(f["steps"][0])
         var = host[:, n].astype(np.int32).view(np.float32)
-        return cls(var=var, tokens=host[:, n + 1:].copy(), steps=steps, **f)
+        return cls(var=var, tokens=host[:, n + 1:].copy(), **f)
 
     def admit(self, row: int, prompt_width: int) -> None:
         """A fresh request in ``row`` (prefilled over ``prompt_width``
@@ -116,31 +144,39 @@ def prompt_positions(prompt_len, S: int, device) -> torch.Tensor:
 
 
 def make_eat_step(model, monitor: ReasoningMonitor | None,
-                  sampler: SamplerConfig, *, window: int | None = None):
-    """Build ``step(cache, token, pos1d, mon, active, rng)`` ->
-    ``(next_token, mon, stop)``: one committed decode step, the sampler,
-    then the monitor transition, whose probe runs only when an evaluation
-    is due for some active row.  token/pos1d: (B, 1)."""
+                  sampler: SamplerConfig, *, window: int | None = None,
+                  probe_cond: bool = True):
+    """Build ``step(cache, token, pos1d, mon, active, rng, live=None)`` ->
+    ``(next_token, mon, stop)``: one committed decode step (its commit
+    masked by ``live``, see ``Model.decode_step``), the sampler, then the
+    monitor transition.  ``probe_cond=True`` runs the probe only when an
+    evaluation is due for some active row (the reference's ``lax.cond``);
+    ``probe_cond=False`` probes every step, which a step with no row due
+    leaves unused (``ReasoningMonitor.update`` with ``use`` all false is
+    ``tick_no_eval``).  token/pos1d: (B, 1)."""
     cfg = model.cfg
 
-    def step(cache, token, pos1d, mon: MonitorState, active, rng):
-        logits = model.decode_step(token, pos1d, pos1d, cache, window=window)
+    def step(cache, token, pos1d, mon: MonitorState, active, rng, live=None):
+        logits = model.decode_step(token, pos1d, pos1d, cache, window=window,
+                                   live=live)
         nxt = sample(logits[:, -1], cfg.vocab, sampler, rng)
         if monitor is None:
             return nxt, mon, torch.zeros_like(active)
         next_pos = pos1d[:, -1] + 1
         mon = monitor.observe(
             mon, lambda: eval_eat(model, cache, monitor.probe, next_pos),
-            nxt, active)
+            nxt, active, lazy=probe_cond)
         return nxt, mon, mon.stop_flag
 
     return step
 
 
-def make_shadow_step(model, monitor: ReasoningMonitor):
+def make_shadow_step(model, monitor: ReasoningMonitor, *,
+                     probe_cond: bool = True):
     """Build the proxy-side forced-token EAT step ``step(cache, tok_in,
-    tok_out, next_pos, mon, valid)`` -> ``(mon, new_pos)``, updating the
-    cache in place.
+    tok_out, next_pos, mon, valid, live=None)`` -> ``(mon, new_pos)``,
+    updating the cache in place (the commit masked by ``live``; the probe
+    lazy unless ``probe_cond`` is False, as in ``make_eat_step``).
 
     The mirror of ``make_eat_step`` for a model that does not choose the
     tokens: ``tok_in`` (B, 1) is the token the generator fed at this step
@@ -153,16 +189,17 @@ def make_shadow_step(model, monitor: ReasoningMonitor):
     the proxy's logits at the stream token are never read."""
     recurrent = model.cfg.arch_type == "ssm"
 
-    def step(cache, tok_in, tok_out, next_pos, mon: MonitorState, valid):
+    def step(cache, tok_in, tok_out, next_pos, mon: MonitorState, valid,
+             live=None):
         pos1d = torch.where(valid, next_pos, -1)[:, None]
         before = list(cache["layers"]) if recurrent else None
-        model.prefill(tok_in, pos1d, pos1d, cache)
+        model.prefill(tok_in, pos1d, pos1d, cache, live=live)
         if before is not None:
             freeze_inactive_rows(cache, before, valid)
         new_pos = next_pos + valid.int()
         mon = monitor.observe(
             mon, lambda: eval_eat(model, cache, monitor.probe, new_pos),
-            tok_out, valid)
+            tok_out, valid, lazy=probe_cond)
         return mon, new_pos
 
     return step
@@ -177,6 +214,40 @@ def _put_row(big, small, slot: int) -> None:
         _put_row(b, s, slot)
 
 
+def _flat(tree) -> list:
+    """The tensors of a ``ServeState`` other than its cache (and its
+    ``rng``), nested NamedTuples in field order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, ServeState):
+        return [t for name in ServeState._fields if name not in ("cache", "rng")
+                for t in _flat(getattr(tree, name))]
+    return [t for x in tree for t in _flat(x)]
+
+
+def _unflat(tree, tensors):
+    """``tree`` with the tensors of ``_flat`` replaced, in order."""
+    it = iter(tensors)
+
+    def rebuild(t):
+        if isinstance(t, torch.Tensor):
+            return next(it)
+        if isinstance(t, ServeState):
+            return t._replace(**{name: rebuild(getattr(t, name))
+                                 for name in ServeState._fields
+                                 if name not in ("cache", "rng")})
+        return type(t)(*(rebuild(x) for x in t))
+
+    return rebuild(tree)
+
+
+def _select(live, new: ServeState, old: ServeState) -> ServeState:
+    """``new`` where the 0-dim ``live`` is true, else ``old``, field by
+    field (a tensor the step wrote in place is the same object in both)."""
+    return _unflat(new, [a if a is b else torch.where(live, a, b)
+                         for a, b in zip(_flat(new), _flat(old))])
+
+
 class Executor:
     """Every device operation ``ReasoningEngine`` drives."""
 
@@ -187,14 +258,78 @@ class Executor:
         self.cfg = model.cfg
         self._recurrent = model.cfg.arch_type == "ssm"
         self._step_mon = make_eat_step(model, monitor, ecfg.sampler)
+        self._step_every = make_eat_step(model, monitor, ecfg.sampler,
+                                         probe_cond=False)
         self._step_plain = make_eat_step(model, None, ecfg.sampler)
-        self._steps = 0              # steps the last chunk took
+        #: the chunk graphs (on the card)
+        self.graphs = ChunkGraphs()
         #: device-to-host snapshot copies made (``snapshot``)
         self.snapshot_reads = 0
+        # the last sampled replay's generator, its offset before the replay,
+        # the offset of one step's draws and the steps tensor (settle_rng)
+        self._draws = None
+        # the caches this executor allocated, each with its first layer
+        # entries, and the page-list buffers per (B, NB, bucket width)
+        self._caches: dict = {}
+        self._blocks: dict = {}
+
+    # ---------------------------------------------------------- caches
+    def _kept(self, key, alloc) -> dict:
+        """The cache kept under ``key`` (``alloc()`` the first time),
+        emptied in place for a new serve, its first layer entries back in
+        place (an eager recurrent chunk replaces them)."""
+        if key not in self._caches:
+            cache = alloc()
+            self._caches[key] = (cache, list(cache["layers"]))
+            return cache
+        cache, layers = self._caches[key]
+        cache["layers"] = list(layers)
+        return reset_cache(cache)
+
+    def cache_for(self, batch: int, capacity: int) -> dict:
+        """The empty ring cache (a recurrent one for arch ``ssm``) of
+        ``batch`` rows × ``capacity`` slots: the same tensors at every call,
+        so the chunk graphs captured over them replay.  The cache of an
+        earlier call is emptied: its state is consumed."""
+        return self._kept(("ring", batch, capacity), lambda: alloc_cache(
+            self.cfg, batch, capacity, device=self.model.device))
+
+    def paged_cache_for(self, batch: int, capacity: int, page_size: int,
+                        num_pages: int, *, alloc=None,
+                        native: bool = False) -> dict:
+        """The empty paged cache every paged serve starts from (kept as
+        ``cache_for``); in page-native mode the allocator's current
+        compacted page list is put in (later refreshes ride
+        ``put_page_table``)."""
+        cache = self._kept(
+            ("paged", batch, capacity, page_size, num_pages),
+            lambda: alloc_paged_cache(self.cfg, batch, capacity, page_size,
+                                      num_pages, device=self.model.device))
+        if native:
+            self._put_blocks(cache, alloc.block_buckets(alloc.bucket_width()))
+        return cache
+
+    def _put_blocks(self, cache: dict, blocks: tuple) -> None:
+        """Copy the compacted page list ``(pages, logical, counts)`` into
+        the buffers of its bucket width (kept across calls: a graph captured
+        at one width replays after the width moved away and back)."""
+        pages = np.asarray(blocks[0], np.int32)
+        key = (pages.shape[0], cache["page_table"].shape[1], pages.shape[1])
+        buf = self._blocks.get(key)
+        if buf is None:
+            buf = self._blocks[key] = blocks_arrays(*blocks,
+                                                    device=self.model.device)
+        else:
+            for name, x in zip(("pages", "logical", "count"), blocks):
+                buf[name].copy_(torch.from_numpy(np.asarray(x, np.int32)))
+        cache["blocks"] = buf
 
     # ---------------------------------------------------------- decode
-    def _advance(self, state: ServeState, budget: int, step_fn) -> ServeState:
-        """One monitored decode step + engine bookkeeping, all masked."""
+    def _advance(self, state: ServeState, budget: int, step_fn,
+                 live=None) -> ServeState:
+        """One monitored decode step + engine bookkeeping, all masked by
+        row; with ``live`` (0-dim bool) the whole step is masked too: where
+        it is false the cache and the state come back as they were."""
         ecfg = self.ecfg
         tok = state.last_token[:, None]
         # inactive rows still ride through the batched step, but their KV
@@ -204,17 +339,20 @@ class Executor:
         # (a commit replaces them, so these stay intact)
         before = list(state.cache["layers"]) if self._recurrent else None
         nxt, mon, stop = step_fn(state.cache, tok, pos1d, state.monitor,
-                                 state.active, state.rng)
+                                 state.active, state.rng, live)
         if before is not None:
             freeze_inactive_rows(state.cache, before, state.active)
         nxt = torch.where(state.active, nxt, ecfg.pad_id)
         ended = state.ended_think | (state.active & (nxt == ecfg.end_think_id))
         rows = torch.arange(nxt.shape[0], device=nxt.device)
-        state.out_tokens[rows, state.out_len] = nxt
+        put = nxt
+        if live is not None:
+            put = torch.where(live, nxt, state.out_tokens[rows, state.out_len])
+        state.out_tokens[rows, state.out_len] = put
         inc = state.active.long()
         n_reasoning = state.n_reasoning + inc
         over = n_reasoning >= budget
-        return ServeState(
+        new = ServeState(
             cache=state.cache,
             rng=state.rng,
             active=state.active & ~stop & ~ended & ~over,
@@ -225,38 +363,116 @@ class Executor:
             ended_think=ended,
             out_tokens=state.out_tokens,
             out_len=state.out_len + inc,
+            steps=state.steps + 1,
         )
+        return new if live is None else _select(live, new, state)
 
-    def _guarded(self, state: ServeState, chunk_len: int, cond, advance, *,
-                 stop_early: bool = True) -> ServeState:
-        """The reference's chunk ``while_loop``: ``chunk_len`` steps, step
-        ``i`` run as ``device_if(cond(state, i), advance(state, i))``.  The
-        predicate only falls inside a chunk, so the loop leaves at the first
-        false one; ``stop_early=False`` evaluates every step's predicate
-        instead (what a chunk the device runs on its own would do) and
-        gives the same state."""
-        self._steps = 0
+    def _guarded(self, state: ServeState, chunk_len: int, cond,
+                 advance) -> ServeState:
+        """The reference's chunk ``while_loop``: up to ``chunk_len`` steps,
+        step ``i`` run as ``device_if(cond(state, i), advance(state, i))``.
+        The predicate only falls inside a chunk, so the loop leaves at the
+        first false one."""
+        state = state._replace(steps=torch.zeros_like(state.steps))
         for i in range(chunk_len):
             nxt = device_if(cond(state, i), lambda: advance(state, i))
             if nxt is None:
-                if stop_early:
-                    break
-                continue
+                break
             state = nxt
-            self._steps += 1
         return state
 
+    def _masked(self, state: ServeState, chunk_len: int, live_of,
+                advance) -> ServeState:
+        """The chunk a CUDA graph captures: ``chunk_len`` steps, none
+        skipped, step ``i`` being ``advance(state, i, live)`` with ``live =
+        live_of(state, i)`` kept on the device (an identity where it is
+        false); ``steps`` counts the live ones.  A recurrent cache's final
+        states are copied into the tensors the chunk started from."""
+        kept = list(state.cache["layers"]) if self._recurrent else None
+        state = state._replace(steps=torch.zeros_like(state.steps))
+        for i in range(chunk_len):
+            state = advance(state, i, live_of(state, i))
+        if kept is not None:
+            commit_layers(state.cache, kept)
+        return state
+
+    def _replay(self, tag, state: ServeState, extra: tuple, body, idle_at: int,
+                chunk_len: int, sampled: bool) -> ServeState:
+        """``body(state, *extra) -> state`` (a masked chunk) as one replay
+        of its CUDA graph: the state's small tensors and ``extra`` are the
+        graph's inputs, its cache the tensors it updates in place.  The
+        warm-up before a capture zeroes input ``idle_at`` (``active``, or
+        the shadow's ``n_emitted``), which leaves no row live."""
+        cache = state.cache
+        small = _flat(state)
+        inputs = small + list(extra)
+        idle = list(inputs)
+        idle[idle_at] = torch.zeros_like(inputs[idle_at])
+        gen = None
+        if sampled and not self.ecfg.sampler.greedy:
+            gen = (state.rng if state.rng is not None else
+                   torch.cuda.default_generators[state.active.device.index or 0])
+        blocks = cache.get("blocks")
+        key = (tag, tuple(cache["pos"].shape), "page_table" in cache,
+               0 if blocks is None else blocks["pages"].shape[1])
+
+        def run(bufs, rng):
+            st = _unflat(state._replace(rng=rng), bufs[:len(small)])
+            return _flat(body(st, *bufs[len(small):]))
+
+        outs, drawn = self.graphs.run(key, run, inputs, n_out=len(small),
+                                      idle=idle, fixed=cache_leaves(cache),
+                                      generator=gen)
+        out = _unflat(state, outs)
+        if gen is not None:
+            self._draws = (gen, gen.get_offset(), drawn // chunk_len,
+                           out.steps)
+        return out
+
+    def settle_rng(self, steps: int | None = None) -> None:
+        """Move the generator of the last sampled replay past the draws of
+        its live steps (``steps``, or read from the device when no snapshot
+        gave it): where the guarded loop, which draws only on live steps,
+        leaves it.  ``snapshot`` calls it with the count it read; the other
+        users of the generator (the next chunk, a rollout, an admission's
+        first token) call it first."""
+        if self._draws is None:
+            return
+        gen, start, per_step, steps_t = self._draws
+        self._draws = None
+        gen.set_offset(start + per_step * (int(steps_t) if steps is None
+                                           else steps))
+
     def decode_chunk(self, state: ServeState, budget: int, chunk_len: int, *,
-                     use_monitor: bool = True, stop_early: bool = True
-                     ) -> ServeState:
-        """Advance up to ``chunk_len`` tokens, stopping early once no row is
-        active (``stop_early=False``: every step's guard evaluated, see
-        ``_guarded``).  CONSUMES ``state``."""
+                     use_monitor: bool = True,
+                     eager: bool = False) -> ServeState:
+        """Advance up to ``chunk_len`` tokens.  On the card (unless
+        ``eager``): one replay of the graph of ``masked_chunk`` (captured
+        at the first call of its key).  Otherwise the guarded loop, which
+        stops once no row is active.  CONSUMES ``state``."""
+        self.settle_rng()
+        if state.active.is_cuda and not eager:
+            return self._replay(
+                ("decode", use_monitor, budget, chunk_len), state, (),
+                lambda st: self.masked_chunk(st, budget, chunk_len,
+                                             use_monitor=use_monitor),
+                idle_at=0, chunk_len=chunk_len, sampled=True)
         step_fn = self._step_mon if use_monitor else self._step_plain
         return self._guarded(
             state, chunk_len, lambda s, i: s.active.any(),
-            lambda s, i: self._advance(s, budget, step_fn),
-            stop_early=stop_early)
+            lambda s, i: self._advance(s, budget, step_fn))
+
+    def masked_chunk(self, state: ServeState, budget: int, chunk_len: int, *,
+                     use_monitor: bool = True) -> ServeState:
+        """``chunk_len`` decode steps, each masked by ``active.any()`` and
+        probing every step (``probe_cond=False``): the body the card's
+        chunk graph captures, run eagerly.  Equal to ``decode_chunk``'s
+        guarded loop bitwise (a sampled one draws on all ``chunk_len``
+        steps: its generator is not settled).  CONSUMES ``state``."""
+        step_fn = self._step_every if use_monitor else self._step_plain
+        return self._masked(
+            state, chunk_len, lambda s, i: s.active.any(),
+            lambda s, i, live: self._advance(s, budget, step_fn, live))
 
     def snapshot(self, state: ServeState) -> Snapshot:
         """The packed host copy of ``state`` after a chunk: one int64 block
@@ -265,18 +481,28 @@ class Executor:
         B = state.active.shape[0]
         cols = [state.active, state.n_reasoning, state.out_len,
                 state.ended_think, state.monitor.stop_flag,
-                state.monitor.n_evals, state.cache["cur"].expand(B)]
+                state.monitor.n_evals, state.cache["cur"].expand(B),
+                state.steps.expand(B)]
         var = self.monitor.stopper.debiased_var(state.monitor.stop_state)
         packed = torch.cat([torch.stack([c.long() for c in cols], 1),
                             var.float().view(torch.int32).long()[:, None],
                             state.out_tokens.long()], 1)
         self.snapshot_reads += 1
-        return Snapshot.unpack(packed.cpu().numpy(), self._steps)
+        snap = Snapshot.unpack(packed.cpu().numpy())
+        if self._draws is not None and self._draws[3] is state.steps:
+            self.settle_rng(snap.steps)
+        return snap
 
     # ---------------------------------------------------------- prefill/probe
     def prefill(self, tokens, positions, pos1d, cache) -> torch.Tensor:
-        """Prompt prefill into ``cache`` (in place); returns hidden."""
-        return self.model.prefill(tokens, positions, pos1d, cache)
+        """Prompt prefill into ``cache`` (in place); returns hidden.  A
+        recurrent cache's new states are copied into its tensors, which
+        stay the ones it was allocated with."""
+        kept = list(cache["layers"]) if self._recurrent else None
+        hidden = self.model.prefill(tokens, positions, pos1d, cache)
+        if kept is not None:
+            commit_layers(cache, kept)
+        return hidden
 
     def probe(self, cache, next_pos) -> torch.Tensor:
         """Non-committing EAT probe over the live cache."""
@@ -310,13 +536,13 @@ class Executor:
     def put_page_table(self, state: ServeState, table,
                        blocks: tuple | None = None) -> ServeState:
         """Upload the host allocator's page table — and, in page-native
-        mode, its compacted buckets ``(pages, logical, counts)``."""
+        mode, its compacted buckets ``(pages, logical, counts)`` — into the
+        cache's buffers (copies: the tensors a chunk graph captured stay
+        the cache's)."""
         cache = state.cache
-        dev = cache["pos"].device
-        cache["page_table"] = torch.as_tensor(np.asarray(table, np.int32),
-                                              device=dev)
+        cache["page_table"].copy_(torch.from_numpy(np.asarray(table, np.int32)))
         if blocks is not None:
-            cache["blocks"] = blocks_arrays(*blocks, device=dev)
+            self._put_blocks(cache, blocks)
         return state
 
     def ensure_chunk_pages(self, alloc, state: ServeState, slots, span: int,
@@ -387,6 +613,7 @@ class Executor:
             ended_think=ended,
             out_tokens=out,
             out_len=new_n.clone(),
+            steps=state.steps,
         )
 
     # ---------------------------------------------------------- answers
@@ -398,6 +625,7 @@ class Executor:
         live slot the rollout overwrites is restored: the cache is left as it
         was."""
         model, cfg, ecfg = self.model, self.cfg, self.ecfg
+        self.settle_rng()
         B = next_pos.shape[0]
         local = dict(cache)
         local["pos"] = cache["pos"].clone()
@@ -446,10 +674,42 @@ class ProxyExecutor(Executor):
     def __init__(self, model, ecfg, monitor: ReasoningMonitor):
         super().__init__(model, ecfg, monitor)
         self._shadow = make_shadow_step(model, monitor)
+        self._shadow_every = make_shadow_step(model, monitor, probe_cond=False)
+
+    def _shadow_fns(self, toks, n_start, n_emitted):
+        """(``valid_of(s, i)``, ``advance(s, i, live=None)``) of the shadow
+        chunk over the generator's tokens ``toks``."""
+        last_col = toks.shape[1] - 1
+
+        def valid_of(s, i):
+            return (i < n_emitted) & ~s.monitor.stop_flag
+
+        def advance(s, i, live=None):
+            valid = valid_of(s, i)
+            # a valid row's columns lie inside the buffer; an invalid row's
+            # token only feeds a masked write, so its column is clamped
+            tok_in = toks.gather(1, (n_start + i - 1).clamp(0, last_col)[:, None])
+            tok_out = toks.gather(1, (n_start + i).clamp(0, last_col)[:, None])[:, 0]
+            step = self._shadow if live is None else self._shadow_every
+            mon, new_pos = step(s.cache, tok_in, tok_out, s.next_pos,
+                                s.monitor, valid, live)
+            inc = valid.long()
+            new = s._replace(
+                monitor=mon,
+                next_pos=new_pos,
+                last_token=torch.where(valid, tok_out, s.last_token),
+                n_reasoning=s.n_reasoning + inc,
+                out_len=s.out_len + inc,
+                active=valid & ~mon.stop_flag,
+                steps=s.steps + 1,
+            )
+            return new if live is None else _select(live, new, s)
+
+        return valid_of, advance
 
     def observe_chunk(self, pstate: ServeState, gen_tokens, n_start,
-                      n_emitted, chunk_len: int, *, stop_early: bool = True
-                      ) -> ServeState:
+                      n_emitted, chunk_len: int, *,
+                      eager: bool = False) -> ServeState:
         """Shadow one generator chunk through the proxy model.
 
         ``gen_tokens`` (B, T) is the generator's ``out_tokens`` after the
@@ -462,35 +722,32 @@ class ProxyExecutor(Executor):
         tokens.  The loop runs exactly while ``i < chunk_len`` and some row
         is valid (``valid = (i < n_emitted) & ~stop_flag``, which only falls
         as ``i`` grows): each step advances the proxy cache's shared
-        ``cur``, so an extra masked step would move every later slot.
-        ``stop_early`` as in ``decode_chunk``.  CONSUMES ``pstate``."""
+        ``cur``, so a step past that point is masked whole (``live =
+        valid.any()``, as in ``masked_observe``), or it would move every
+        later slot.  On the card (unless ``eager``) one replay of the graph
+        of ``masked_observe``; otherwise the guarded loop.  CONSUMES
+        ``pstate``."""
         dev = pstate.active.device
         toks = torch.as_tensor(gen_tokens, device=dev)
         n_start = torch.as_tensor(n_start, device=dev).long()
         n_emitted = torch.as_tensor(n_emitted, device=dev).long()
-        last_col = toks.shape[1] - 1
-
-        def valid_of(s, i):
-            return (i < n_emitted) & ~s.monitor.stop_flag
-
-        def advance(s, i):
-            valid = valid_of(s, i)
-            # a valid row's columns lie inside the buffer; an invalid row's
-            # token only feeds a masked write, so its column is clamped
-            tok_in = toks.gather(1, (n_start + i - 1).clamp(0, last_col)[:, None])
-            tok_out = toks.gather(1, (n_start + i).clamp(0, last_col)[:, None])[:, 0]
-            mon, new_pos = self._shadow(s.cache, tok_in, tok_out, s.next_pos,
-                                        s.monitor, valid)
-            inc = valid.long()
-            return s._replace(
-                monitor=mon,
-                next_pos=new_pos,
-                last_token=torch.where(valid, tok_out, s.last_token),
-                n_reasoning=s.n_reasoning + inc,
-                out_len=s.out_len + inc,
-                active=valid & ~mon.stop_flag,
-            )
-
+        if pstate.active.is_cuda and not eager:
+            return self._replay(
+                ("shadow", chunk_len), pstate, (toks, n_start, n_emitted),
+                lambda st, t, s0, ne: self.masked_observe(st, t, s0, ne,
+                                                          chunk_len),
+                idle_at=-1, chunk_len=chunk_len, sampled=False)
+        valid_of, advance = self._shadow_fns(toks, n_start, n_emitted)
         return self._guarded(pstate, chunk_len,
-                             lambda s, i: valid_of(s, i).any(), advance,
-                             stop_early=stop_early)
+                             lambda s, i: valid_of(s, i).any(), advance)
+
+    def masked_observe(self, pstate: ServeState, toks, n_start, n_emitted,
+                       chunk_len: int) -> ServeState:
+        """The shadow chunk a CUDA graph captures, run eagerly:
+        ``chunk_len`` steps, each masked by ``valid.any()`` and probing
+        every step.  Equal to ``observe_chunk``'s guarded loop bitwise.
+        ``toks``, ``n_start``, ``n_emitted``: device tensors.  CONSUMES
+        ``pstate``."""
+        valid_of, advance = self._shadow_fns(toks, n_start, n_emitted)
+        return self._masked(pstate, chunk_len,
+                            lambda s, i: valid_of(s, i).any(), advance)

@@ -26,12 +26,7 @@ import torch
 
 from repro_torch.core.eat import eval_eat
 from repro_torch.core.monitor import ReasoningMonitor
-from repro_torch.serving.cache import (
-    CacheConfig,
-    alloc_cache,
-    alloc_paged_template,
-    page_align,
-)
+from repro_torch.serving.cache import CacheConfig, alloc_cache, page_align
 from repro_torch.serving.executor import (
     ProxyExecutor,
     ServeState,
@@ -174,8 +169,11 @@ class ProxyTier:
         self._C_pre: int | None = None
 
     # ------------------------------------------------------------ lifecycle
-    def _fresh(self, prompts_np, plen_np, capacity: int) -> ServeState:
-        """Prompt-prefilled proxy state.  Nothing is sampled: the proxy
+    def _fresh(self, prompts_np, plen_np, capacity: int, *,
+               kept: bool = False) -> ServeState:
+        """Prompt-prefilled proxy state, on the executor's kept cache (the
+        one the shadow graphs capture) with ``kept``, else on a new one (an
+        admission's or a paged prefill's).  Nothing is sampled: the proxy
         never chooses tokens, so ``rng`` / ``last_token`` / ``out_tokens``
         are inert; ``n_reasoning`` starts at 1 to mirror the generator's
         already-emitted first token."""
@@ -185,7 +183,8 @@ class ProxyTier:
                                   device=dev)
         B, S = prompts.shape
         pos1d = prompt_positions(plen_np, S, dev)
-        cache = alloc_cache(ex.cfg, B, capacity, device=dev)
+        cache = (ex.cache_for(B, capacity) if kept
+                 else alloc_cache(ex.cfg, B, capacity, device=dev))
         ex.prefill(prompts, pos1d, pos1d, cache)
         ones = torch.ones((B,), dtype=torch.long, device=dev)
         return ServeState(
@@ -201,13 +200,15 @@ class ProxyTier:
             out_tokens=torch.full((B, 1), self.ecfg.pad_id, dtype=torch.long,
                                   device=dev),
             out_len=ones.clone(),
+            steps=torch.zeros((), dtype=torch.long, device=dev),
         )
 
     def start_batch(self, prompts_np, plen_np, rows: list[int]) -> None:
         """Prefill the initial cohort (the rows the scheduler admitted)."""
         B, S = prompts_np.shape
         if not self.paged:
-            self.state = self._fresh(prompts_np, plen_np, self.capacity)
+            self.state = self._fresh(prompts_np, plen_np, self.capacity,
+                                     kept=True)
             self.snap = self.ex.snapshot(self.state)
             return
         ps = self.ccfg.page_size
@@ -222,9 +223,9 @@ class ProxyTier:
             self.alloc.ensure(row, 0, S - 1)
         # page-native shadow decodes read through the proxy pool's own
         # compacted page list
-        template = alloc_paged_template(
-            self.ex.cfg, B, C_log, ps, num_pages, device=self.ex.model.device,
-            alloc=self.alloc, native=self.ccfg.attn_impl != "gather")
+        template = self.ex.paged_cache_for(
+            B, C_log, ps, num_pages, alloc=self.alloc,
+            native=self.ccfg.attn_impl != "gather")
         self.state = st._replace(cache=self.ex.pack_paged(
             template, st.cache, self.alloc.table))
         self.snap = self.ex.snapshot(self.state)
@@ -242,13 +243,16 @@ class ProxyTier:
             tail=self.probe_m, budget=self.budget, cur=self.snap.cur,
             n_reasoning=self.snap.n_reasoning)
 
-    def observe(self, gen_out_tokens, n_start, n_emitted, chunk: int):
-        """Shadow one generator chunk; returns ``(new_n, proxy monitor)``
-        (device tensors) for the generator executor's ``retract``.
-        ``n_start`` / ``n_emitted`` are the per-row counts before the chunk
-        and in it.  Reads the proxy's snapshot once."""
+    def observe(self, gen_out_tokens, n_start, n_emitted, chunk: int, *,
+                eager: bool = False):
+        """Shadow one generator chunk (one graph replay on the card, unless
+        ``eager``); returns ``(new_n, proxy monitor)`` (device tensors) for
+        the generator executor's ``retract``.  ``n_start`` / ``n_emitted``
+        are the per-row counts before the chunk and in it.  Reads the
+        proxy's snapshot once."""
         self.state = self.ex.observe_chunk(self.state, gen_out_tokens,
-                                           n_start, n_emitted, chunk)
+                                           n_start, n_emitted, chunk,
+                                           eager=eager)
         self.snap = self.ex.snapshot(self.state)
         return self.state.n_reasoning, self.state.monitor
 

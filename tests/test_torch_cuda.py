@@ -786,8 +786,10 @@ def test_graph_conditional_node_api(cuda):
     """What a chunk the device runs alone needs from torch: ``CUDAGraph``
     records if-nodes on a device bool (nested two deep here) and registers
     a generator, so a replay skips a body whose predicate is false and a
-    draw inside a body is fresh on every replay.  Skipped, with the missing
-    methods named, on a torch whose CUDAGraph lacks them (torch
+    draw inside a body is fresh on every replay: what the lazy probe of a
+    chunk graph needs (route (b) of ROADMAP queue 1 item 2; the chunk
+    graphs of route (a) run every probe, with no if-node).  Skipped, with
+    the missing methods named, on a torch whose CUDAGraph lacks them (torch
     2.11.0+cu128 on the H100, as PERF.md records)."""
     missing = [name for name in ("begin_capture_to_if_node",
                                  "end_capture_to_conditional_node",
@@ -795,7 +797,8 @@ def test_graph_conditional_node_api(cuda):
                if not hasattr(torch.cuda.CUDAGraph, name)]
     if missing:
         pytest.skip(f"torch {torch.__version__}: CUDAGraph has no "
-                    f"{', '.join(missing)}")
+                    f"{', '.join(missing)}: a chunk graph's lazy probe "
+                    f"(route (b)) needs if-nodes built by the port")
     gen = torch.Generator(cuda).manual_seed(0)
     outer = torch.zeros((), dtype=torch.bool, device=cuda)
     x = torch.zeros((), dtype=torch.int64, device=cuda)
@@ -836,10 +839,10 @@ def test_graph_conditional_node_api(cuda):
                                         ("paged", True)])
 def test_chunk_syncs_the_host_only_in_device_if(cuda, monkeypatch, kind, proxy):
     """On the card, with every ``device_if`` taking its then-branch without
-    reading its predicate, a decode chunk with a probe at every step (and,
-    with the proxy, a shadow chunk) runs under sync debug mode "error": the
-    predicate reads are the only host syncs in a chunk (no value read, no
-    host-to-device copy that waits)."""
+    reading its predicate, an eager decode chunk with a probe at every step
+    (and, with the proxy, an eager shadow chunk) runs under sync debug mode
+    "error": the predicate reads are the only host syncs in an eager chunk
+    (no value read, no host-to-device copy that waits)."""
     from repro_torch.configs.base import get_config
     from repro_torch.core import monitor as monitor_mod
     from repro_torch.core.eat import make_probe
@@ -881,12 +884,12 @@ def test_chunk_syncs_the_host_only_in_device_if(cuda, monkeypatch, kind, proxy):
             state = eng.executor.ensure_chunk_pages(ss.alloc, state,
                                                     [0, 1, 2, 3], 8)
         gen = run(eng.executor.decode_chunk, state, 24, 4,
-                  use_monitor=not proxy)
+                  use_monitor=not proxy, eager=True)
         if proxy:
             ss.ptier.begin_chunk(4, [0, 1, 2, 3])
             ss.ptier.state = run(eng.proxy_executor.observe_chunk,
                                  ss.ptier.state, gen.out_tokens, state.out_len,
-                                 gen.out_len - state.out_len, 4)
+                                 gen.out_len - state.out_len, 4, eager=True)
         return gen
 
     # the first chunk eagerly, as it comes: every kernel loaded
@@ -896,3 +899,276 @@ def test_chunk_syncs_the_host_only_in_device_if(cuda, monkeypatch, kind, proxy):
     monkeypatch.setattr(monitor_mod, "device_if", taken)
     state = chunk(state, strict)
     assert int(state.out_len.max()) == 1 + 2 * 4
+
+
+# ------------------------------------------------------ the chunk graphs
+
+
+def _graph_engine(cuda, arch="tiny", *, kind="ring", proxy=None, greedy=True,
+                  delta=1e9, every_n=3, min_evals=2, budget=24, chunk=8):
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.eat import make_probe
+    from repro_torch.core.monitor import ReasoningMonitor
+    from repro_torch.core.stopping import EATStopper
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.serving.cache import CacheConfig
+    from repro_torch.serving.engine import EngineConfig, ReasoningEngine
+    from repro_torch.serving.proxy import ProxyConfig
+    from repro_torch.serving.sampler import SamplerConfig
+
+    cfg = get_config(arch)
+    model = Model(cfg, init_params(cfg, torch.Generator(cuda).manual_seed(3),
+                                   device=cuda))
+    ecfg = EngineConfig(max_reasoning_tokens=budget, capacity=256, chunk_len=chunk,
+                        sampler=SamplerConfig(greedy=greedy),
+                        cache=CacheConfig(kind=kind, attn_impl="auto"))
+    mon = ReasoningMonitor(stopper=EATStopper(delta=delta), probe=make_probe(1, (6,)),
+                           schedule="every_n", every_n=every_n, min_evals=min_evals)
+    return ReasoningEngine(model, ecfg, mon, proxy=None if proxy is None else
+                           ProxyConfig(model=model if proxy == "self" else proxy))
+
+
+def _graph_setup(eng, n=4, S=20, seed=7):
+    prompts = np.random.default_rng(seed).integers(16, eng.model.cfg.vocab, (n, S))
+    return eng._serve_setup(prompts, np.full(n, S), None, batch_size=n,
+                            max_tokens=eng.ecfg.max_reasoning_tokens,
+                            chunk_len=eng.ecfg.chunk_len)
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+def _clone_state(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone_state(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_state(v) for v in tree]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_clone_state(v) for v in tree))
+    return tree
+
+
+def _assert_same_state(a, b):
+    la, lb = _tensors(a), _tensors(b)
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("arch,kind,proxy", [
+    ("tiny", "ring", None), ("tiny", "paged", None), ("tiny-ssm", "ring", None),
+    ("tiny", "ring", "self"), ("tiny", "paged", "self")])
+def test_chunk_graph_equals_the_eager_chunk(cuda, arch, kind, proxy):
+    """Two chunks (the first captures, the second replays), each against
+    the eager guarded chunk from a copy of the same state: the state and the
+    whole cache bitwise.  With the proxy, the generator chunk runs eagerly
+    and the proxy's shadow chunk is the one compared."""
+    eng = _graph_engine(cuda, arch, kind=kind, proxy=proxy)
+    ss = _graph_setup(eng)
+    state = ss.state
+    for _ in range(2):
+        if ss.paged:
+            state = eng.executor.ensure_chunk_pages(ss.alloc, state, [0, 1, 2, 3],
+                                                    ss.chunk + 2)
+        if proxy is None:
+            ref = eng.executor.decode_chunk(_clone_state(state), ss.budget, ss.chunk,
+                                            eager=True)
+            state = eng.executor.decode_chunk(state, ss.budget, ss.chunk)
+            _assert_same_state(ref, state)
+            continue
+        gen = eng.executor.decode_chunk(state, ss.budget, ss.chunk,
+                                        use_monitor=False, eager=True)
+        ss.ptier.begin_chunk(ss.chunk, [0, 1, 2, 3])
+        args = (gen.out_tokens, state.out_len, gen.out_len - state.out_len, ss.chunk)
+        px = eng.proxy_executor
+        ref = px.observe_chunk(_clone_state(ss.ptier.state), *args, eager=True)
+        ss.ptier.state = px.observe_chunk(ss.ptier.state, *args)
+        _assert_same_state(ref, ss.ptier.state)
+        state = gen
+    graphs = (eng.executor if proxy is None else eng.proxy_executor).graphs
+    assert graphs.captures == 1 and graphs.replays == 2
+
+
+@pytest.mark.parametrize("arch,kind,proxy", [("tiny", "paged", None),
+                                             ("tiny", "paged", "self"),
+                                             ("tiny-ssm", "ring", None)])
+def test_second_serve_makes_no_capture(cuda, arch, kind, proxy):
+    """A serve on the graphs, a second serve of the same engine (no capture,
+    every chunk a replay) and an eager serve of it give the same tokens,
+    exits, answers and EAT traces."""
+    eng = _graph_engine(cuda, arch, kind=kind, proxy=proxy)
+    b = np.random.default_rng(5).integers(16, eng.model.cfg.vocab, (6, 24))
+    lens = np.array([24, 20, 17, 24, 9, 12])
+
+    def serve(**kw):
+        return eng.serve(b, lens, None, batch_size=4, answer_len=2,
+                         record_trace=True, **kw)
+
+    runs = [serve()]
+    tiers = [eng.executor] + ([eng.proxy_executor] if proxy else [])
+    captures = [ex.graphs.captures for ex in tiers]
+    replays = [ex.graphs.replays for ex in tiers]
+    runs += [serve(), serve(eager=True)]
+    assert all(c > 0 for c in captures)
+    assert [ex.graphs.captures for ex in tiers] == captures
+    assert all(ex.graphs.replays > r for ex, r in zip(tiers, replays))
+    assert "eat" in [r["exit_reason"] for r in runs[0]]
+    for other in runs[1:]:
+        for a, o in zip(runs[0], other):
+            assert a["eat_trace"] == o["eat_trace"] and a["slot"] == o["slot"]
+            np.testing.assert_array_equal(a["reasoning_tokens"], o["reasoning_tokens"])
+            np.testing.assert_array_equal(a["answer_tokens"], o["answer_tokens"])
+
+
+@pytest.mark.parametrize("proxy", [None, "self"])
+def test_chunk_graph_replay_makes_no_host_sync(cuda, proxy):
+    """After its capture, a chunk (and a shadow chunk) replays under sync
+    debug mode "error": no host sync and no device_if read inside it."""
+    from repro_torch.serving import device_loop
+
+    eng = _graph_engine(cuda, kind="paged", proxy=proxy, delta=0.0, every_n=1,
+                        min_evals=1, chunk=4)
+    ss = _graph_setup(eng)
+
+    def chunk(state, strict):
+        state = eng.executor.ensure_chunk_pages(ss.alloc, state, [0, 1, 2, 3], 8)
+        if proxy:
+            ss.ptier.begin_chunk(4, [0, 1, 2, 3])
+        n_start = state.out_len.clone()
+        torch.cuda.synchronize()
+        calls = device_loop.device_if.calls
+        if strict:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            gen = eng.executor.decode_chunk(state, 24, 4, use_monitor=not proxy)
+            if proxy:
+                ss.ptier.state = eng.proxy_executor.observe_chunk(
+                    ss.ptier.state, gen.out_tokens, n_start, gen.out_len - n_start, 4)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert device_loop.device_if.calls == calls
+        return gen
+
+    state = chunk(ss.state, strict=False)          # captures
+    state = chunk(state, strict=True)
+    assert int(state.out_len.max()) == 1 + 2 * 4
+
+
+def test_sampled_chunk_graph_equals_the_eager_chunk(cuda):
+    """Temperature sampling with the state's own generator, every row
+    exiting by EAT inside the chunk (step 5 of 8): the replay draws on all
+    8 steps from the graph's generator, started from the state's; its state
+    equals the eager masked chunk's and the eager guarded chunk's (which
+    stops after 5 steps), and once the snapshot has read the step count the
+    state's generator stands where the guarded chunk left it."""
+    eng = _graph_engine(cuda, kind="paged", greedy=False)
+    rng = torch.Generator(cuda).manual_seed(11)
+    prompts = np.random.default_rng(7).integers(16, eng.model.cfg.vocab, (4, 20))
+    ss = eng._serve_setup(prompts, np.full(4, 20), rng, batch_size=4,
+                          max_tokens=24, chunk_len=8)
+    ex = eng.executor
+    state = ex.ensure_chunk_pages(ss.alloc, ss.state, [0, 1, 2, 3], 10)
+    seed = rng.get_state()
+    masked = ex.masked_chunk(_clone_state(state), 24, 8)
+    rng.set_state(seed)
+    guarded = ex.decode_chunk(_clone_state(state), 24, 8, eager=True)
+    after_guarded = rng.get_state()
+    rng.set_state(seed)
+    state = ex.decode_chunk(state, 24, 8)
+    snap = ex.snapshot(state)
+    assert 0 < snap.steps < 8 and not snap.active.any()
+    assert not torch.equal(after_guarded, seed)
+    assert torch.equal(rng.get_state(), after_guarded)
+    _assert_same_state(masked, state)
+    _assert_same_state(guarded, state)
+    assert ex.graphs.captures == 1
+
+
+def test_sampled_serves_with_fresh_generators_equal_the_eager_serves(cuda):
+    """Two sampled serves of one engine, each with its own freshly seeded
+    generator (rows exit inside chunks, admissions sample their first token
+    between chunks): each equals the eager serve from the same seed, the two
+    seeds give different streams, and the second serve captures nothing."""
+    eng = _graph_engine(cuda, kind="paged", greedy=False)
+    b = np.random.default_rng(5).integers(16, eng.model.cfg.vocab, (6, 24))
+    lens = np.array([24, 20, 17, 24, 9, 12])
+    runs, captures = [], []
+    for seed in (11, 12):
+        def serve(**kw):
+            return eng.serve(b, lens, torch.Generator(cuda).manual_seed(seed),
+                             batch_size=4, answer_len=2, record_trace=True, **kw)
+
+        graph = serve()
+        captures.append(eng.executor.graphs.captures)
+        eager = serve(eager=True)
+        assert "eat" in [r["exit_reason"] for r in graph]
+        assert any(r["n_reasoning"] % 8 for r in graph)
+        for a, o in zip(graph, eager):
+            assert a["eat_trace"] == o["eat_trace"] and a["slot"] == o["slot"]
+            np.testing.assert_array_equal(a["reasoning_tokens"], o["reasoning_tokens"])
+            np.testing.assert_array_equal(a["answer_tokens"], o["answer_tokens"])
+        runs.append(graph)
+    assert captures[0] > 0 and captures[1] == captures[0]
+    assert any(not np.array_equal(a["reasoning_tokens"], o["reasoning_tokens"])
+               for a, o in zip(*runs))
+
+
+def test_chunk_graph_launch_counts_match_the_profiler(cuda):
+    """Over a warm serve (every chunk a replay), the wrappers' counts
+    (eager calls, plus each graph's captured calls once per replay) equal
+    the kernels the profiler sees: three paged kernels per op call, two
+    entropy kernels per call, one flash kernel per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = _graph_engine(cuda, kind="paged")
+    b = np.random.default_rng(5).integers(16, eng.model.cfg.vocab, (6, 24))
+    lens = np.full(6, 24)
+    eng.serve(b, lens, None, batch_size=4, answer_len=2)
+    captures = eng.executor.graphs.captures
+    for fn in (fa.flash_attention_cuda, pa.paged_attention_cuda, ep.entropy_probe_cuda):
+        fn.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.serve(b, lens, None, batch_size=4, answer_len=2)
+        torch.cuda.synchronize()
+    assert eng.executor.graphs.captures == captures
+    seen = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = e.key.removeprefix("void ").removeprefix("(anonymous namespace)::")
+            name = name.split("<")[0].split("(")[0]
+            seen[name] = seen.get(name, 0) + e.count
+    paged = pa.paged_attention_cuda.launches
+    assert paged > 0 and ep.entropy_probe_cuda.launches > 0
+    for kernel in ("paged_max_kernel", "paged_fold_kernel", "paged_merge_kernel"):
+        assert seen.get(kernel, 0) == paged, (kernel, seen)
+    assert seen.get("merge_kernel", 0) == ep.entropy_probe_cuda.launches
+    flash = sum(seen.get(k, 0) for k in ("flash_kernel", "flash_mma_kernel"))
+    assert flash == fa.flash_attention_cuda.launches
+
+
+def test_chunk_graph_survives_a_bucket_width_round_trip(cuda):
+    """The page list goes from bucket width W to W + 4 and back to W
+    between chunks: the graph of W replays on the same buffers after the
+    round trip (no third capture), and each chunk equals the eager chunk."""
+    eng = _graph_engine(cuda, kind="paged", delta=0.0, budget=64)
+    ss = _graph_setup(eng)
+    ex, alloc = eng.executor, ss.alloc
+    state = ex.ensure_chunk_pages(alloc, ss.state, [0, 1, 2, 3], 64 + 2)
+    width = alloc.bucket_width()
+    for extra in (0, 4, 0):
+        pages, logical, counts = alloc.block_buckets(width + extra)
+        state = ex.put_page_table(state, alloc.table, (pages, logical, counts))
+        ref = ex.decode_chunk(_clone_state(state), 64, 8, eager=True)
+        state = ex.decode_chunk(state, 64, 8)
+        _assert_same_state(ref, state)
+    assert ex.graphs.captures == 2 and ex.graphs.replays == 3

@@ -7,9 +7,9 @@ one-dispatch chunk, on the CPU (``serving/device_loop.py``,
   data (``aten._local_scalar_dense``, ``aten.nonzero``) is a
   ``device_if`` predicate, for the decode step with its lazy probe (ring,
   paged and the Mamba2 state) and for the proxy's shadow step.
-* Early stop: ``chunk_len`` guarded steps (every predicate evaluated, as a
-  chunk the device runs alone would) give the break loop's state bitwise
-  when rows exit inside the chunk, and in the shadow loop when rows consumed
+* Early stop: ``chunk_len`` masked steps (no predicate read, as the chunk
+  graph the device runs alone) give the break loop's state bitwise when
+  rows exit inside the chunk, and in the shadow loop when rows consumed
   different counts.
 * The device ``cur`` against the JAX engine: chunk by chunk over a ring whose
   last probes wrap onto slot 0, the same tokens, exits, evaluation counts
@@ -185,8 +185,9 @@ def test_chunk_reads_the_host_only_through_device_if(tiny, tiny_ssm, batch, op,
 @pytest.mark.parametrize("kind", ["ring", "paged"])
 def test_guarded_decode_steps_equal_the_break_loop(tiny, batch, kind):
     """Every row exits at its second evaluation, inside the chunk: the
-    chunk_len guarded steps leave the cache, ``cur``, tokens and monitor
-    state bitwise as the loop that breaks at the first false guard."""
+    chunk_len masked steps (``masked_chunk``, the chunk graph's body) leave
+    the cache, ``cur``, tokens and monitor state bitwise as the loop that
+    breaks at the first false guard."""
     eng = _engine(tiny[2], kind=kind, delta=1e9, every_n=3, min_evals=2,
                   chunk=12)
     ss = _setup(eng, batch)
@@ -194,11 +195,11 @@ def test_guarded_decode_steps_equal_the_break_loop(tiny, batch, kind):
     ref = ex.decode_chunk(_copy(ss.state), ss.budget, ss.chunk)
     steps = ex.snapshot(ref).steps
     calls = device_loop.device_if.calls
-    out = ex.decode_chunk(ss.state, ss.budget, ss.chunk, stop_early=False)
+    out = ex.masked_chunk(ss.state, ss.budget, ss.chunk)
     assert 0 < steps < ss.chunk and ex.snapshot(out).steps == steps
     assert not bool(ref.active.any())
-    # the guarded loop evaluated every step's guard
-    assert device_loop.device_if.calls - calls > ss.chunk
+    # the masked steps read no guard
+    assert device_loop.device_if.calls == calls
     _assert_states_equal(ref, out)
     assert int(out.cache["cur"]) == ss.snap.cur + steps
 
@@ -206,7 +207,8 @@ def test_guarded_decode_steps_equal_the_break_loop(tiny, batch, kind):
 @pytest.mark.parametrize("kind", ["ring", "paged"])
 def test_guarded_shadow_steps_equal_the_break_loop(tiny, batch, kind):
     """Rows consumed 5, 3, 1 and 0 tokens of the generator's chunk: the
-    shadow's chunk_len guarded steps equal its break loop bitwise."""
+    shadow's chunk_len masked steps (``masked_observe``) equal its break
+    loop bitwise."""
     eng = _engine(tiny[2], kind=kind, delta=1e9, every_n=2, min_evals=2,
                   proxy=tiny[2])
     ss = _setup(eng, batch)
@@ -216,8 +218,7 @@ def test_guarded_shadow_steps_equal_the_break_loop(tiny, batch, kind):
     n0 = pstate.n_reasoning.clone()
     ref = ex.observe_chunk(_copy(pstate), toks, n_start, n_emitted, ss.chunk)
     steps = ex.snapshot(ref).steps
-    out = ex.observe_chunk(pstate, toks, n_start, n_emitted, ss.chunk,
-                           stop_early=False)
+    out = ex.masked_observe(pstate, toks, n_start.long(), n_emitted, ss.chunk)
     assert 0 < steps < ss.chunk and ex.snapshot(out).steps == steps
     _assert_states_equal(ref, out)
     # a row consumed its tokens, or fewer where the proxy stopped it
