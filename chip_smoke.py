@@ -60,7 +60,9 @@ imports nothing of JAX or of the JAX package.  Phases:
    launch counted (the wrappers' eager calls plus each graph's captured
    calls once per replay), and an eager serve of the same engine (the
    guarded Python loop), which must give the graph serve's tokens, exits,
-   slots, answers and EAT traces bitwise.  Each chunk is timed on the card
+   slots, answers and EAT traces bitwise.  Each harvest's forced-answer
+   rollout is a graph replay too (its own key: batch, tokens, greedy, cache
+   shape), so a warm serve's replays are its chunks plus its rollouts.  Each chunk is timed on the card
    by CUDA events around the call (``[chunk]``: replay against the eager
    loop).  The paged self-EAT serve of 8 requests through 4 slots (every
    flash launch the tensor-core kernel: 36 per prefill, none scalar; every
@@ -74,7 +76,7 @@ imports nothing of JAX or of the JAX package.  Phases:
    attributed to its tier (flash: 36 per 8B prefill and 28 per
    ``qwen3-1.7b`` prefill, all of them the tensor-core kernel; the proxy's
    entropy calls, on its tied table, too);
-5. ``mamba2-2.7b`` (the 8B model freed first): kernel path vs plain path of
+5. ``mamba2-2.7b`` (the 8B engines freed first): kernel path vs plain path of
    the model (float32 cut to 4 layers, then bfloat16 at the full 64); a ring
    self-EAT serve of 8 requests through 4 slots at full width and depth,
    cold graph, warm graph and eager on one engine as above, with the
@@ -92,7 +94,22 @@ captured calls once per replay) must equal the kernels the profiler saw,
 and must equal the unprofiled warm serve's; these checked counts are the
 ``launches`` of the result line.  ``--profile DIR`` writes their tables to
 DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
-6. one JSON line per the contract: ``{"kernels": [...]}`` (five records), the card line,
+6. the paper's evaluation path (App. H) on ``eat-paper-8b`` (``[trace]``):
+   ``reason_with_trace`` over the first 4 prompts on a ring cache, every_n
+   8, 64 tokens, K 4 forced rollouts of 4 tokens and a 5-token greedy
+   confidence at every evaluation point, with the paper's sampler
+   (temperature 0.6, top-p 0.95) and seeded generators, as a cold graph
+   trace (its chunk and rollout graphs captured), a warm graph trace (no
+   capture; every chunk and rollout a replay; its launches counted) and an
+   eager trace, which must equal the warm one bitwise in every record
+   field and in ``out_tokens``, with both generators at the same offsets;
+   then the three Fig. 21 costs (``[fig21]``) at contexts 512 and 2048
+   (B 4), each by graph replay (``graph_ms``): one ``eval_eat_now``, one
+   ``decode_step`` (on a copy of the cache) and one ``rollout_answers`` of
+   K 8 x 4 tokens; and the per-token loop (``_reason_per_token``) against
+   ``reason`` on the chunk graphs, unmonitored, in tokens/s in turns (3
+   each), which must give the same tokens;
+7. one JSON line per the contract: ``{"kernels": [...]}`` (five records), the card line,
    and the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits nonzero before the result lines are printed.
@@ -331,9 +348,9 @@ def check_entropy_mma(what: str, counts: dict, calls: int) -> None:
 class Watch:
     """One engine, watched over its serves (its methods are wrapped once).
     Per serve (``begin`` to ``end``): for each tier (``executor``, and the
-    ``proxy_executor`` in proxy mode) the decode or shadow chunks it ran,
-    each chunk's time on the card (CUDA events recorded around the call, no
-    host read), its snapshot copies (one per chunk plus the setup's,
+    ``proxy_executor`` in proxy mode) the decode or shadow chunks and the
+    forced-answer rollouts it ran, each one's time on the card (CUDA events
+    recorded around the call, no host read), its snapshot copies (one per chunk plus the setup's,
     checked), its chunk graphs' captures (seconds each), replays and the
     memory they added to the graph pool, the kernel launches made inside
     its calls and its model's probe calls; and the ``device_if`` predicate
@@ -349,11 +366,10 @@ class Watch:
             ex = getattr(eng, attr, None)
             if ex is None:
                 continue
-            t = self.tiers[attr] = {"ex": ex, "chunks": [], "launches": {},
-                                    "probe_calls": 0, "depth": 0}
+            t = self.tiers[attr] = {"ex": ex, "chunks": [], "rollouts": [],
+                                    "launches": {}, "probe_calls": 0, "depth": 0}
             for method in (chunk, *self.LAUNCHING):
-                setattr(ex, method, self._wrap(t, getattr(ex, method),
-                                               method == chunk))
+                setattr(ex, method, self._wrap(t, getattr(ex, method), method))
             probe = ex.model.probe_entropy
 
             def counted(*a, _fn=probe, _t=t, **kw):
@@ -362,13 +378,15 @@ class Watch:
 
             ex.model.probe_entropy = counted
 
-    def _wrap(self, t, fn, is_chunk: bool):
+    def _wrap(self, t, fn, method: str):
         torch = self.torch
+        timed = ("chunks" if method in self.CHUNK.values() else
+                 "rollouts" if method == "rollout" else None)
 
         def wrapped(*a, **kw):
             before = {n: k.launches for n, k in self.kernels.items()}
             t["depth"] += 1
-            if is_chunk:
+            if timed:
                 ev = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
                 ev[0].record()
@@ -376,9 +394,9 @@ class Watch:
                 return fn(*a, **kw)
             finally:
                 t["depth"] -= 1
-                if is_chunk:
+                if timed:
                     ev[1].record()
-                    t["chunks"].append(ev)
+                    t[timed].append(ev)
                 if t["depth"] == 0:
                     for n, k in self.kernels.items():
                         t["launches"][n] = (t["launches"].get(n, 0)
@@ -389,7 +407,7 @@ class Watch:
     def begin(self) -> None:
         for t in self.tiers.values():
             g = t["ex"].graphs
-            t.update(chunks=[], launches={n: 0 for n in self.kernels},
+            t.update(chunks=[], rollouts=[], launches={n: 0 for n in self.kernels},
                      probe_calls=0, reads0=t["ex"].snapshot_reads,
                      graphs0=(g.captures, len(g.capture_s), g.replays,
                               g.pool_bytes))
@@ -407,15 +425,19 @@ class Watch:
             check(chunks > 0 and reads == chunks + 1,
                   f"{what} {name}: {reads} snapshot reads for {chunks} chunks")
             ms = [a.elapsed_time(b) for a, b in t["chunks"]]
+            rollouts = len(t["rollouts"])
             out["tiers"][name] = {
                 "chunks": chunks, "snapshots": reads, "chunk_ms": ms,
+                "rollout_ms": [a.elapsed_time(b) for a, b in t["rollouts"]],
                 "captures": g.captures - c0, "capture_s": g.capture_s[s0:],
                 "replays": g.replays - r0, "pool_bytes": g.pool_bytes - p0,
-                "keys": len(g), "launches": dict(t["launches"]),
+                "keys": len(g), "rollout_keys": rollout_keys(g),
+                "rollouts": rollouts, "launches": dict(t["launches"]),
                 "probe_calls": t["probe_calls"]}
             parts.append(
                 f"{name} {chunks} chunks ({statistics.median(ms):.2f} ms each, "
                 f"median on the card; range {min(ms):.2f}-{max(ms):.2f}), "
+                f"{rollouts} rollouts, "
                 f"{reads} snapshot reads ({(reads - 1) / chunks:.1f} per chunk "
                 f"after the setup's), {g.replays - r0} graph replays, "
                 f"{g.captures - c0} captures")
@@ -426,14 +448,22 @@ class Watch:
         return out
 
 
+def rollout_keys(graphs) -> int:
+    """The rollout programs among a runner's graph keys (the rest are
+    chunks)."""
+    return sum(key[0][0] == "rollout" for key in graphs.keys())
+
+
 def graph_line(what: str, st: dict) -> str:
-    """A serve's chunk-graph work: captures with their seconds, graph keys,
-    replays and the pool memory the captures added, per tier."""
+    """A serve's graph work: captures with their seconds, graph keys (chunk
+    and rollout), replays and the pool memory the captures added, per
+    tier."""
     parts = []
     for name, t in st["tiers"].items():
         cs = ", ".join(f"{x:.2f}" for x in t["capture_s"]) or "none"
         parts.append(f"{name} {t['captures']} captures ({cs} s), {t['keys']} "
-                     f"graph keys, {t['replays']} replays, pool +"
+                     f"graph keys ({t['keys'] - t['rollout_keys']} chunk, "
+                     f"{t['rollout_keys']} rollout), {t['replays']} replays, pool +"
                      f"{t['pool_bytes'] / 2**20:.1f} MiB")
     return f"[graphs] {what}: " + "; ".join(parts)
 
@@ -1214,8 +1244,11 @@ def mamba_phase(torch, np, kernels, phases, profile_dir=None) -> dict:
     launches = {name: fn.launches for name, fn in kernels.items()}
     ssd_variants = dict(kernels["ssd_scan"].variant_launches)
     entropy_variants = dict(kernels["entropy_probe"].variant_launches)
-    check(warm["tiers"]["executor"]["captures"] == 0 and warm["device_if"] == 0,
-          f"mamba2: the warm serve captured, or read device_if: {warm['line']}")
+    wt = warm["tiers"]["executor"]
+    check(wt["captures"] == 0 and wt["replays"] == wt["chunks"] + wt["rollouts"]
+          and warm["device_if"] == 0,
+          f"mamba2: the warm serve captured, ran a chunk or a rollout eagerly, or "
+          f"read device_if: {warm['line']}")
     e_res, phases["mamba_eager_serve_s"], eager = serve("eager serve", eager=True)
     check(same_results(res, e_res, np), "mamba2: the graph serve differs from the "
           "eager serve")
@@ -1244,12 +1277,13 @@ def mamba_phase(torch, np, kernels, phases, profile_dir=None) -> dict:
           f"bitwise (tokens, exits, slots, answers, EAT traces)")
     print(f"[serve] {cfg.name} host reads, warm graph serve: {warm['line']}")
     print(f"[serve] {cfg.name} host reads, eager serve: {eager['line']}")
-    g = warm["tiers"]["executor"]["chunk_ms"]
-    e = eager["tiers"]["executor"]["chunk_ms"]
-    print(f"[chunk] {cfg.name} executor: replay {statistics.median(g):.3f} ms (range "
-          f"{min(g):.3f}-{max(g):.3f}, {len(g)} chunks), eager "
-          f"{statistics.median(e):.3f} ms (range {min(e):.3f}-{max(e):.3f}, "
-          f"{len(e)} chunks), median on the card")
+    for kind in ("chunk", "rollout"):
+        g = warm["tiers"]["executor"][f"{kind}_ms"]
+        e = eager["tiers"]["executor"][f"{kind}_ms"]
+        print(f"[{kind}] {cfg.name} executor: replay {statistics.median(g):.3f} ms "
+              f"(range {min(g):.3f}-{max(g):.3f}, {len(g)} calls), eager "
+              f"{statistics.median(e):.3f} ms (range {min(e):.3f}-{max(e):.3f}, "
+              f"{len(e)} calls), median on the card")
     print(f"[graphs] {cfg.name}: graph pool {eng.executor.graphs.pool_bytes / 2**20:.1f} "
           f"MiB added by its captures; {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB peak allocated over the process")
@@ -1264,6 +1298,170 @@ def mamba_phase(torch, np, kernels, phases, profile_dir=None) -> dict:
     check(profiled == launches, f"mamba2: the profiled serve's launches {profiled} "
           f"differ from the warm serve's {launches}")
     return profiled
+
+
+# ------------------------------------------------------------------ phase 6
+
+
+def clone_tree(torch, tree):
+    """A copy of every tensor of a (nested) state: a cache re-timed by a
+    step that writes it."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: clone_tree(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [clone_tree(torch, v) for v in tree]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(clone_tree(torch, v) for v in tree))
+    return tree
+
+
+def same_trace(np, a: list, b: list) -> bool:
+    """Two traces' records equal bitwise, field by field."""
+    return len(a) == len(b) and all(
+        list(x) == list(y) and all(
+            x[k].dtype == y[k].dtype and x[k].shape == y[k].shape
+            and x[k].tobytes() == y[k].tobytes() for k in x)
+        for x, y in zip(a, b))
+
+
+def trace_phase(torch, np, model, probe, prompts, lens, kernels: dict,
+                phases: dict) -> None:
+    """The paper's evaluation path (App. H) on ``model``: ``reason_with_trace``
+    over the first 4 prompts on a ring cache, every_n 8, 64 tokens, K 4
+    rollouts of 4 tokens and a 5-token greedy confidence at every point,
+    the paper's sampler (temperature 0.6, top-p 0.95) with seeded
+    generators; cold graph, warm graph and eager traces (warm == eager
+    bitwise, generators at the same offsets, no capture in the warm one,
+    its launches counted); then the three Fig. 21 costs at contexts 512 and
+    2048 by graph replay, and the per-token loop against the chunk graphs
+    in turns."""
+    from repro_torch.core.monitor import ReasoningMonitor
+    from repro_torch.core.stopping import EATStopper
+    from repro_torch.serving.cache import CacheConfig
+    from repro_torch.serving.engine import EngineConfig, ReasoningEngine
+    from repro_torch.serving.sampler import SamplerConfig
+
+    B, max_tokens, every_n, K, n_roll, n_conf = 4, 64, 8, 4, 4, 5
+    P, L = prompts[:B], lens[:B]
+    S = P.shape[1]
+    cfg = model.cfg
+    ecfg = EngineConfig(max_reasoning_tokens=max_tokens,
+                        capacity=S + max_tokens + 16, chunk_len=every_n,
+                        sampler=SamplerConfig(temperature=0.6, top_p=0.95),
+                        cache=CacheConfig(kind="ring", attn_impl="auto"))
+    mon = ReasoningMonitor(stopper=EATStopper(alpha=0.2, delta=1e-3), probe=probe,
+                           schedule="every_n", every_n=every_n, min_evals=2)
+    eng = ReasoningEngine(model, ecfg, mon)
+    graphs = eng.executor.graphs
+
+    def trace(what: str, eager: bool = False):
+        """One trace from seeded generators: (records, out_tokens, wall s,
+        captures, replays, chain and rollout generator offsets)."""
+        rng = torch.Generator(device="cuda").manual_seed(5)
+        rr = torch.Generator(device="cuda").manual_seed(6)
+        st = eng.start(P, L, rng)
+        c0, r0 = graphs.captures, graphs.replays
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, tr = eng.reason_with_trace(
+            st, max_tokens=max_tokens, rollout_k=K, rollout_len=n_roll,
+            answer_extract=lambda r: r[:, 0], confidence_len=n_conf,
+            rollout_rng=rr, eager=eager)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        check(len(tr) > 0 and all(np.isfinite(r["eat"]).all()
+                                  and np.isfinite(r["confidence"]).all() for r in tr),
+              f"trace {what}: no record, or a value not finite")
+        return (tr, st.out_tokens.cpu().numpy(), wall, graphs.captures - c0,
+                graphs.replays - r0, (rng.get_offset(), rr.get_offset()))
+
+    t0 = time.perf_counter()
+    cold = trace("cold graph")
+    check(cold[3] > 0, "trace: the cold trace captured no graph")
+    reset_counts(kernels)
+    warm = trace("warm graph")
+    launched = {name: fn.launches for name, fn in kernels.items()}
+    eager = trace("eager", eager=True)
+    n_rec, n_chunks = len(warm[0]), -(-(max_tokens - 1) // every_n)
+    check(warm[3] == 0 and warm[4] == n_chunks + n_rec * (K + 1),
+          f"trace: the warm trace made {warm[3]} captures and {warm[4]} replays, "
+          f"expected 0 and {n_chunks} chunks + {n_rec} x {K + 1} rollouts")
+    check(same_trace(np, warm[0], eager[0]) and np.array_equal(warm[1], eager[1]),
+          "trace: the warm graph trace differs from the eager trace")
+    check(same_trace(np, warm[0], cold[0]) and np.array_equal(warm[1], cold[1]),
+          "trace: the warm graph trace differs from the cold one")
+    check(warm[5] == eager[5], f"trace: generator offsets (chain, rollouts) after "
+          f"the graph trace {warm[5]}, after the eager trace {eager[5]}")
+    for name in ("flash_attention", "paged_attention", "entropy_probe"):
+        check(launched[name] > 0, f"trace: {name} not launched in the warm trace")
+    keys = graphs.keys()
+    print(f"[trace] {cfg.name} ring, {B} prompts, every_n {every_n}, {max_tokens} "
+          f"tokens, K {K} x {n_roll} rollout tokens, confidence {n_conf}, "
+          f"temperature 0.6 top-p 0.95: {n_rec} records of {sorted(warm[0][0])}; "
+          f"warm graph trace == eager trace bitwise (every record field, "
+          f"out_tokens), generator offsets equal {warm[5]}")
+    print(f"[trace] graph keys: {len(keys) - rollout_keys(graphs)} chunk "
+          f"{[k[0] for k in keys if k[0][0] != 'rollout']}, {rollout_keys(graphs)} "
+          f"rollout {[k[0] for k in keys if k[0][0] == 'rollout']}; cold trace "
+          f"{cold[3]} captures ({', '.join(f'{x:.2f}' for x in graphs.capture_s)} s), "
+          f"warm trace 0 captures, {warm[4]} replays ({n_chunks} chunks + {n_rec} x "
+          f"{K + 1} rollouts)")
+    print(f"[trace] walls: cold graph {cold[2]:.3f} s, warm graph {warm[2]:.3f} s, "
+          f"eager {eager[2]:.3f} s; launches during the warm graph trace "
+          f"{json.dumps(launched)}")
+    phases.update(trace_cold_s=cold[2], trace_warm_s=warm[2], trace_eager_s=eager[2])
+
+    # Fig. 21: one EAT probe, one decode step and one K 8 x 4 rollout
+    # evaluation at a context of T tokens (B 4), each by graph replay
+    for T in (512, 2048):
+        toks = np.random.default_rng(T).integers(16, cfg.vocab, (B, T))
+        st = eng.start(toks, np.full(B, T), None, capacity=T + 64)
+        probe_ms = graph_ms(torch, [lambda: eng.eval_eat_now(st)])
+        step = st._replace(cache=clone_tree(torch, st.cache))
+        decode_ms = graph_ms(torch, [lambda: eng._decode_fn(step)])
+        roll_ms = graph_ms(torch, [lambda: eng.rollout_answers(st, 8, 4, None,
+                                                               eager=True)], reps=3)
+        del step
+        print(f"[fig21] context {T}, B {B}: eval_eat_now {probe_ms:.3f} ms, "
+              f"decode_step {decode_ms:.3f} ms, rollout_answers K 8 x 4 tokens "
+              f"{roll_ms:.3f} ms ({roll_ms / probe_ms:.1f} x the probe), graph "
+              f"replay on the card")
+        phases[f"fig21_{T}"] = {"probe_ms": probe_ms, "decode_ms": decode_ms,
+                                "rollout_ms": roll_ms}
+
+    # the per-token loop against reason() on the chunk graphs, unmonitored,
+    # in turns from the same seed: the same tokens
+    def run(per_token: bool):
+        st = eng.start(P, L, torch.Generator(device="cuda").manual_seed(7))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if per_token:
+            st = eng._reason_per_token(st, max_tokens=max_tokens, use_monitor=False)
+        else:
+            st = eng.reason(st, max_tokens=max_tokens, use_monitor=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        return st.out_tokens.cpu().numpy(), int(st.n_reasoning.sum()) - B, wall
+
+    walls = {True: [], False: []}
+    for _ in range(3):
+        for per_token in (True, False):
+            toks, n_tok, wall = run(per_token)
+            walls[per_token].append(n_tok / wall)
+            if per_token:
+                ref = toks
+            check(np.array_equal(toks, ref), "per-token loop and chunk graphs differ")
+    per, chk = walls[True], walls[False]
+    print(f"[trace] per-token loop {statistics.median(per):.1f} tokens/s (range "
+          f"{min(per):.1f}-{max(per):.1f}) against reason() on the chunk graphs "
+          f"{statistics.median(chk):.1f} tokens/s (range {min(chk):.1f}-"
+          f"{max(chk):.1f}), unmonitored, {n_tok} tokens, in turns x 3; the same "
+          f"tokens")
+    phases["per_token_tok_s"] = statistics.median(per)
+    phases["chunk_graph_tok_s"] = statistics.median(chk)
+    phases["trace_phase_s"] = time.perf_counter() - t0
 
 
 def main() -> None:
@@ -1484,9 +1682,10 @@ def main() -> None:
         counted = ({name: fn.launches for name, fn in kernels.items()},
                    {name: dict(fn.variant_launches) for name, fn in kernels.items()
                     if hasattr(fn, "variant_launches")})
-        check(all(t["captures"] == 0 and t["replays"] == t["chunks"]
+        check(all(t["captures"] == 0 and t["replays"] == t["chunks"] + t["rollouts"]
                   for t in warm["tiers"].values()) and warm["device_if"] == 0,
-              f"{what}: the warm serve captured, or read device_if: {warm['line']}")
+              f"{what}: the warm serve captured, ran a chunk or a rollout eagerly, "
+              f"or read device_if: {warm['line']}")
         check(same_results(res, cold[0], np), f"{what}: cold and warm graph "
               f"serves differ")
         e_res, e_wall, eager = serve(eng, watch, f"{what} eager serve", eager=True)
@@ -1500,15 +1699,18 @@ def main() -> None:
         return res, ((cold[1], cold[2]), (w_wall, warm), (e_wall, eager)), counted
 
     def chunk_line(what: str, runs) -> None:
-        """The chunk's own time on the card (CUDA events around each call):
-        graph replay against the eager loop, per tier."""
+        """The chunk's and the harvest rollout's own time on the card (CUDA
+        events around each call): graph replay against the eager loop, per
+        tier."""
         for tier in runs[1][1]["tiers"]:
-            g = runs[1][1]["tiers"][tier]["chunk_ms"]
-            e = runs[2][1]["tiers"][tier]["chunk_ms"]
-            print(f"[chunk] {what} {tier}: replay {statistics.median(g):.3f} ms "
-                  f"(range {min(g):.3f}-{max(g):.3f}, {len(g)} chunks), eager "
-                  f"{statistics.median(e):.3f} ms (range {min(e):.3f}-{max(e):.3f}, "
-                  f"{len(e)} chunks), median on the card")
+            for kind in ("chunk", "rollout"):
+                g = runs[1][1]["tiers"][tier][f"{kind}_ms"]
+                e = runs[2][1]["tiers"][tier][f"{kind}_ms"]
+                if g:
+                    print(f"[{kind}] {what} {tier}: replay {statistics.median(g):.3f} ms "
+                          f"(range {min(g):.3f}-{max(g):.3f}, {len(g)} calls), eager "
+                          f"{statistics.median(e):.3f} ms (range {min(e):.3f}-"
+                          f"{max(e):.3f}, {len(e)} calls), median on the card")
 
     eng_paged = engine("paged")
     watch_paged = Watch(torch, eng_paged, device_loop, kernels)
@@ -1668,8 +1870,7 @@ def main() -> None:
                       kernels)
     del qmodel, eng_q, watch_q, eng_paged, watch_paged, eng_ring
 
-    # ---- 5. mamba2-2.7b, the 8B model freed first
-    del model
+    # ---- 5. mamba2-2.7b, the 8B engines freed first (the model stays)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1678,9 +1879,16 @@ def main() -> None:
     launches["ssd_scan"] = m_launches["ssd_scan"]
     phases["mamba_s"] = time.perf_counter() - t0
 
-    print("[phases] " + json.dumps({k: round(v, 3) for k, v in phases.items()}))
+    # ---- 6. the evaluation path on eat-paper-8b
+    trace_phase(torch, np, model, probe, prompts, lens, kernels, phases)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # ---- 6. result lines: launches from the path each kernel serves (the
+    print("[phases] " + json.dumps({k: (round(v, 3) if isinstance(v, float) else v)
+                                    for k, v in phases.items()}))
+
+    # ---- 7. result lines: launches from the path each kernel serves (the
     # profiled 8B paged self-EAT serve; ssd_scan from the profiled mamba2
     # serve; decode_attention, which no serve path calls, from its own phase)
     launches["decode_attention"] = decode_launches

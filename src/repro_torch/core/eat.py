@@ -41,3 +41,15 @@ def eval_eat(model, cache, probe: ProbeSpec, next_pos: torch.Tensor, *,
              + torch.arange(m, dtype=torch.int32, device=next_pos.device)[None, :])
     return model.probe_entropy(toks, pos1d, pos1d, cache,
                                entropy_impl=entropy_impl)
+
+
+def entropy_of_logits(logits: torch.Tensor, vocab: int | None = None) -> torch.Tensor:
+    """The plain entropy (Eq. 2) over (..., V) logits, in float32,
+    restricted to ``[:vocab]`` when the table is padded."""
+    lf = logits.float()
+    if vocab is not None and vocab < lf.shape[-1]:
+        keep = torch.arange(lf.shape[-1], device=lf.device) < vocab
+        lf = torch.where(keep, lf, -torch.inf)
+    logp = torch.log_softmax(lf, dim=-1)
+    p = torch.exp(logp)
+    return -torch.where(p > 0, p * logp, 0.0).sum(-1)

@@ -16,6 +16,8 @@ probe_cond=False)``).  A step with ``live`` false is an identity on the
 state and the cache, so the body gives the guarded loop's state bitwise
 (``Executor.masked_chunk``).  ``ChunkGraphs`` captures that body once per
 program key and replays it: no ``device_if`` read, no launch from Python.
+A forced-answer rollout (``Executor.rollout``: ``</think>`` and ``n``
+tokens, every step live) is captured and replayed the same way.
 """
 from __future__ import annotations
 
@@ -68,7 +70,7 @@ _POOLS: dict = {}
 
 
 def _pool(device: torch.device):
-    """The id of the one CUDA-graph memory pool of every chunk graph on
+    """The id of the one CUDA-graph memory pool of every graph on
     ``device``.  Graphs may share it: each copies what it keeps into
     buffers made outside the pool, so nothing in the pool outlives a
     replay.  The pool is a ``MemPool`` held here for the process: a bare
@@ -81,15 +83,17 @@ def _pool(device: torch.device):
 
 
 class _Graph:
-    def __init__(self, graph, bufs, fixed, delta, n_out, generator):
-        self.graph, self.bufs, self.fixed = graph, bufs, fixed
-        self.delta, self.n_out, self.generator = delta, n_out, generator
+    def __init__(self, graph, bufs, outs, fixed, delta, generator):
+        self.graph, self.bufs, self.outs, self.fixed = graph, bufs, outs, fixed
+        self.delta, self.generator = delta, generator
 
 
 class ChunkGraphs:
-    """CUDA graphs of chunk programs, one per program key (the reference's
-    ``chunk_program`` key: batch, monitor on or off, cache kind and shape,
-    page-list bucket width, ``chunk_len``, budget).
+    """CUDA graphs of device programs, one per program key: the decode
+    chunks (the reference's ``chunk_program`` key: batch, monitor on or off,
+    cache kind and shape, page-list bucket width, ``chunk_len``, budget)
+    and the forced-answer rollouts (its ``rollout_program`` key: batch,
+    ``n``, greedy, cache kind and shape, bucket width).
 
     ``run(key, body, inputs, ...)`` replays the graph of ``key`` on
     ``inputs`` and returns new tensors holding its outputs.  On the first
@@ -97,10 +101,12 @@ class ChunkGraphs:
 
     * fixed buffers, one per input (the small per-row state: a few KB), are
       made outside the graph's pool; before each replay the inputs are
-      copied into them, and the body's outputs are copied back into the
-      same buffers at the end of the captured work;
+      copied into them;
     * a warm-up runs the body once eagerly on a side stream, on ``idle``
-      inputs that make it an identity on the cache (no row live);
+      inputs (the inputs themselves where it is not given) that make it an
+      identity on the cache (no row live); its outputs give the shapes of
+      the fixed output buffers, also made outside the pool, into which the
+      captured work copies the body's outputs at its end;
     * ``fixed`` are the cache tensors the graph reads and writes in place
       (K/V pools or ring, ``pos``, ``cur``, page table and page list, SSM
       states): a replay on any other tensors raises, and nothing falls back
@@ -129,23 +135,26 @@ class ChunkGraphs:
     def __len__(self) -> int:
         return len(self._graphs)
 
-    def run(self, key, body: Callable, inputs: list, *, n_out: int,
-            idle: list, fixed: list,
+    def keys(self) -> list:
+        """The program keys captured so far, in capture order."""
+        return list(self._graphs)
+
+    def run(self, key, body: Callable, inputs: list, *, fixed: list,
+            idle: list | None = None,
             generator: torch.Generator | None = None) -> tuple[list, int]:
-        """``body(bufs, gen) -> outs`` with ``outs[j]`` shaped as
-        ``inputs[j]`` for the first ``n_out`` inputs (the rest are read
-        only); ``gen`` is the generator the body draws from (the graph's
-        own, None without ``generator``).  Returns new tensors holding
-        ``outs``, and the Philox offset the replay's draws took from
-        ``generator``'s state (0 without one)."""
+        """``body(bufs, gen) -> outs`` (tensors; ``bufs`` hold ``inputs``);
+        ``gen`` is the generator the body draws from (the graph's own, None
+        without ``generator``).  Returns new tensors holding ``outs``, and
+        the Philox offset the replay's draws took from ``generator``'s state
+        (0 without one)."""
         g = self._graphs.get(key)
         if g is None:
-            g = self._graphs[key] = self._capture(body, inputs, idle, fixed,
-                                                  generator, n_out)
+            g = self._graphs[key] = self._capture(
+                body, inputs, inputs if idle is None else idle, fixed, generator)
         elif len(fixed) != len(g.fixed) or any(
                 a.data_ptr() != b.data_ptr() for a, b in zip(fixed, g.fixed)):
             raise RuntimeError(
-                f"chunk graph {key}: the cache is not the one it captured "
+                f"CUDA graph {key}: the cache is not the one it captured "
                 f"(a cache the executor did not allocate, or one an eager "
                 f"chunk replaced); no eager fallback runs on the card")
         for b, x in zip(g.bufs, inputs):
@@ -159,9 +168,9 @@ class ChunkGraphs:
             drawn = g.generator.get_offset() - start
         self.replays += 1
         _add_counts(g.delta)
-        return [b.clone() for b in g.bufs[:g.n_out]], drawn
+        return [b.clone() for b in g.outs], drawn
 
-    def _capture(self, body, inputs, idle, fixed, generator, n_out) -> _Graph:
+    def _capture(self, body, inputs, idle, fixed, generator) -> _Graph:
         t0 = time.perf_counter()
         dev = inputs[0].device
         bufs = [x.clone() for x in inputs]
@@ -174,8 +183,10 @@ class ChunkGraphs:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            body(bufs, own)
+            warm = body(bufs, own)
         torch.cuda.current_stream(dev).wait_stream(side)
+        outs = [torch.empty_like(o) for o in warm]
+        del warm
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
@@ -184,10 +195,8 @@ class ChunkGraphs:
         if own is not None:
             graph.register_generator_state(own)
         with torch.cuda.graph(graph, pool=_pool(dev)):
-            outs = body(bufs, own)
-            for b, o in zip(bufs[:n_out], outs):
+            for b, o in zip(outs, body(bufs, own)):
                 b.copy_(o)
-        del outs
         after = _counts()
         delta = [(a[0] - b[0], {v: a[1][v] - b[1].get(v, 0) for v in a[1]})
                  for a, b in zip(after, before)]
@@ -195,4 +204,4 @@ class ChunkGraphs:
         self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
         self.captures += 1
         self.capture_s.append(time.perf_counter() - t0)
-        return _Graph(graph, bufs, list(fixed), delta, n_out, own)
+        return _Graph(graph, bufs, outs, list(fixed), delta, own)

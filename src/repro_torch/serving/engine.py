@@ -1,5 +1,6 @@
 """Reasoning-serving facade (port of ``repro/serving/engine.py``: the
-self-EAT and proxy monitor modes, synchronous loop).
+self-EAT and proxy monitor modes, synchronous loop, and the evaluation
+path).
 
 ``ReasoningEngine`` drives the three layers: ``request`` (lifecycle),
 ``scheduler`` (slots, pages) and ``executor`` (device work).  ``serve``
@@ -16,9 +17,20 @@ monitoring, ``serving/proxy.py``).
 The loop reads a chunk's outcome in one device-to-host copy
 (``Executor.snapshot``); the host's ``Snapshot`` is also its mirror of
 ``cur`` and of the rows it admits between chunks, which the capacity checks
-and the page mapping read.  On the card each decode chunk (and each proxy
-shadow chunk) is one CUDA-graph replay; ``eager=True`` runs the guarded
-Python loop instead (the comparator of the graph path).
+and the page mapping read.  On the card each decode chunk (each proxy
+shadow chunk, and each forced-answer rollout) is one CUDA-graph replay;
+``eager=True`` runs the guarded Python loop instead (the comparator of the
+graph path).
+
+The same machinery runs the paper's evaluation protocol (App. H):
+``reason_with_trace`` generates one long chain and records, at every
+evaluation point, EAT, the answers of K forced rollouts
+(``rollout_answers``) and the confidence of a greedy rollout, which the
+stopping rules of ``core/stopping.py`` are replayed over
+(``benchmarks/torch_trace_harness.py``).  ``eval_eat_now``, the
+unmonitored step ``_decode_fn`` and the per-token loop
+``_reason_per_token`` are the costs and the baseline the chunked loop is
+measured against.
 """
 from __future__ import annotations
 
@@ -32,7 +44,7 @@ import torch
 
 from repro_torch.core.eat import ProbeSpec
 from repro_torch.core.monitor import ReasoningMonitor
-from repro_torch.core.stopping import EATStopper
+from repro_torch.core.stopping import EATStopper, confidence_from_logprobs
 from repro_torch.serving.cache import CacheConfig, alloc_cache, page_align
 from repro_torch.serving.executor import (
     Executor,
@@ -322,7 +334,8 @@ class ReasoningEngine:
                 if paged:
                     # a rollout writes </think> + answer_len slots past cur
                     state = ensure_pages(answer_len + 1)
-                toks, _ = self.force_answer(state, answer_len, greedy=True)
+                toks, _ = self.force_answer(state, answer_len, greedy=True,
+                                            eager=eager)
                 ans = toks.cpu().numpy()
             for s, req in done:
                 sched.release(s)
@@ -389,9 +402,140 @@ class ReasoningEngine:
 
     # ------------------------------------------------------------- answers
     def force_answer(self, state: ServeState, n_tokens: int, rng=None, *,
-                     greedy: bool = False):
+                     greedy: bool = False, eager: bool = False):
         """GenTillEoS(Q, <think>, R, </think>) — Eq. (10)/Alg. 1 line 11.
-        Returns (tokens (B, n), logprobs (B, n)); the cache is untouched."""
+        Returns (tokens (B, n), logprobs (B, n)); the cache is untouched.
+        On the card one graph replay (``Executor.rollout``), unless
+        ``eager``."""
         rng = rng if rng is not None else state.rng
         return self.executor.rollout(state.cache, state.next_pos, rng,
-                                     n=n_tokens, greedy=greedy)
+                                     n=n_tokens, greedy=greedy, eager=eager)
+
+    def rollout_answers(self, state: ServeState, k: int, n_tokens: int, rng,
+                        *, eager: bool = False) -> torch.Tensor:
+        """K independent sampled forced rollouts (for Pass@1 / #UA@K):
+        tokens (K, B, n).  The K rollouts draw in turn from the one
+        generator ``rng``, which stands for the reference's
+        ``jax.random.split(rng, k)``: each rollout's draws follow the
+        previous one's in its stream."""
+        return torch.stack([self.force_answer(state, n_tokens, rng,
+                                              eager=eager)[0]
+                            for _ in range(k)])
+
+    def eval_eat_now(self, state: ServeState) -> torch.Tensor:
+        """EAT of every row at its current position (a non-committing probe
+        over the live cache): (B,) float32."""
+        return self.executor.probe(state.cache, state.next_pos)
+
+    # ------------------------------------------------------------- baselines
+    @property
+    def _decode_fn(self):
+        """One unmonitored decode step, ``state -> state`` (CONSUMES it)."""
+        return self.executor.decode_step
+
+    def _reason_per_token(self, state: ServeState, *,
+                          max_tokens: int | None = None,
+                          use_monitor: bool = True) -> ServeState:
+        """The pre-chunking host loop, kept as the baseline the chunked loop
+        is raced against: one eager decode step per token, two host reads
+        per step (and the probe's when an evaluation is due).  CONSUMES
+        ``state``."""
+        budget = max_tokens or self.ecfg.max_reasoning_tokens
+        while bool(state.active.any()) and int(state.n_reasoning.max()) < budget:
+            state = self.executor.decode_step(state)
+            if use_monitor:
+                due = self.monitor.due(state.monitor, state.last_token)
+                if bool((due & state.active).any()):
+                    eat = self.executor.probe(state.cache, state.next_pos)
+                    mon = self.monitor.update(state.monitor, eat, due,
+                                              state.active)
+                else:
+                    mon = self.monitor.tick_no_eval(state.monitor, state.active)
+                state = state._replace(monitor=mon)
+                exits = mon.stop_flag
+            else:
+                exits = torch.zeros_like(state.active)
+            over = state.n_reasoning >= budget
+            state = state._replace(
+                active=state.active & ~exits & ~state.ended_think & ~over)
+        return state
+
+    # ------------------------------------------------------------- tracing
+    def reason_with_trace(self, state: ServeState, *, max_tokens: int,
+                          rollout_k: int = 0, rollout_len: int = 8,
+                          answer_extract=None, confidence_len: int = 0,
+                          rollout_rng: torch.Generator | None = None,
+                          eager: bool = False) -> tuple[ServeState, list[dict]]:
+        """Generate one long chain and record, at every evaluation point,
+        EAT (and optionally K rollout answers and the confidence): the
+        offline evaluation protocol of App. H.  No early exit is taken.
+
+        The chain runs as unmonitored ``decode_chunk``s of ``every_n``
+        tokens (1 under the newline schedule, where a due point can fall on
+        any token): graph replays on the card unless ``eager``.  After each
+        chunk one ``Executor.snapshot`` gives the host the rows that emitted
+        a token and their last token; a row is due where it emitted (the
+        budget-th token's point included) and, under the newline schedule,
+        its last token is the newline.  A record holds ``n_tokens``,
+        ``due``, ``eat``, with ``rollout_k`` the ``rollouts`` (K, B, n) and
+        (with ``answer_extract``) their ``answers`` (K, B), with
+        ``confidence_len`` the ``confidence`` of a greedy rollout
+        (``confidence_from_logprobs``), and the monitor's debiased
+        ``ema_var`` after the update.  The rollouts draw from
+        ``rollout_rng``, by default a copy of the state's generator taken
+        at the start, so the chain's tokens do not depend on ``rollout_k``.
+        CONSUMES ``state``."""
+        ex, mon = self.executor, self.monitor
+        ex.settle_rng()
+        if rollout_rng is None:
+            rollout_rng = _fork(state.rng, self.device)
+        newline = mon.schedule == "newline"
+        chunk = 1 if newline else mon.every_n
+        trace: list[dict] = []
+        snap = ex.snapshot(state)
+        while snap.active.any():
+            prev_n = snap.n_reasoning
+            state = ex.decode_chunk(state, max_tokens, chunk, use_monitor=False,
+                                    eager=eager)
+            snap = ex.snapshot(state)
+            emitted = snap.n_reasoning > prev_n
+            due = emitted.copy()
+            if newline:
+                last = snap.tokens[np.arange(len(due)), snap.out_len - 1]
+                due &= last == mon.newline_id
+            if not due.any():
+                continue
+            eat = self.eval_eat_now(state)
+            rec: dict = {"n_tokens": snap.n_reasoning, "due": due,
+                         "eat": eat.cpu().numpy()}
+            if rollout_k:
+                rolls = self.rollout_answers(state, rollout_k, rollout_len,
+                                             rollout_rng, eager=eager)
+                rec["rollouts"] = rolls.cpu().numpy()
+                if answer_extract is not None:
+                    rec["answers"] = np.stack([answer_extract(r)
+                                               for r in rec["rollouts"]])
+            if confidence_len:
+                _, lps = self.force_answer(state, confidence_len, greedy=True,
+                                           eager=eager)
+                rec["confidence"] = confidence_from_logprobs(lps).cpu().numpy()
+            ms = mon.update(state.monitor, eat,
+                            torch.as_tensor(due, device=self.device),
+                            torch.as_tensor(emitted, device=self.device))
+            state = state._replace(monitor=ms)
+            rec["ema_var"] = mon.stopper.debiased_var(ms.stop_state).cpu().numpy()
+            trace.append(rec)
+        return state, trace
+
+
+def _fork(rng: torch.Generator | None, device) -> torch.Generator:
+    """A new generator at ``rng``'s state (the device's default generator
+    where it is None)."""
+    dev = torch.device(device)
+    src = rng
+    if src is None:
+        src = (torch.cuda.default_generators[dev.index or 0]
+               if dev.type == "cuda" else torch.default_generator)
+    out = torch.Generator(device=dev)
+    out.set_state(src.get_state())
+    return out

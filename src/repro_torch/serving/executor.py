@@ -23,12 +23,15 @@ masked or not, from the graph's own generator, which starts each replay
 from the state's generator; that generator then moves by the draws of the
 live steps only (``settle_rng``, when ``snapshot`` reads the step count),
 as the guarded loop moves it, so every later draw is the same on both
-paths.  The host reads a chunk's outcome once, through ``snapshot``.  The
+paths.  A forced-answer rollout has the same two forms: on the card one
+replay of its graph (every step live, so the caller's generator moves by
+all of the replay's draws), otherwise the eager loop.  The host reads a
+chunk's outcome once, through ``snapshot``.  The
 executor keeps the serving caches it allocates and the page-list buffers it
 fills, and empties them in place for the next serve, so the graphs it
 captured replay across serves.  A caller must treat a state it
-hands to a mutating method (``decode_chunk``, ``admit``, ``admit_paged``,
-``retract``, ``observe_chunk``) as consumed and go on from the returned
+hands to a mutating method (``decode_chunk``, ``decode_step``, ``admit``,
+``admit_paged``, ``retract``, ``observe_chunk``) as consumed and go on from the returned
 one.
 
   cache_for      the kept ring / recurrent cache of a batch, emptied
@@ -40,7 +43,9 @@ one.
   admit          slot recycling row-merge (ring)
   admit_paged    row-merge through a page table
   pack_paged     dense prefill -> page pool
-  rollout        forced answer generation; leaves the cache as it was
+  decode_step    one unmonitored step (the per-token loop's)
+  rollout        forced answer generation (a graph replay on the card);
+                 leaves the cache as it was
   retract        proxy mode: rewind rows to the proxy's exit step
   observe_chunk  (ProxyExecutor) shadow a generator chunk through the proxy
   snapshot       the packed host copy of a state (one device-to-host read)
@@ -408,21 +413,16 @@ class Executor:
         inputs = small + list(extra)
         idle = list(inputs)
         idle[idle_at] = torch.zeros_like(inputs[idle_at])
-        gen = None
-        if sampled and not self.ecfg.sampler.greedy:
-            gen = (state.rng if state.rng is not None else
-                   torch.cuda.default_generators[state.active.device.index or 0])
-        blocks = cache.get("blocks")
-        key = (tag, tuple(cache["pos"].shape), "page_table" in cache,
-               0 if blocks is None else blocks["pages"].shape[1])
+        gen = (_generator(state.rng, state.active.device)
+               if sampled and not self.ecfg.sampler.greedy else None)
+        key = _graph_key(tag, cache)
 
         def run(bufs, rng):
             st = _unflat(state._replace(rng=rng), bufs[:len(small)])
             return _flat(body(st, *bufs[len(small):]))
 
-        outs, drawn = self.graphs.run(key, run, inputs, n_out=len(small),
-                                      idle=idle, fixed=cache_leaves(cache),
-                                      generator=gen)
+        outs, drawn = self.graphs.run(key, run, inputs, idle=idle,
+                                      fixed=cache_leaves(cache), generator=gen)
         out = _unflat(state, outs)
         if gen is not None:
             self._draws = (gen, gen.get_offset(), drawn // chunk_len,
@@ -473,6 +473,15 @@ class Executor:
         return self._masked(
             state, chunk_len, lambda s, i: s.active.any(),
             lambda s, i, live: self._advance(s, budget, step_fn, live))
+
+    def decode_step(self, state: ServeState) -> ServeState:
+        """One unmonitored decode step (``_advance`` with no budget): the
+        per-token loop's step (``ReasoningEngine._reason_per_token``).  The
+        reference's ``decode_program`` returns a new state; here the cache
+        is updated in place, so the step CONSUMES ``state``: a caller that
+        times one state again and again steps a copy of its cache."""
+        self.settle_rng()
+        return self._advance(state, NO_BUDGET, self._step_plain)
 
     def snapshot(self, state: ServeState) -> Snapshot:
         """The packed host copy of ``state`` after a chunk: one int64 block
@@ -617,22 +626,45 @@ class Executor:
         )
 
     # ---------------------------------------------------------- answers
-    def rollout(self, cache, next_pos, rng, *, n: int, greedy: bool = False):
+    def rollout(self, cache, next_pos, rng, *, n: int, greedy: bool = False,
+                eager: bool = False):
         """Forced answer rollout: append </think> then generate ``n``
-        tokens.  Returns (tokens (B, n), logprobs (B, n)).  Positions,
-        ``cur`` and the SSM states advance on a private copy (the layer list
-        is copied; a commit replaces SSM entries, never writes them), and any
-        live slot the rollout overwrites is restored: the cache is left as it
-        was."""
-        model, cfg, ecfg = self.model, self.cfg, self.ecfg
+        tokens.  Returns (tokens (B, n), logprobs (B, n)); the cache is left
+        as it was.  On the card (unless ``eager``): one replay of the graph
+        of ``_rollout_body`` (captured at the first call of its key: batch,
+        ``n``, greedy, cache kind and shape, bucket width), whose fixed
+        inputs are ``next_pos`` and copies of the cache's ``pos`` and
+        ``cur``.  A sampled replay draws from the graph's own generator,
+        loaded from ``rng`` (the default generator where it is None); every
+        step of a rollout is live, so ``rng`` then moves by the replay's
+        draws, to where the eager loop leaves it.  Otherwise the eager loop
+        of ``n + 1`` decode forwards."""
         self.settle_rng()
+        if not next_pos.is_cuda or eager:
+            return self._rollout_body(cache, next_pos, cache["pos"].clone(),
+                                      cache["cur"].clone(), rng, n=n,
+                                      greedy=greedy)
+        gen = None if greedy else _generator(rng, next_pos.device)
+        (toks, lps), drawn = self.graphs.run(
+            _graph_key(("rollout", n, greedy), cache),
+            lambda bufs, g: self._rollout_body(cache, *bufs, g, n=n,
+                                               greedy=greedy),
+            [next_pos, cache["pos"], cache["cur"]], fixed=cache_leaves(cache),
+            generator=gen)
+        if gen is not None:
+            gen.set_offset(gen.get_offset() + drawn)
+        return toks, lps
+
+    def _rollout_body(self, cache, next_pos, pos, cur, rng, *, n: int,
+                      greedy: bool):
+        """The rollout over ``cache`` with ``pos`` and ``cur`` its private
+        copies, which the rollout's commits advance (as does a recurrent
+        cache's copied layer list; a commit replaces SSM entries, never
+        writes them); every live slot it overwrites is restored."""
+        model, cfg, ecfg = self.model, self.cfg, self.ecfg
         B = next_pos.shape[0]
-        local = dict(cache)
-        local["pos"] = cache["pos"].clone()
-        local["cur"] = cache["cur"].clone()
-        local["layers"] = list(cache["layers"])
-        slots = write_slots(cache["cur"], n + 1, cache["pos"].shape[1],
-                            next_pos.device)
+        local = dict(cache, pos=pos, cur=cur, layers=list(cache["layers"]))
+        slots = write_slots(cur, n + 1, pos.shape[1], next_pos.device)
         scfg = dataclasses.replace(ecfg.sampler, greedy=greedy)
         toks, lps = [], []
         with preserved_slots(cache, slots):
@@ -640,15 +672,34 @@ class Executor:
                             device=next_pos.device)
             pos1d = next_pos[:, None]
             logit = model.decode_step(et, pos1d, pos1d, local)[:, -1]
-            pos = next_pos + 1
+            p = next_pos + 1
             for _ in range(n):
                 tok = sample(logit, cfg.vocab, scfg, rng)
                 toks.append(tok)
                 lps.append(logprob_of(logit, tok, cfg.vocab))
-                p1 = pos[:, None]
+                p1 = p[:, None]
                 logit = model.decode_step(tok[:, None], p1, p1, local)[:, -1]
-                pos = pos + 1
+                p = p + 1
         return torch.stack(toks, 1), torch.stack(lps, 1)
+
+
+#: the per-token loop's budget: none (the reference's int32 maximum)
+NO_BUDGET = 2**31 - 1
+
+
+def _generator(rng: torch.Generator | None, device) -> torch.Generator:
+    """The generator a sampled graph's draws stand for: ``rng``, or the
+    device's default one."""
+    return rng if rng is not None else torch.cuda.default_generators[
+        device.index or 0]
+
+
+def _graph_key(tag, cache) -> tuple:
+    """A graph's program key: ``tag`` and the cache's kind, shape and
+    page-list bucket width."""
+    blocks = cache.get("blocks")
+    return (tag, tuple(cache["pos"].shape), "page_table" in cache,
+            0 if blocks is None else blocks["pages"].shape[1])
 
 
 def _clone(tree):

@@ -1172,3 +1172,107 @@ def test_chunk_graph_survives_a_bucket_width_round_trip(cuda):
         state = ex.decode_chunk(state, 64, 8)
         _assert_same_state(ref, state)
     assert ex.graphs.captures == 2 and ex.graphs.replays == 3
+
+
+# ------------------------------------------------------ the rollout graphs
+
+
+def _rollout_setup(cuda, kind, greedy_engine=True):
+    eng = _graph_engine(cuda, kind=kind, greedy=greedy_engine)
+    ss = _graph_setup(eng)
+    state = ss.state
+    if ss.paged:
+        state = eng.executor.ensure_chunk_pages(ss.alloc, state, [0, 1, 2, 3], 6)
+    return eng, state
+
+
+@pytest.mark.parametrize("kind", ["ring", "paged"])
+@pytest.mark.parametrize("greedy", [True, False])
+def test_rollout_graph_equals_the_eager_rollout(cuda, kind, greedy):
+    """A forced-answer rollout of 5 tokens as a graph replay (the first call
+    captures, the second replays) against the eager loop from the same
+    generator state: tokens and log-probs bitwise, the caller's generator
+    at the same offset afterwards, and the whole cache (its live slots,
+    ``pos``, ``cur``) as it was."""
+    eng, state = _rollout_setup(cuda, kind)
+    ex = eng.executor
+    before = _clone_state(state.cache)
+    rng = torch.Generator(cuda).manual_seed(11)
+    seed = rng.get_state()
+    ref = ex.rollout(state.cache, state.next_pos, rng, n=5, greedy=greedy, eager=True)
+    after = rng.get_state()
+    assert greedy == torch.equal(after, seed)
+    _assert_same_state(before, state.cache)
+    for _ in range(2):
+        rng.set_state(seed)
+        got = ex.rollout(state.cache, state.next_pos, rng, n=5, greedy=greedy)
+        _assert_same_state(ref, got)
+        assert torch.equal(rng.get_state(), after)
+        _assert_same_state(before, state.cache)
+    assert ex.graphs.captures == 1 and ex.graphs.replays == 2
+
+
+def test_rollout_graphs_key_and_refuse_another_cache(cuda):
+    """One graph per (n, greedy) on the kept cache: a second call of each
+    captures nothing, K sampled rollouts from one generator replay K times
+    and move it as K eager rollouts do, and a cache the executor did not
+    allocate raises (no eager fallback)."""
+    from repro_torch.serving.cache import alloc_cache
+
+    eng, state = _rollout_setup(cuda, "ring")
+    ex = eng.executor
+    for _ in range(2):
+        for n, greedy in ((4, True), (4, False), (2, False)):
+            ex.rollout(state.cache, state.next_pos, None, n=n, greedy=greedy)
+    assert ex.graphs.captures == 3 and ex.graphs.replays == 6
+    rng = torch.Generator(cuda).manual_seed(4)
+    seed = rng.get_state()
+    eager = eng.rollout_answers(state, 3, 4, rng, eager=True)
+    after = rng.get_state()
+    rng.set_state(seed)
+    got = eng.rollout_answers(state, 3, 4, rng)
+    assert torch.equal(got, eager) and torch.equal(rng.get_state(), after)
+    assert not torch.equal(got[0], got[1])
+    assert ex.graphs.captures == 3 and ex.graphs.replays == 9
+    other = alloc_cache(eng.model.cfg, 4, state.cache["pos"].shape[1], device=cuda)
+    other["cur"].copy_(state.cache["cur"])
+    with pytest.raises(RuntimeError, match="not the one it captured"):
+        ex.rollout(other, state.next_pos, None, n=4, greedy=True)
+
+
+def test_warm_graph_trace_equals_the_eager_trace(cuda):
+    """``reason_with_trace`` with a sampled chain, K 2 sampled rollouts and a
+    3-token greedy confidence per point: a cold graph trace (captures), a
+    warm one (none; every chunk and rollout a replay) and an eager one give
+    the same records bitwise and the same ``out_tokens``, and leave the
+    chain's and the rollouts' generators at the same offsets."""
+    eng = _graph_engine(cuda, greedy=False, every_n=4, budget=16)
+    prompts = np.random.default_rng(7).integers(16, eng.model.cfg.vocab, (4, 20))
+    graphs = eng.executor.graphs
+
+    def trace(**kw):
+        rng = torch.Generator(cuda).manual_seed(5)
+        rr = torch.Generator(cuda).manual_seed(6)
+        st = eng.start(prompts, np.full(4, 20), rng)
+        c0, r0 = graphs.captures, graphs.replays
+        st, tr = eng.reason_with_trace(st, max_tokens=16, rollout_k=2,
+                                       rollout_len=3, confidence_len=3,
+                                       answer_extract=lambda r: r[:, 0],
+                                       rollout_rng=rr, **kw)
+        return (tr, st.out_tokens.cpu(), graphs.captures - c0,
+                graphs.replays - r0, rng.get_state(), rr.get_state())
+
+    runs = [trace(), trace(), trace(eager=True)]
+    n_rec = len(runs[1][0])
+    assert runs[0][2] == 3 and runs[1][2] == 0 and runs[2][2] == 0
+    # one replay per chunk (at most 4: 15 tokens, 4 a chunk) and 3 per record
+    assert n_rec <= runs[1][3] - 3 * n_rec <= 4 and runs[2][3] == 0
+    for other in (runs[0], runs[2]):
+        tr, toks = other[0], other[1]
+        assert len(tr) == n_rec >= 1
+        for a, b in zip(runs[1][0], tr):
+            assert list(a) == list(b)
+            for k in a:
+                assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes(), k
+        assert torch.equal(runs[1][1], toks)
+        assert torch.equal(runs[1][4], other[4]) and torch.equal(runs[1][5], other[5])

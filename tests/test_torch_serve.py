@@ -169,11 +169,15 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.kernels.ssd_scan.ops, repro_torch.models.ssm\n"
         "import repro_torch.configs.mamba2_2p7b\n"
         "import repro_torch.serving.proxy, repro_torch.kernels.decode_attention.ops\n"
+        "import repro_torch.core.stopping, repro_torch.core.eat\n"
+        "import repro_torch.serving.engine, repro_torch.serving.device_loop\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "sys.path.insert(0, sys.argv[1])\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, sys.argv[1] + '/benchmarks')\n"
+        "import torch_trace_harness\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
