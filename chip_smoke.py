@@ -75,7 +75,20 @@ imports nothing of JAX or of the JAX package.  Phases:
    and depth, with the generator's probe count 0 in both and every launch
    attributed to its tier (flash: 36 per 8B prefill and 28 per
    ``qwen3-1.7b`` prefill, all of them the tensor-core kernel; the proxy's
-   entropy calls, on its tied table, too);
+   entropy calls, on its tied table, too); every engine of this phase has
+   the overlapped loop's headroom (one chunk of capacity, one row of
+   pages), so that
+4c. the overlapped serve loop (``serve(overlap=True)``,
+   ``serving/pipeline.py``) replays the sync serves' graphs on the paged
+   self-EAT engine and the ``qwen3-1.7b`` proxy engine: a cold overlapped
+   serve (its captures printed), a warm one run whole under
+   ``torch.cuda.set_sync_debug_mode("error")`` that must equal the warm
+   sync serve bitwise and capture nothing (``[overlap]`` lines: chunk
+   replays, idle replays with ``steps == 0``, skipped shadows, pages the
+   ledger deferred, host reads), the walls of 3 sync and 3 overlapped
+   serves in turns with the card's name and power limit, and one profiled
+   overlapped serve (``[profile overlap ...]``: busy share, launch counts
+   checked against the profiler);
 5. ``mamba2-2.7b`` (the 8B engines freed first): kernel path vs plain path of
    the model (float32 cut to 4 layers, then bfloat16 at the full 64); a ring
    self-EAT serve of 8 requests through 4 slots at full width and depth,
@@ -1638,12 +1651,18 @@ def main() -> None:
     n_req, batch, budget, chunk = len(lens), 4, 64, 16
     S = prompts.shape[1]
 
+    # every engine gets the overlapped loop's headroom (one chunk of
+    # capacity, one row of pages), so that phase 4c's overlapped serves
+    # replay the graphs of the sync serves (the pool size is in their key)
+    capacity = SlotScheduler.required_capacity(S, n_req, batch, budget) + chunk
+    n_blocks = -(-capacity // 16)
+
     def engine(kind: str, proxy=None):
         ecfg = EngineConfig(
-            max_reasoning_tokens=budget,
-            capacity=SlotScheduler.required_capacity(S, n_req, batch, budget),
+            max_reasoning_tokens=budget, capacity=capacity,
             chunk_len=chunk, sampler=SamplerConfig(greedy=True),
-            cache=CacheConfig(kind=kind, page_size=16, attn_impl="auto"))
+            cache=CacheConfig(kind=kind, page_size=16, attn_impl="auto",
+                              num_pages=(batch + 1) * n_blocks + 1))
         mon = ReasoningMonitor(stopper=EATStopper(alpha=0.2, delta=1e9),
                                probe=probe, schedule="every_n", every_n=8,
                                min_evals=2)
@@ -1655,14 +1674,22 @@ def main() -> None:
                "paged_attention": pa.paged_attention_cuda,
                "entropy_probe": ep.entropy_probe_cuda}
 
-    def serve(eng, watch, what: str, eager: bool = False):
+    def serve(eng, watch, what: str, eager: bool = False, overlap: bool = False,
+              no_sync: bool = False):
         """One serve of ``eng`` (its chunks as graph replays, or with
-        ``eager`` the eager loop): (results, wall s, the watch's counts)."""
+        ``eager`` the eager loop; the overlapped loop with ``overlap``, the
+        whole serve under sync debug mode "error" with ``no_sync``):
+        (results, wall s, the watch's counts)."""
         watch.begin()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        res = eng.serve(prompts, lens, None, batch_size=batch, answer_len=4,
-                        record_trace=True, eager=eager)
+        if no_sync:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = eng.serve(prompts, lens, None, batch_size=batch, answer_len=4,
+                            record_trace=True, eager=eager, overlap=overlap)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         return res, wall, watch.end(what)
@@ -1862,6 +1889,64 @@ def main() -> None:
     print(f"[graphs] 8B phase: graph pool {pool / 2**20:.1f} MiB added by the captures "
           f"of the paged, ring and qwen3-1.7b proxy engines; "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak allocated")
+
+    # ---- 4c. the overlapped serve loop (serving/pipeline.py) on the paged
+    # self-EAT engine and the qwen3-1.7b proxy engine: cold, then warm
+    # (== the warm sync serve bitwise, 0 captures, the whole serve under
+    # sync debug mode "error"), walls in turns with the sync loop, a
+    # profiled overlapped serve
+    def overlap_phase(eng, watch, what, sync_res, sync_gen):
+        cold = serve(eng, watch, f"{what} cold overlapped serve", overlap=True)
+        print(graph_line(f"{what} cold overlapped serve ({cold[1]:.3f} s)", cold[2]))
+        check(same_results(cold[0], sync_res, np),
+              f"{what}: the cold overlapped serve differs from the sync serve")
+        res, wall, warm = serve(eng, watch, f"{what} warm overlapped serve",
+                                overlap=True, no_sync=True)
+        st = dict(eng.overlap_stats)
+        check(same_results(res, sync_res, np),
+              f"{what}: the warm overlapped serve differs from the warm sync serve")
+        check(all(t["captures"] == 0 and t["replays"] == t["chunks"] + t["rollouts"]
+                  for t in warm["tiers"].values()) and warm["device_if"] == 0,
+              f"{what}: the warm overlapped serve captured, ran a chunk or a "
+              f"rollout eagerly, or read device_if: {warm['line']}")
+        gen = warm["tiers"]["executor"]
+        check(st["chunks"] == gen["chunks"],
+              f"{what}: overlap stats {st} against {gen['chunks']} chunks")
+        print(f"[overlap] {what}: warm overlapped serve == warm sync serve bitwise "
+              f"(tokens, exits, slots, answers, EAT traces), 0 captures, the whole "
+              f"serve under sync debug mode \"error\" ({wall:.3f} s; cold "
+              f"{cold[1]:.3f} s); {st['chunks']} chunk replays, {st['idle_chunks']} "
+              f"idle (steps == 0), {st['shadows_skipped']} shadows skipped, "
+              f"{st['pages_deferred']} pages deferred by the ledger; sync serve: "
+              f"{sync_gen['chunks']} chunk replays")
+        print(f"[overlap] {what} host reads, warm overlapped serve: {warm['line']}")
+        turns = {"sync": [], "overlap": []}
+        for _ in range(3):
+            for mode in ("sync", "overlap"):
+                r, w, _ = serve(eng, watch, f"{what} {mode} serve in turns",
+                                overlap=mode == "overlap")
+                check(same_results(r, sync_res, np), f"{what} {mode} serve in "
+                      f"turns differs from the warm sync serve")
+                turns[mode].append(w)
+        med = {m: statistics.median(v) for m, v in turns.items()}
+        print(f"[overlap] {what} walls in turns (sync, overlapped) x 3 on {card}: "
+              + "; ".join(f"{m} {med[m]:.3f} s (range {min(v):.3f}-{max(v):.3f}; "
+                          f"{', '.join(f'{w:.3f}' for w in v)})"
+                          for m, v in turns.items()))
+        profiled = profile_serve(
+            torch, lambda: serve(eng, watch, f"profiled overlapped {what}",
+                                 overlap=True)[:2],
+            wall, Path(args.profile) / f"profile_overlap_{what.split()[0]}.txt"
+            if args.profile else None, f"profile overlap {what}", kernels)
+        check(all(n > 0 for n in profiled.values()),
+              f"{what}: a kernel was not launched in the overlapped serve: {profiled}")
+        return {"warm_s": wall, "cold_s": cold[1], "turns_s": med, **st}
+
+    phases["overlap_paged"] = overlap_phase(
+        eng_paged, watch_paged, "paged", paged_res,
+        paged_runs[1][1]["tiers"]["executor"])
+    phases["overlap_qwen"] = overlap_phase(
+        eng_q, watch_q, f"{qcfg.name} proxy", res, runs[1][1]["tiers"]["executor"])
 
     if args.profile:
         profile_serve(torch, lambda: serve(eng_q, watch_q, "profiled proxy")[:2],

@@ -8,6 +8,8 @@
       --requests 8 --batch 4 --budget 64                     # Mamba2, GPU
   python -m repro_torch.launch.serve --device cpu --arch tiny --requests 4 \\
       --batch 2 --monitor proxy --proxy-config tiny-proxy     # black-box EAT
+  python -m repro_torch.launch.serve --arch tiny --requests 10 --batch 4 \\
+      --cache paged --attn-impl auto --overlap on            # overlapped loop
 
 Random weights from a fixed seed (there is no checkpoint loader in the
 port yet), so verify mechanics — token counts, exits, slot recycling — not
@@ -21,6 +23,11 @@ here, as in the JAX launcher, they take the recurrent step.
 ``--monitor proxy`` serves black-box: a second model (``--proxy-config``,
 default a twin of ``--arch``, seeded apart) shadows the emitted stream and
 supplies the EAT exits; it must share the generator's vocabulary.
+``--overlap on`` serves through the overlapped loop
+(``serving/pipeline.py``: chunk N+1 dispatched before chunk N is read); it
+needs ``--requests`` and gets one chunk of capacity headroom.  The
+launcher samples (temperature 0.6), and a sampled overlapped stream
+differs from the sync loop's (only greedy streams are equal).
 """
 from __future__ import annotations
 
@@ -76,11 +83,17 @@ def main(argv=None):
     ap.add_argument("--proxy-config", default=None, metavar="ARCH",
                     help="--monitor proxy: the proxy model's architecture "
                          "(default: --arch, a twin seeded apart)")
+    ap.add_argument("--overlap", choices=["off", "on"], default="off",
+                    help="on: the overlapped serve loop (dispatch chunk N+1 "
+                         "before reading chunk N; needs --requests)")
     args = ap.parse_args(argv)
 
     if args.monitor == "proxy" and not args.requests:
         ap.error("--monitor proxy serves through the scheduler: pass "
                  "--requests N")
+    if args.overlap == "on" and not args.requests:
+        ap.error("--overlap on applies to the --requests serving loop: "
+                 "pass --requests N")
     if args.monitor != "proxy" and args.proxy_config:
         ap.error("--proxy-config only applies with --monitor proxy")
     cfg = get_config(args.arch)
@@ -124,17 +137,23 @@ def main(argv=None):
         # (logical) capacity covers the batch-lifetime worst case
         ecfg.capacity = SlotScheduler.required_capacity(
             batch["prompts"].shape[1], args.requests, args.batch, args.budget)
+        if args.overlap == "on":
+            # the overlapped loop's ring guard adds the chunk in flight to
+            # its (host-mirror) pointer estimate: give it that headroom
+            ecfg.capacity += args.chunk
         ecfg.cache = CacheConfig(kind=args.cache, page_size=args.page_size,
                                  num_pages=args.num_pages,
                                  attn_impl=args.attn_impl)
         engine = ReasoningEngine(model, ecfg, monitor, proxy=proxy)
         results = engine.serve(batch["prompts"], batch["prompt_len"], rng,
-                               batch_size=args.batch, answer_len=4)
+                               batch_size=args.batch, answer_len=4,
+                               overlap=args.overlap == "on")
         ans = np.array([ChainTask.extract_answer(r["answer_tokens"][None])[0]
                         for r in results])
         n = np.array([r["n_reasoning"] for r in results])
         print(f"served {args.requests} requests through {args.batch} slots "
-              f"on {dev.type} (monitor={engine.monitor_mode})")
+              f"on {dev.type} (monitor={engine.monitor_mode})"
+              + (", overlapped loop" if args.overlap == "on" else ""))
         print(f"answers: {ans}  truth: {batch['answers']}")
         print(f"correct: {(ans == batch['answers']).mean():.2f}  "
               f"reasoning tokens: total={n.sum()} per-q={n}")

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import torch_dtype
+from repro_torch.device import torch_dtype, upload
 from repro_torch.models.ssm import ssm_state_init
 
 #: physical page id reserved as the trash page — never handed out by the
@@ -111,7 +111,7 @@ def blocks_arrays(pages, logical, counts, *, device) -> dict:
     """Device form of the allocator's compacted mapped-page list: pages /
     logical (B, NBK) int32 (trash/0-padded past ``counts``), counts (B,)."""
     def t(x):
-        return torch.as_tensor(np.asarray(x, np.int32), device=device)
+        return upload(np.asarray(x, np.int32), device)
 
     return {"pages": t(pages), "logical": t(logical), "count": t(counts)}
 
@@ -150,7 +150,7 @@ def pack_paged_cache(paged: dict, dense: dict, table) -> dict:
     allocator's (B, NB) table with the prompt blocks mapped).  Blocks of
     ``dense`` past a row's mapped prompt land in the trash page."""
     dev = paged["pos"].device
-    table = torch.as_tensor(np.asarray(table, np.int32), device=dev)
+    table = upload(np.asarray(table, np.int32), dev)
     NB = table.shape[1]
     ps = paged["pos"].shape[1] // NB
     C_pre = dense["pos"].shape[1]
@@ -175,7 +175,7 @@ def merge_paged_row(cache: dict, one: dict, row: int, row_table) -> dict:
     ``pos`` is replaced (tail -1) and ``cur`` becomes ``max(cur, one_cur)``
     — the ring's semantics, so the admitted stream matches the ring's."""
     dev = cache["pos"].device
-    row_table = torch.as_tensor(np.asarray(row_table, np.int32), device=dev)
+    row_table = upload(np.asarray(row_table, np.int32), dev)
     C = cache["pos"].shape[1]
     ps = C // cache["page_table"].shape[1]
     C_pre = one["pos"].shape[1]

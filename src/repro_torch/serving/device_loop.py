@@ -21,6 +21,7 @@ tokens, every step live) is captured and replayed the same way.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable
 
@@ -66,20 +67,39 @@ def _add_counts(delta, sign: int = 1) -> None:
             fn.variant_launches[v] += sign * k
 
 
-_POOLS: dict = {}
+#: the process's lane streams, by (device index, lane)
+_LANES: dict = {}
+
+#: the lane of the generator's graphs, and that of the proxy model's graphs
+#: and of the overlapped serve's proxy tier
+MAIN_LANE, SIDE_LANE = 0, 1
 
 
-def _pool(device: torch.device):
-    """The id of the one CUDA-graph memory pool of every graph on
-    ``device``.  Graphs may share it: each copies what it keeps into
-    buffers made outside the pool, so nothing in the pool outlives a
-    replay.  The pool is a ``MemPool`` held here for the process: a bare
-    ``graph_pool_handle`` is freed with the last graph that used it, and
-    torch refuses to capture into its id again."""
-    if device not in _POOLS:
-        with torch.cuda.device(device):
-            _POOLS[device] = torch.cuda.MemPool()
-    return _POOLS[device].id
+def lane_stream(device, lane: int) -> torch.cuda.Stream:
+    """The process's stream of ``lane`` on ``device``: made at the first
+    call, kept for the process, and never another lane's (the pool hands
+    its 32 streams out in turn, so two calls of ``torch.cuda.Stream()`` may
+    return the same one).  cuBLAS keys its workspace by (handle, stream): a
+    graph captured on a stream bakes in that stream's workspace, so graphs,
+    or a graph and eager work, that run at the same time on two streams must
+    come from two lanes.  The generator's graphs capture on ``MAIN_LANE``;
+    the proxy model's graphs capture on ``SIDE_LANE``, where the overlapped
+    serve also runs the proxy tier's work.  A process holds two streams
+    per device, however many engines it builds."""
+    dev = torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    s = _LANES.get((idx, lane))
+    if s is None:
+        taken = {t.cuda_stream for (i, _), t in _LANES.items() if i == idx}
+        for _ in range(64):
+            s = torch.cuda.Stream(idx)
+            if s.cuda_stream not in taken:
+                break
+        else:
+            raise RuntimeError("torch's stream pool gave no stream that is "
+                               "not another lane's")
+        _LANES[(idx, lane)] = s
+    return s
 
 
 class _Graph:
@@ -115,7 +135,14 @@ class ChunkGraphs:
       the graph; before each replay the caller's generator state (seed and
       offset) is copied into it, and the caller's generator is left as it
       was (its owner moves it by the draws it keeps: ``Executor``);
-    * every graph of every runner on a device shares one memory pool.
+    * the runner's graphs share one memory pool, the runner's own, and
+      capture on the stream of its ``lane`` (``lane_stream``): graphs of
+      one runner never run at the same time (its owner replays them on one
+      stream), while the graphs of the generator's runner and the proxy's
+      may (the overlapped serve replays the proxy's shadow chunks on a
+      second stream), and must then neither alias their intermediates nor
+      share a cuBLAS workspace.  The warm-up runs on the capture stream
+      too.
 
     Launch counts: a wrapper counts the calls that run it, eager or under a
     capture.  The capture launches nothing, so its count delta is taken
@@ -125,8 +152,13 @@ class ChunkGraphs:
     added to the pool) describe the runner's work.
     """
 
-    def __init__(self):
+    def __init__(self, lane: int = MAIN_LANE):
         self._graphs: dict = {}
+        self.lane = lane
+        # the runner's MemPool (a bare ``graph_pool_handle`` is freed with
+        # the last graph that used it, and torch refuses to capture into
+        # its id again), made at its first capture
+        self._pool = None
         self.captures = 0
         self.capture_s: list[float] = []
         self.replays = 0
@@ -180,7 +212,10 @@ class ChunkGraphs:
         if generator is not None:
             own = torch.Generator(device=dev)
             own.set_state(generator.get_state())
-        side = torch.cuda.Stream(dev)
+        if self._pool is None:
+            with torch.cuda.device(dev):
+                self._pool = torch.cuda.MemPool()
+        side = lane_stream(dev, self.lane)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             warm = body(bufs, own)
@@ -194,9 +229,17 @@ class ChunkGraphs:
         graph = torch.cuda.CUDAGraph()
         if own is not None:
             graph.register_generator_state(own)
-        with torch.cuda.graph(graph, pool=_pool(dev)):
-            for b, o in zip(outs, body(bufs, own)):
-                b.copy_(o)
+        # a dead runner's graphs and pool must not be freed mid-capture
+        # (torch asserts, and the capture fails): no collection until it ends
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool.id, stream=side):
+                for b, o in zip(outs, body(bufs, own)):
+                    b.copy_(o)
+        finally:
+            if collecting:
+                gc.enable()
         after = _counts()
         delta = [(a[0] - b[0], {v: a[1][v] - b[1].get(v, 0) for v in a[1]})
                  for a, b in zip(after, before)]

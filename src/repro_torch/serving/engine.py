@@ -1,6 +1,6 @@
 """Reasoning-serving facade (port of ``repro/serving/engine.py``: the
-self-EAT and proxy monitor modes, synchronous loop, and the evaluation
-path).
+self-EAT and proxy monitor modes, the synchronous and the overlapped serve
+loops, and the evaluation path).
 
 ``ReasoningEngine`` drives the three layers: ``request`` (lifecycle),
 ``scheduler`` (slots, pages) and ``executor`` (device work).  ``serve``
@@ -12,7 +12,9 @@ store is the block-paged pool and a request's pages return to the free
 list the moment it exits; the token streams, exit steps and EAT traces are
 bitwise those of the ring backend.  With ``proxy=ProxyConfig(...)`` a
 second model shadows the emitted stream and supplies the exits (black-box
-monitoring, ``serving/proxy.py``).
+monitoring, ``serving/proxy.py``).  ``serve(overlap=True)`` runs the
+overlapped loop of ``serving/pipeline.py`` instead: chunk N+1 goes out
+before chunk N's snapshot is read.
 
 The loop reads a chunk's outcome in one device-to-host copy
 (``Executor.snapshot``); the host's ``Snapshot`` is also its mirror of
@@ -45,6 +47,7 @@ import torch
 from repro_torch.core.eat import ProbeSpec
 from repro_torch.core.monitor import ReasoningMonitor
 from repro_torch.core.stopping import EATStopper, confidence_from_logprobs
+from repro_torch.device import upload
 from repro_torch.serving.cache import CacheConfig, alloc_cache, page_align
 from repro_torch.serving.executor import (
     Executor,
@@ -52,6 +55,7 @@ from repro_torch.serving.executor import (
     ServeState,
     prompt_positions,
 )
+from repro_torch.serving.pipeline import serve_overlapped
 from repro_torch.serving.proxy import ProxyConfig, ProxyTier
 from repro_torch.serving.request import Request
 from repro_torch.serving.sampler import SamplerConfig, sample
@@ -138,8 +142,8 @@ class ReasoningEngine:
         ``fresh`` a new one (an admission's or a paged prefill's, merged
         into the serving cache and dropped)."""
         model, ecfg, dev = self.model, self.ecfg, self.device
-        prompts = torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=dev)
-        plen = torch.as_tensor(np.asarray(prompt_len), dtype=torch.int32, device=dev)
+        prompts = upload(prompts, dev, torch.long)
+        plen = upload(prompt_len, dev, torch.int32)
         B, S = prompts.shape
         pos1d = prompt_positions(plen, S, dev)
         capacity = capacity or ecfg.capacity
@@ -189,10 +193,14 @@ class ReasoningEngine:
 
     def _serve_setup(self, prompts, prompt_len, rng, *, batch_size: int,
                      max_tokens: int | None, chunk_len: int | None,
-                     use_monitor: bool = True) -> SimpleNamespace:
+                     use_monitor: bool = True,
+                     overlap: bool = False) -> SimpleNamespace:
         """Parse the request list, build the scheduler / page allocator /
         proxy tier, prefill + pack the initial cohort, run the setup-time
-        capacity checks."""
+        capacity checks.  ``overlap`` grows the auto-sized page pool by one
+        row's pages: the overlapped loop parks a harvested row's pages on
+        the chunk in flight for one boundary, so a slot's old and new
+        occupant briefly hold pages together."""
         prompts_np = np.asarray(prompts)
         plen_np = np.asarray(prompt_len)
         n_req, S = prompts_np.shape
@@ -212,7 +220,8 @@ class ReasoningEngine:
             ps = ccfg.page_size
             C_log = page_align(self.ecfg.capacity, ps)
             n_blocks = C_log // ps
-            num_pages = ccfg.num_pages or B * n_blocks + 1
+            num_pages = ccfg.num_pages or (
+                B * n_blocks + 1 + (n_blocks if overlap else 0))
             alloc = PageAllocator(num_pages, ps, n_blocks, B)
             C_pre = page_align(S, ps)      # prompt-sized prefill capacity
 
@@ -249,7 +258,8 @@ class ReasoningEngine:
             ptier.check_capacity("the initial batch")
         return SimpleNamespace(
             requests=requests, sched=sched, state=state, snap=snap, alloc=alloc,
-            paged=paged, S=S, budget=budget, chunk=chunk, C_pre=C_pre,
+            paged=paged, S=S, B=B, budget=budget, chunk=chunk, C_pre=C_pre,
+            rng=rng,
             ptier=ptier, gen_monitor=use_monitor and not proxy_mode,
             # the generator pays a probe tail only when IT probes; in proxy
             # mode that tail belongs to the proxy tier's pool
@@ -259,9 +269,11 @@ class ReasoningEngine:
               batch_size: int, max_tokens: int | None = None,
               use_monitor: bool = True, chunk_len: int | None = None,
               answer_len: int = 0, record_trace: bool = False,
-              eager: bool = False) -> list[dict]:
+              eager: bool = False, overlap: bool = False,
+              pipeline_hooks=None) -> list[dict]:
         """Continuous-batching serving loop over N requests with
-        ``batch_size`` slots (synchronous chunk boundaries).
+        ``batch_size`` slots (synchronous chunk boundaries, unless
+        ``overlap``).
 
         prompts: (N, S) LEFT-padded; prompt_len: (N,).  Returns one dict per
         request, in request order: ``reasoning_tokens``, ``n_reasoning``,
@@ -286,10 +298,34 @@ class ReasoningEngine:
         engine replays without capturing); ``eager=True`` runs every chunk
         as the guarded Python loop, with the same results under greedy
         sampling.
+
+        With ``overlap`` the loop is the one-deep pipeline of
+        ``serving/pipeline.py`` (the reference's ``--overlap on``): chunk
+        N+1 is dispatched before chunk N's snapshot is read, harvests,
+        admissions and page pushes run while it flies, and in proxy mode
+        the shadow of chunk N runs on the tier's own stream beside it and
+        its verdict lands one boundary late (``Executor.retract_lagged``).
+        Under greedy sampling the tokens, exits, slots and answers are the
+        sync loop's, and the EAT traces too unless the loop admits a
+        request behind a chunk that moved the ring by other than a whole
+        number of pages (its block sums then round differently); a sampled
+        replay moves the generator by all its draws
+        (``Executor.decode_chunk_snapshot``), so sampled streams differ.
+        ``pipeline_hooks`` (a ``serving.pipeline.PipelineHooks``) sees every
+        pipeline event (the tests' seam).  The engine's ``capacity`` needs
+        one chunk of headroom (the ring guard adds the chunk in flight).
         """
         ss = self._serve_setup(prompts, prompt_len, rng, batch_size=batch_size,
                                max_tokens=max_tokens, use_monitor=use_monitor,
-                               chunk_len=chunk_len)
+                               chunk_len=chunk_len, overlap=overlap)
+        if overlap:
+            try:
+                return serve_overlapped(self, ss, answer_len=answer_len,
+                                        record_trace=record_trace, eager=eager,
+                                        hooks=pipeline_hooks)
+            finally:
+                if ss.ptier is not None:
+                    ss.ptier.state = None
         sched, state, alloc, paged = ss.sched, ss.state, ss.alloc, ss.paged
         S, budget, chunk, C_pre = ss.S, ss.budget, ss.chunk, ss.C_pre
         tail, ptier, snap = ss.tail, ss.ptier, ss.snap

@@ -1,6 +1,6 @@
 """Executor layer: the device work of the serving stack (port of
-``repro/serving/executor.py``: the self-EAT path and the proxy tier's
-shadow decode, without the overlap pipeline's programs).
+``repro/serving/executor.py``: the self-EAT path, the proxy tier's shadow
+decode, and the overlapped loop's snapshot and lagged retract).
 
 The reference builds one jitted program per operation and donates the
 decode state into it.  PyTorch runs eagerly, so each operation here is a
@@ -23,16 +23,20 @@ masked or not, from the graph's own generator, which starts each replay
 from the state's generator; that generator then moves by the draws of the
 live steps only (``settle_rng``, when ``snapshot`` reads the step count),
 as the guarded loop moves it, so every later draw is the same on both
-paths.  A forced-answer rollout has the same two forms: on the card one
-replay of its graph (every step live, so the caller's generator moves by
-all of the replay's draws), otherwise the eager loop.  The host reads a
-chunk's outcome once, through ``snapshot``.  The
-executor keeps the serving caches it allocates and the page-list buffers it
-fills, and empties them in place for the next serve, so the graphs it
-captured replay across serves.  A caller must treat a state it
-hands to a mutating method (``decode_chunk``, ``decode_step``, ``admit``,
-``admit_paged``, ``retract``, ``observe_chunk``) as consumed and go on from the returned
-one.
+paths.  The overlapped loop cannot wait for the step count:
+``decode_chunk_snapshot`` moves the generator by the whole replay's draws,
+so its sampled streams differ from the sync loop's (greedy ones do not).
+A forced-answer rollout has the same two forms: on the card one replay of
+its graph (every step live, so the caller's generator moves by all of the
+replay's draws), otherwise the eager loop.  The host reads a chunk's
+outcome once, through ``snapshot``: the packed copy goes to pinned memory
+behind the chunk on the stream and the host waits on an event after it
+(``PendingSnapshot``).  The executor keeps the serving caches it
+allocates and the page-list buffers it fills, and empties them in place
+for the next serve, so the graphs it captured replay across serves.  A
+caller must treat a state it hands to a mutating method (``decode_chunk``, ``decode_chunk_snapshot``,
+``decode_step``, ``admit``, ``admit_paged``, ``retract``, ``retract_lagged``,
+``observe_chunk``) as consumed and go on from the returned one.
 
   cache_for      the kept ring / recurrent cache of a batch, emptied
   paged_cache_for  the kept paged cache of a batch, emptied
@@ -47,8 +51,11 @@ one.
   rollout        forced answer generation (a graph replay on the card);
                  leaves the cache as it was
   retract        proxy mode: rewind rows to the proxy's exit step
+  retract_lagged the overlapped loop's retract, one boundary late
   observe_chunk  (ProxyExecutor) shadow a generator chunk through the proxy
   snapshot       the packed host copy of a state (one device-to-host read)
+  snapshot_async the same copy on its way: waited on later
+  decode_chunk_snapshot  decode_chunk, then snapshot_async behind it
 """
 from __future__ import annotations
 
@@ -60,6 +67,7 @@ import torch
 
 from repro_torch.core.eat import eval_eat
 from repro_torch.core.monitor import MonitorState, ReasoningMonitor
+from repro_torch.device import upload, upload_into
 from repro_torch.models.transformer import preserved_slots, write_slots
 from repro_torch.serving.cache import (
     alloc_cache,
@@ -73,7 +81,12 @@ from repro_torch.serving.cache import (
     pack_paged_cache,
     reset_cache,
 )
-from repro_torch.serving.device_loop import ChunkGraphs, device_if
+from repro_torch.serving.device_loop import (
+    SIDE_LANE,
+    ChunkGraphs,
+    device_if,
+    lane_stream,
+)
 from repro_torch.serving.sampler import SamplerConfig, logprob_of, sample
 
 
@@ -140,9 +153,52 @@ class Snapshot:
         self.cur = max(self.cur, prompt_width)
 
 
+class ToHost:
+    """A device tensor on its way to the host: copied, not blocking the
+    host, into pinned memory behind the work enqueued so far on the
+    current stream, with an event recorded after the copy.  ``array``
+    waits on that event alone, so work enqueued after it (the next chunk)
+    runs on; on the CPU there is nothing to wait for."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        self.host = t
+        if t.is_cuda:
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def array(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+class PendingSnapshot(ToHost):
+    """A packed snapshot on its way to the host (``Executor.snapshot_async``);
+    ``wait`` gives the ``Snapshot``.  ``packed`` is the device tensor and
+    ``tokens`` its ``out_tokens`` part: a consumer on another stream waits
+    on ``event`` first."""
+
+    def __init__(self, packed: torch.Tensor):
+        super().__init__(packed)
+        self.packed = packed
+        self._snap = None
+
+    @property
+    def tokens(self) -> torch.Tensor:
+        return self.packed[:, len(SNAP_ROWS) + 1:]
+
+    def wait(self) -> Snapshot:
+        if self._snap is None:
+            self._snap = Snapshot.unpack(self.array())
+        return self._snap
+
+
 def prompt_positions(prompt_len, S: int, device) -> torch.Tensor:
     """(B, S) positions of LEFT-padded prompts: 0..len-1, pad slots -1."""
-    plen = torch.as_tensor(prompt_len, dtype=torch.int32, device=device)
+    plen = upload(prompt_len, device, torch.int32)
     pos1d = (torch.arange(S, dtype=torch.int32, device=device)[None, :]
              - (S - plen)[:, None])
     return torch.where(pos1d >= 0, pos1d, -1)
@@ -326,7 +382,7 @@ class Executor:
                                                     device=self.model.device)
         else:
             for name, x in zip(("pages", "logical", "count"), blocks):
-                buf[name].copy_(torch.from_numpy(np.asarray(x, np.int32)))
+                upload_into(buf[name], np.asarray(x, np.int32))
         cache["blocks"] = buf
 
     # ---------------------------------------------------------- decode
@@ -486,7 +542,15 @@ class Executor:
     def snapshot(self, state: ServeState) -> Snapshot:
         """The packed host copy of ``state`` after a chunk: one int64 block
         (``SNAP_ROWS`` columns, the debiased EMA variance's bits, then
-        ``out_tokens``) in ONE device-to-host copy."""
+        ``out_tokens``) in ONE device-to-host copy, waited for."""
+        snap = self.snapshot_async(state).wait()
+        if self._draws is not None and self._draws[3] is state.steps:
+            self.settle_rng(snap.steps)
+        return snap
+
+    def snapshot_async(self, state: ServeState) -> PendingSnapshot:
+        """``snapshot``'s copy, enqueued on the stream and not waited for
+        (counted in ``snapshot_reads`` here)."""
         B = state.active.shape[0]
         cols = [state.active, state.n_reasoning, state.out_len,
                 state.ended_think, state.monitor.stop_flag,
@@ -497,10 +561,25 @@ class Executor:
                             var.float().view(torch.int32).long()[:, None],
                             state.out_tokens.long()], 1)
         self.snapshot_reads += 1
-        snap = Snapshot.unpack(packed.cpu().numpy())
-        if self._draws is not None and self._draws[3] is state.steps:
-            self.settle_rng(snap.steps)
-        return snap
+        return PendingSnapshot(packed)
+
+    def decode_chunk_snapshot(self, state: ServeState, budget: int,
+                              chunk_len: int, *, use_monitor: bool = True,
+                              eager: bool = False
+                              ) -> tuple[ServeState, PendingSnapshot]:
+        """``decode_chunk``, then its snapshot enqueued right behind it on
+        the stream (the overlapped loop's dispatch, the reference's
+        ``decode_chunk_snapshot``): the host reads it one boundary late,
+        after the next chunk is dispatched.  A sampled replay moves the
+        state's generator by all of its draws (nothing is read to count
+        the live steps), so a sampled overlapped stream differs from the
+        sync loop's, as in the reference; the eager loop draws on live
+        steps only.  CONSUMES ``state``."""
+        state = self.decode_chunk(state, budget, chunk_len,
+                                  use_monitor=use_monitor, eager=eager)
+        if self._draws is not None:
+            self.settle_rng(chunk_len)
+        return state, self.snapshot_async(state)
 
     # ---------------------------------------------------------- prefill/probe
     def prefill(self, tokens, positions, pos1d, cache) -> torch.Tensor:
@@ -549,32 +628,30 @@ class Executor:
         cache's buffers (copies: the tensors a chunk graph captured stay
         the cache's)."""
         cache = state.cache
-        cache["page_table"].copy_(torch.from_numpy(np.asarray(table, np.int32)))
+        upload_into(cache["page_table"], np.asarray(table, np.int32))
         if blocks is not None:
             self._put_blocks(cache, blocks)
         return state
 
     def ensure_chunk_pages(self, alloc, state: ServeState, slots, span: int,
-                           *, tail: int = 0, budget: int | None = None,
-                           cur: int | None = None, n_reasoning=None
-                           ) -> ServeState:
+                           *, cur: int, tail: int = 0,
+                           budget: int | None = None, n_reasoning=None,
+                           slack: int = 0) -> ServeState:
         """Map (and push) pages covering the next ``span`` logical slots for
         every slot in ``slots`` before a writing operation.  With ``budget``
         the span is clamped per row to the tokens it can still emit plus
-        the probe ``tail``.  ``cur`` and ``n_reasoning`` are the host's
-        mirror of the state (the serve loop's ``Snapshot``); without them
-        they are read from the device.  The upload is skipped while the
-        mapping is unchanged."""
-        cur0 = int(state.cache["cur"]) if cur is None else cur
-        n_r = None
-        if budget is not None:
-            n_r = (state.n_reasoning.cpu().numpy() if n_reasoning is None
-                   else n_reasoning)
+        the probe ``tail``.  ``cur`` and ``n_reasoning`` (with ``budget``)
+        are the host's mirror of the state, never read from the device.
+        The overlapped loop's mirrors lag the device by up to one chunk in
+        flight, so it also passes ``slack`` (that chunk's length): slots
+        ``cur .. cur + slack + span`` are mapped, at most one chunk of pages
+        too many per row.  The upload is skipped while the mapping is
+        unchanged."""
         for s in slots:
             sp = span
-            if n_r is not None:
-                sp = min(span, max(1, budget - int(n_r[s])) + tail)
-            alloc.ensure(s, cur0, cur0 + sp)
+            if budget is not None:
+                sp = min(span, max(1, budget - int(n_reasoning[s])) + tail)
+            alloc.ensure(s, cur, cur + slack + sp)
         if not alloc.dirty:
             return state
         blocks = (alloc.block_buckets(alloc.bucket_width())
@@ -596,8 +673,29 @@ class Executor:
         tokens, clears ``active`` where the proxy stopped and takes a copy
         of ``pmon`` as the state's monitor.  A row with no overshoot passes
         through unchanged.  CONSUMES ``state``."""
+        return self._rewind(state, new_n, pmon)
+
+    def retract_lagged(self, state: ServeState, new_n, pmon: MonitorState
+                       ) -> ServeState:
+        """The overlapped loop's reconciliation, one chunk boundary late:
+        ``new_n`` / ``pmon`` are the proxy's verdict on chunk N while
+        ``state`` has already decoded chunk N+1.  Rows the proxy stopped
+        rewind as in ``retract`` (their chunk-N overshoot and their whole
+        chunk N+1 masked away); every other row keeps its chunk-N+1 tokens,
+        which the proxy has yet to observe (``eff = where(stop, new_n,
+        n_reasoning)``).  A copy of ``pmon`` becomes the state's monitor,
+        as in ``retract``.  CONSUMES ``state``."""
+        new_n = upload(new_n, state.n_reasoning.device, state.n_reasoning.dtype)
+        return self._rewind(state, torch.where(pmon.stop_flag, new_n,
+                                               state.n_reasoning), pmon)
+
+    def _rewind(self, state: ServeState, new_n, pmon: MonitorState
+                ) -> ServeState:
+        """Every row to ``new_n`` emitted tokens (the rest masked out of the
+        cache and the buffer), ``active`` cleared where ``pmon`` stopped,
+        a copy of ``pmon`` the monitor."""
         ecfg = self.ecfg
-        new_n = torch.as_tensor(new_n, device=state.n_reasoning.device).to(
+        new_n = upload(new_n, state.n_reasoning.device).to(
             state.n_reasoning.dtype, copy=True)
         next_pos = state.next_pos - (state.n_reasoning - new_n).to(
             state.next_pos.dtype)
@@ -695,10 +793,13 @@ def _generator(rng: torch.Generator | None, device) -> torch.Generator:
 
 
 def _graph_key(tag, cache) -> tuple:
-    """A graph's program key: ``tag`` and the cache's kind, shape and
+    """A graph's program key: ``tag`` and the cache's kind, shape (a paged
+    cache's pool too: the overlapped loop's pool holds one row more) and
     page-list bucket width."""
     blocks = cache.get("blocks")
-    return (tag, tuple(cache["pos"].shape), "page_table" in cache,
+    paged = "page_table" in cache
+    pool = tuple(cache["layers"][0]["k"].shape[:2]) if paged else ()
+    return (tag, tuple(cache["pos"].shape), paged, pool,
             0 if blocks is None else blocks["pages"].shape[1])
 
 
@@ -726,6 +827,14 @@ class ProxyExecutor(Executor):
         super().__init__(model, ecfg, monitor)
         self._shadow = make_shadow_step(model, monitor)
         self._shadow_every = make_shadow_step(model, monitor, probe_cond=False)
+        # the proxy's graphs may replay beside the generator's
+        self.graphs = ChunkGraphs(SIDE_LANE)
+
+    def side_stream(self) -> torch.cuda.Stream:
+        """The stream the overlapped loop runs the proxy's work on: the
+        side lane's (``device_loop.lane_stream``), the one its graphs were
+        captured on."""
+        return lane_stream(self.model.device, SIDE_LANE)
 
     def _shadow_fns(self, toks, n_start, n_emitted):
         """(``valid_of(s, i)``, ``advance(s, i, live=None)``) of the shadow
@@ -779,9 +888,9 @@ class ProxyExecutor(Executor):
         of ``masked_observe``; otherwise the guarded loop.  CONSUMES
         ``pstate``."""
         dev = pstate.active.device
-        toks = torch.as_tensor(gen_tokens, device=dev)
-        n_start = torch.as_tensor(n_start, device=dev).long()
-        n_emitted = torch.as_tensor(n_emitted, device=dev).long()
+        toks = upload(gen_tokens, dev)
+        n_start = upload(n_start, dev, torch.long)
+        n_emitted = upload(n_emitted, dev, torch.long)
         if pstate.active.is_cuda and not eager:
             return self._replay(
                 ("shadow", chunk_len), pstate, (toks, n_start, n_emitted),

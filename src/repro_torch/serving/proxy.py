@@ -13,10 +13,13 @@ distribution after a virtual ``</think>`` (+ prefix).
   decode, its own cache and page pool) in lock-step with the generator's
   scheduler: prompt prefills at admission, page bookkeeping before each
   chunk, page frees at harvest.  ``ReasoningEngine(..., proxy=
-  ProxyConfig(...))`` turns it on (``monitor_mode == "proxy"``).
+  ProxyConfig(...))`` turns it on (``monitor_mode == "proxy"``).  In the
+  overlapped serve loop the tier's device work runs on a stream of its own
+  (``ProxyTier.overlapped``), beside the generator's next chunk.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Optional
@@ -26,11 +29,15 @@ import torch
 
 from repro_torch.core.eat import eval_eat
 from repro_torch.core.monitor import ReasoningMonitor
+from repro_torch.device import upload
 from repro_torch.serving.cache import CacheConfig, alloc_cache, page_align
 from repro_torch.serving.executor import (
+    PendingSnapshot,
     ProxyExecutor,
     ServeState,
     Snapshot,
+    _clone,
+    _flat,
     prompt_positions,
 )
 from repro_torch.serving.scheduler import PageAllocator
@@ -141,6 +148,7 @@ class ProxyTier:
         start_batch     prefill the initial cohort's prompts
         begin_chunk     map pages the shadow decode may write, push the table
         observe         shadow one generator chunk -> (new_n, proxy monitor)
+        shadow          the same in the overlapped loop (in ``overlapped``)
         free_row        return an exiting row's proxy pages (harvest)
         can_admit       proxy-pool admission gate (defer, don't refuse)
         check_capacity  proxy ring-wrap guard (refuse, like the scheduler's)
@@ -151,7 +159,13 @@ class ProxyTier:
     engine applies through the generator executor's ``retract``.  It reads
     the proxy's state once per generator chunk (``snap``, the proxy's
     ``Snapshot``: its mirror of the proxy cache's ``cur`` and of the rows'
-    emitted counts, updated for each admission)."""
+    emitted counts, updated for each admission).
+
+    In the overlapped loop (``overlapped``, which holds the whole stream
+    protocol) the tier's page pushes, shadow chunks (``shadow``) and
+    admissions run on its own stream.  The proxy's mirror is exact at
+    every boundary (the shadow's snapshot is read before the next push),
+    so its page mapping needs no slack."""
 
     def __init__(self, executor: ProxyExecutor, ecfg, monitor: ReasoningMonitor,
                  cache_cfg: CacheConfig, capacity: int, budget: int):
@@ -167,6 +181,7 @@ class ProxyTier:
         self.snap: Snapshot | None = None
         self.alloc: PageAllocator | None = None
         self._C_pre: int | None = None
+        self.stream = None        # the tier's own stream (overlapped loop)
 
     # ------------------------------------------------------------ lifecycle
     def _fresh(self, prompts_np, plen_np, capacity: int, *,
@@ -179,10 +194,10 @@ class ProxyTier:
         already-emitted first token."""
         ex = self.ex
         dev = ex.model.device
-        prompts = torch.as_tensor(np.asarray(prompts_np), dtype=torch.long,
-                                  device=dev)
+        prompts = upload(prompts_np, dev, torch.long)
+        plen = upload(plen_np, dev, torch.int32)
         B, S = prompts.shape
-        pos1d = prompt_positions(plen_np, S, dev)
+        pos1d = prompt_positions(plen, S, dev)
         cache = (ex.cache_for(B, capacity) if kept
                  else alloc_cache(ex.cfg, B, capacity, device=dev))
         ex.prefill(prompts, pos1d, pos1d, cache)
@@ -191,8 +206,7 @@ class ProxyTier:
             cache=cache,
             rng=None,
             active=torch.ones((B,), dtype=torch.bool, device=dev),
-            next_pos=torch.as_tensor(np.asarray(plen_np), dtype=torch.int32,
-                                     device=dev),
+            next_pos=plen,
             last_token=torch.zeros((B,), dtype=torch.long, device=dev),
             n_reasoning=ones,
             monitor=self.monitor.init(B, dev),
@@ -230,6 +244,46 @@ class ProxyTier:
             template, st.cache, self.alloc.table))
         self.snap = self.ex.snapshot(self.state)
 
+    # ---------------------------------------------------------------- stream
+    @contextlib.contextmanager
+    def overlapped(self):
+        """The overlapped serve's stream protocol, all of it.  Inside, on
+        the card, the tier's device work (page pushes, shadow chunks,
+        admissions) runs on the proxy executor's side stream, beside the
+        generator's chunks on the current stream, ordered both ways:
+
+        * generator to tier: a shadow waits on the event recorded after the
+          generator chunk's packed snapshot (``shadow``), the one generator
+          tensor the tier reads, which nothing writes again;
+        * tier to generator: the verdict ``shadow`` returns is a copy made
+          on the side stream after the shadow, and the current stream waits
+          for it.  The tier never writes that copy, so its later in-place
+          writes to its own state (an admission's rows, a page push) cannot
+          reach the generator's reads of the verdict, however late the
+          generator's stream gets to them.
+
+        Entering, the side stream waits for the work so far on the current
+        stream (the setup's prefills); leaving, the current stream waits for
+        the side stream (the next serve's work on the kept caches follows
+        it).  On the CPU nothing changes."""
+        if not self.state.active.is_cuda:
+            yield
+            return
+        cur = torch.cuda.current_stream(self.state.active.device)
+        self.stream = self.ex.side_stream()
+        self.stream.wait_stream(cur)
+        for t in _flat(self.state):
+            t.record_stream(self.stream)
+        try:
+            yield
+        finally:
+            cur.wait_stream(self.stream)
+            self.stream = None
+
+    def _on_stream(self):
+        return (torch.cuda.stream(self.stream) if self.stream is not None
+                else contextlib.nullcontext())
+
     # ------------------------------------------------------- chunk shadowing
     def begin_chunk(self, chunk: int, bound: list[int]) -> None:
         """Map (and push) pages covering the slots this chunk's shadow
@@ -238,10 +292,11 @@ class ProxyTier:
         pool and state."""
         if not self.paged:
             return
-        self.state = self.ex.ensure_chunk_pages(
-            self.alloc, self.state, bound, chunk + self.probe_m,
-            tail=self.probe_m, budget=self.budget, cur=self.snap.cur,
-            n_reasoning=self.snap.n_reasoning)
+        with self._on_stream():
+            self.state = self.ex.ensure_chunk_pages(
+                self.alloc, self.state, bound, chunk + self.probe_m,
+                tail=self.probe_m, budget=self.budget, cur=self.snap.cur,
+                n_reasoning=self.snap.n_reasoning)
 
     def observe(self, gen_out_tokens, n_start, n_emitted, chunk: int, *,
                 eager: bool = False):
@@ -255,6 +310,32 @@ class ProxyTier:
                                            eager=eager)
         self.snap = self.ex.snapshot(self.state)
         return self.state.n_reasoning, self.state.monitor
+
+    def shadow(self, gen: PendingSnapshot, n_start, n_emitted, chunk: int,
+               *, eager: bool = False):
+        """``observe`` in the overlapped loop: shadow the generator chunk
+        whose packed snapshot ``gen`` is (its tokens read on the device,
+        after its event), then read the proxy's snapshot.  Returns the
+        verdict ``(new_n, proxy monitor)`` for the generator executor's
+        ``retract_lagged``: copies that the tier never writes, ordered
+        before the current stream's next work (``overlapped``)."""
+        with self._on_stream():
+            if self.stream is not None:
+                self.stream.wait_event(gen.event)
+                gen.packed.record_stream(self.stream)
+            self.state = self.ex.observe_chunk(self.state, gen.tokens,
+                                               n_start, n_emitted, chunk,
+                                               eager=eager)
+            pending = self.ex.snapshot_async(self.state)
+            new_n = self.state.n_reasoning.clone()
+            mon = _clone(self.state.monitor)
+        if self.stream is not None:
+            cur = torch.cuda.current_stream(self.stream.device)
+            cur.wait_stream(self.stream)
+            for t in [new_n, *_flat(mon)]:
+                t.record_stream(cur)
+        self.snap = pending.wait()
+        return new_n, mon
 
     # ------------------------------------------------------ harvest / admit
     def free_row(self, slot: int) -> None:
@@ -282,11 +363,13 @@ class ProxyTier:
     def admit(self, slot: int, prompt_np, prompt_len: int, S: int) -> None:
         """Prefill + merge an admitted prompt into proxy ``slot``: the
         lock-step mirror of the generator's admission."""
-        one = self._fresh(prompt_np[None], [prompt_len],
-                          self._C_pre if self.paged else self.capacity)
-        if self.paged:
-            row_table = self.alloc.admit_row(slot, S, self.snap.cur)
-            self.state = self.ex.admit_paged(self.state, one, slot, row_table)
-        else:
-            self.state = self.ex.admit(self.state, one, slot)
+        with self._on_stream():
+            one = self._fresh(prompt_np[None], [prompt_len],
+                              self._C_pre if self.paged else self.capacity)
+            if self.paged:
+                row_table = self.alloc.admit_row(slot, S, self.snap.cur)
+                self.state = self.ex.admit_paged(self.state, one, slot,
+                                                 row_table)
+            else:
+                self.state = self.ex.admit(self.state, one, slot)
         self.snap.admit(slot, S)

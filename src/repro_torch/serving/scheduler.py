@@ -1,13 +1,17 @@
 """Scheduler layer: slot allocation + admission policy for continuous
-batching (copy of ``repro/serving/scheduler.py`` without the overlap
-pipeline's ``InFlightLedger``).  Pure host-side Python over ``Request``
-objects; its device-facing outputs are slot ids and the int32 page table.
+batching (copy of ``repro/serving/scheduler.py``).  Pure host-side Python
+over ``Request`` objects; its device-facing outputs are slot ids and the
+int32 page table.
 
 * ring — ``SlotScheduler.check_capacity`` refuses an admission that would
   wrap the shared cache ring (capacity is a batch-lifetime bound).
 * paged — ``PageAllocator`` turns that into per-block bookkeeping: admit
   whenever the free list covers the prompt blocks plus one decode page;
   an exiting request's pages return to the free list at harvest.
+* overlap — ``InFlightLedger`` keeps the overlapped serve loop's fences
+  (``serving/pipeline.py``): a harvested row's pages wait for the chunk in
+  flight, and a slot admitted while a chunk flies is skipped in its
+  snapshot.
 """
 from __future__ import annotations
 
@@ -335,3 +339,109 @@ class PageAllocator:
             logical[b, :n] = blocks
             counts[b] = n
         return pages, logical, counts
+
+
+class InFlightLedger:
+    """Fence bookkeeping for the overlapped serve loop (pure host).
+
+    The pipeline (``serving.pipeline``) dispatches chunk N+1 before the
+    host has harvested chunk N, so two chunk-boundary invariants the sync
+    loop gets for free need explicit tracking:
+
+    * **Deferred page frees** — a harvested row's KV pages may still be
+      READ by the chunk already in flight (its page table was copied at
+      dispatch).  ``defer_free`` detaches the pages from the allocator
+      (table entries go to trash, so the *next* table push stops writes)
+      but parks them on this ledger; they only re-enter the free list when
+      the fence open at detach time retires.
+
+    * **In-flight slot admission** — a slot freed at boundary N must not
+      be re-admitted in a way that double-books it, and a row admitted
+      DURING the tick that dispatched chunk F carries stale data in chunk
+      F's snapshot (the old occupant's) — ``admitted_after(F)`` is the
+      skip-set the boundary harvest uses to ignore those rows.
+
+    Fences are dense integers: ``open_fence`` stamps each dispatched
+    chunk, ``retire_fence`` retires them strictly in order (the pipeline
+    harvests boundaries in dispatch order; out-of-order retirement is a
+    pipeline bug and raises).
+    """
+
+    def __init__(self):
+        self.fence = 0        # last fence opened (0 = nothing dispatched)
+        self.retired = 0      # last fence retired
+        self._pending: list[tuple[int, PageAllocator, list[int]]] = []
+        self._admitted_at: dict[int, int] = {}
+        self._occupied: set[int] = set()
+        self.pages_deferred = 0   # stat: pages that ever waited on a fence
+
+    # -------------------------------------------------------------- fences
+    @property
+    def in_flight(self) -> bool:
+        return self.fence > self.retired
+
+    @property
+    def quiescent(self) -> bool:
+        return not self._pending and self.fence == self.retired
+
+    def open_fence(self) -> int:
+        self.fence += 1
+        return self.fence
+
+    def retire_fence(self, fence: int) -> None:
+        if fence != self.retired + 1 or fence > self.fence:
+            raise RuntimeError(
+                f"fence {fence} retired out of order (last retired "
+                f"{self.retired}, last opened {self.fence})"
+            )
+        self.retired = fence
+        self._drain()
+
+    def _drain(self) -> None:
+        ready = [e for e in self._pending if e[0] <= self.retired]
+        self._pending = [e for e in self._pending if e[0] > self.retired]
+        for _, alloc, pages in ready:
+            alloc.release_pages(pages)
+
+    # --------------------------------------------------------- page frees
+    def defer_free(self, alloc: PageAllocator, row: int) -> int:
+        """Detach ``row``'s pages from ``alloc`` and hold them until the
+        fence currently open retires (released immediately when nothing is
+        in flight).  Returns the number of pages deferred."""
+        pages = alloc.detach_row(row)
+        if not pages:
+            return 0
+        self._pending.append((self.fence, alloc, pages))
+        self.pages_deferred += len(pages)
+        self._drain()
+        return len(pages)
+
+    # ----------------------------------------------------------- slot book
+    def mark_admitted(self, slot: int) -> int:
+        """Record ``slot`` (re)admitted at the current fence.  Raises if
+        the ledger still considers the slot occupied — admitting into an
+        in-flight slot is the bug the property tests hunt."""
+        if slot in self._occupied:
+            raise RuntimeError(f"slot {slot} admitted while still occupied")
+        self._occupied.add(slot)
+        self._admitted_at[slot] = self.fence
+        return self.fence
+
+    def mark_released(self, slot: int, fence: int) -> None:
+        """Record ``slot`` released at boundary ``fence`` — which must
+        already have retired (a release decided off a still-speculative
+        snapshot would be a pipeline bug)."""
+        if fence > self.retired:
+            raise RuntimeError(
+                f"slot {slot} released at un-retired fence {fence} "
+                f"(last retired {self.retired})"
+            )
+        if slot not in self._occupied:
+            raise RuntimeError(f"slot {slot} released but not occupied")
+        self._occupied.discard(slot)
+
+    def admitted_after(self, fence: int) -> set[int]:
+        """Slots whose current occupant was admitted at or after ``fence``
+        opened — their rows in fence ``fence``'s snapshot belong to the
+        PREVIOUS occupant and must be skipped by the boundary harvest."""
+        return {s for s, f in self._admitted_at.items() if f >= fence}

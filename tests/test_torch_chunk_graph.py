@@ -50,6 +50,8 @@ from repro_torch.serving.proxy import ProxyConfig
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.scheduler import SlotScheduler
 
+from _torch_threads import _one_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def tiny():

@@ -882,7 +882,7 @@ def test_chunk_syncs_the_host_only_in_device_if(cuda, monkeypatch, kind, proxy):
         """One chunk, its page mapping first (host work between chunks)."""
         if kind == "paged":
             state = eng.executor.ensure_chunk_pages(ss.alloc, state,
-                                                    [0, 1, 2, 3], 8)
+                                                    [0, 1, 2, 3], 8, cur=int(state.cache["cur"]))
         gen = run(eng.executor.decode_chunk, state, 24, 4,
                   use_monitor=not proxy, eager=True)
         if proxy:
@@ -978,7 +978,7 @@ def test_chunk_graph_equals_the_eager_chunk(cuda, arch, kind, proxy):
     for _ in range(2):
         if ss.paged:
             state = eng.executor.ensure_chunk_pages(ss.alloc, state, [0, 1, 2, 3],
-                                                    ss.chunk + 2)
+                                                    ss.chunk + 2, cur=int(state.cache["cur"]))
         if proxy is None:
             ref = eng.executor.decode_chunk(_clone_state(state), ss.budget, ss.chunk,
                                             eager=True)
@@ -1040,7 +1040,7 @@ def test_chunk_graph_replay_makes_no_host_sync(cuda, proxy):
     ss = _graph_setup(eng)
 
     def chunk(state, strict):
-        state = eng.executor.ensure_chunk_pages(ss.alloc, state, [0, 1, 2, 3], 8)
+        state = eng.executor.ensure_chunk_pages(ss.alloc, state, [0, 1, 2, 3], 8, cur=int(state.cache["cur"]))
         if proxy:
             ss.ptier.begin_chunk(4, [0, 1, 2, 3])
         n_start = state.out_len.clone()
@@ -1076,7 +1076,7 @@ def test_sampled_chunk_graph_equals_the_eager_chunk(cuda):
     ss = eng._serve_setup(prompts, np.full(4, 20), rng, batch_size=4,
                           max_tokens=24, chunk_len=8)
     ex = eng.executor
-    state = ex.ensure_chunk_pages(ss.alloc, ss.state, [0, 1, 2, 3], 10)
+    state = ex.ensure_chunk_pages(ss.alloc, ss.state, [0, 1, 2, 3], 10, cur=int(ss.state.cache["cur"]))
     seed = rng.get_state()
     masked = ex.masked_chunk(_clone_state(state), 24, 8)
     rng.set_state(seed)
@@ -1163,7 +1163,7 @@ def test_chunk_graph_survives_a_bucket_width_round_trip(cuda):
     eng = _graph_engine(cuda, kind="paged", delta=0.0, budget=64)
     ss = _graph_setup(eng)
     ex, alloc = eng.executor, ss.alloc
-    state = ex.ensure_chunk_pages(alloc, ss.state, [0, 1, 2, 3], 64 + 2)
+    state = ex.ensure_chunk_pages(alloc, ss.state, [0, 1, 2, 3], 64 + 2, cur=int(ss.state.cache["cur"]))
     width = alloc.bucket_width()
     for extra in (0, 4, 0):
         pages, logical, counts = alloc.block_buckets(width + extra)
@@ -1182,7 +1182,7 @@ def _rollout_setup(cuda, kind, greedy_engine=True):
     ss = _graph_setup(eng)
     state = ss.state
     if ss.paged:
-        state = eng.executor.ensure_chunk_pages(ss.alloc, state, [0, 1, 2, 3], 6)
+        state = eng.executor.ensure_chunk_pages(ss.alloc, state, [0, 1, 2, 3], 6, cur=int(state.cache["cur"]))
     return eng, state
 
 

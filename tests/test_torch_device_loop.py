@@ -49,6 +49,9 @@ from repro_torch.serving.engine import EngineConfig, ReasoningEngine
 from repro_torch.serving.proxy import ProxyConfig
 from repro_torch.serving.sampler import SamplerConfig
 
+from _torch_threads import _one_thread  # noqa: F401
+
+
 HOST_READS = {torch.ops.aten._local_scalar_dense.default,
               torch.ops.aten.nonzero.default}
 

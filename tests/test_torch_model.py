@@ -173,10 +173,10 @@ def test_probe_and_rollout_leave_the_live_cache_unchanged(kind):
     state = ss.state
     slots = [0, 1, 2]
     if ss.paged:
-        state = eng.executor.ensure_chunk_pages(ss.alloc, state, slots, 4 + 2)
+        state = eng.executor.ensure_chunk_pages(ss.alloc, state, slots, 4 + 2, cur=int(state.cache["cur"]))
     state = eng.executor.decode_chunk(state, 16, 4)
     if ss.paged:
-        state = eng.executor.ensure_chunk_pages(ss.alloc, state, slots, 6)
+        state = eng.executor.ensure_chunk_pages(ss.alloc, state, slots, 6, cur=int(state.cache["cur"]))
     before = _live_snapshot(state.cache)
     e1 = eng.executor.probe(state.cache, state.next_pos)
     _assert_unchanged(before, state.cache)

@@ -23,7 +23,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from repro.configs.base import get_config as jget
 from repro.core.eat import make_probe as jprobe
@@ -48,6 +47,8 @@ from repro_torch.serving.engine import EngineConfig, ReasoningEngine
 from repro_torch.serving.proxy import ProxyConfig, ProxyMonitor
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.scheduler import PageAllocator, admit_or_defer
+
+from _torch_threads import _one_thread  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 

@@ -39,6 +39,8 @@ from repro_torch.serving.cache import CacheConfig
 from repro_torch.serving.engine import EngineConfig, ReasoningEngine
 from repro_torch.serving.sampler import SamplerConfig
 
+from _torch_threads import _one_thread  # noqa: F401
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 
@@ -171,6 +173,7 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.serving.proxy, repro_torch.kernels.decode_attention.ops\n"
         "import repro_torch.core.stopping, repro_torch.core.eat\n"
         "import repro_torch.serving.engine, repro_torch.serving.device_loop\n"
+        "import repro_torch.serving.pipeline\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"

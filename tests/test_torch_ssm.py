@@ -60,6 +60,9 @@ from repro_torch.serving.cache import (
 from repro_torch.serving.engine import EngineConfig, ReasoningEngine
 from repro_torch.serving.sampler import SamplerConfig
 
+from _torch_threads import _one_thread  # noqa: F401
+
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 SSD_SWEEP = [
