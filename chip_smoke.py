@@ -122,7 +122,28 @@ DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
    K 8 x 4 tokens; and the per-token loop (``_reason_per_token``) against
    ``reason`` on the chunk graphs, unmonitored, in tokens/s in turns (3
    each), which must give the same tokens;
-7. one JSON line per the contract: ``{"kernels": [...]}`` (five records), the card line,
+7. the training path (``[train]`` lines, each with the card's name and
+   power limit), the 8B model freed first: the training forward (plain
+   attention, as the reference's trainer runs) against ``Model.prefill`` +
+   ``logits`` on the flash kernel, same ``qwen3-1.7b`` weights, a 2 x 96
+   token batch, float32 cut to 4 layers (max |diff| within 1e-5 of max
+   |logits|) and bf16 at the full 28 (3e-2); ``qwen3-1.7b`` and
+   ``mamba2-2.7b`` in bf16 at full width and depth, 8 AdamW steps of 8
+   ChainTask rows of 95 tokens each (remat, lr 3e-4, warmup 2): every loss,
+   gradient norm and parameter finite, the last loss below the first, ms
+   per step (median of steps 2-8), tokens/s, peak memory against the
+   reckoned state (weights, gradients, float32 moments), and one more
+   ``qwen3-1.7b`` step under the profiler (``[profile train ...]``: its top
+   rows and the device's busy share; ``--profile DIR`` writes its table to
+   DIR/profile_train.txt); then ``tiny-reasoner`` trained from scratch by
+   ``examples/torch_train_reasoner.py``'s recipe (1200 steps of 64; the
+   last loss below half the first), saved, reloaded bitwise and served
+   greedy on the kernels (32 ChainTask prompts through 8 slots, paged,
+   ``attn_impl="auto"``) with EAT (delta 1e-3, alpha 0.2) and with the
+   token budget alone: the forced answers' accuracy, reasoning tokens,
+   every request finished, and flash, paged and entropy launched during
+   the EAT serve;
+8. one JSON line per the contract: ``{"kernels": [...]}`` (five records), the card line,
    and the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits nonzero before the result lines are printed.
@@ -138,6 +159,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1477,12 +1499,262 @@ def trace_phase(torch, np, model, probe, prompts, lens, kernels: dict,
     phases["trace_phase_s"] = time.perf_counter() - t0
 
 
+# ------------------------------------------------------------------ phase 7
+
+def train_run(torch, cfg, card: str, *, steps=8, batch=8, seq=96,
+              profile: bool = False, table_path: Path | None = None):
+    """``steps`` AdamW steps of ``cfg`` from seeded weights on ChainTask
+    batches (the launcher's ``--seq``: ``seq`` - 1 input tokens a row),
+    remat on, lr 3e-4 with 2 warmup steps, each step timed by the host
+    clock between synchronisations.  Checks every loss and gradient norm
+    finite, every parameter finite after the run, and the last loss below
+    the first; prints the ``[train]`` lines, and with ``profile`` the
+    profiler's table of one more step (written to ``table_path`` if given).
+    Returns the phase record."""
+    from repro_torch.data.pipeline import device_put_batch, train_batches
+    from repro_torch.data.synthetic import ChainTask
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import (TrainConfig, init_train_state,
+                                                 make_train_step)
+    from repro_torch.utils.treeutil import param_bytes, param_count, tree_leaves
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+    n = param_count(state.params)
+    w = param_bytes(state.params)
+    reckoned = {"weights": w, "gradients": w, "moments": 8 * n}
+    step = make_train_step(cfg, TrainConfig(
+        opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=steps), remat=True))
+    times, metrics = [], []
+    for _, b in zip(range(steps), train_batches(ChainTask(seq_len=seq), batch, seed=0)):
+        b = device_put_batch(b, "cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        metrics.append(m)
+    peak = torch.cuda.max_memory_allocated() - base
+    busy = None
+    if profile:
+        busy = profile_step(torch, lambda: step(state, b), table_path,
+                            f"profile train {cfg.name}", card)
+    loss = [float(m["loss"]) for m in metrics]
+    gnorm = [float(m["grad_norm"]) for m in metrics]
+    finite = all(bool(torch.isfinite(t).all()) for t in tree_leaves(state.params))
+    check(all(math.isfinite(x) for x in loss + gnorm) and finite,
+          f"{cfg.name} training: a loss, a grad norm or a parameter is not "
+          f"finite: loss {loss}, grad norm {gnorm}")
+    check(loss[-1] < loss[0], f"{cfg.name} training: the loss did not fall: {loss}")
+    ms = statistics.median(times[1:]) * 1e3
+    tokens = batch * (seq - 1)
+    gb = lambda x: x / 1e9  # noqa: E731
+    print(f"[train] {cfg.name} {cfg.dtype} {cfg.n_layers} layers d{cfg.d_model}, "
+          f"{n / 1e9:.3f} B params: {steps} steps of batch {batch} x {seq - 1} "
+          f"tokens, remat, lr 3e-4 warmup 2; loss {', '.join(f'{x:.4f}' for x in loss)}; "
+          f"grad norm {', '.join(f'{x:.3f}' for x in gnorm)} ({card})")
+    print(f"[train] {cfg.name}: {ms:.1f} ms per step (median of steps 2-{steps}, "
+          f"host clock with synchronize; range {min(times[1:]) * 1e3:.1f}-"
+          f"{max(times[1:]) * 1e3:.1f}; first step {times[0] * 1e3:.1f}), "
+          f"{tokens / ms * 1e3:.0f} tokens/s ({card})")
+    print(f"[train] {cfg.name}: peak memory {gb(peak):.2f} GB "
+          f"(torch.cuda.max_memory_allocated over the run) against the reckoned "
+          f"state {gb(sum(reckoned.values())):.2f} GB: {cfg.dtype} weights "
+          f"{gb(w):.2f} GB, {cfg.dtype} gradients {gb(w):.2f} GB, float32 moments "
+          f"{gb(8 * n):.2f} GB ({card})")
+    del state, step, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"params": n, "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+            "peak_gb": gb(peak), "reckoned_gb": gb(sum(reckoned.values())),
+            "loss_first": loss[0], "loss_last": loss[-1], "profiled": busy}
+
+
+def profile_step(torch, run, path: Path | None, tag: str, card: str):
+    """One more train step under torch.profiler: the top rows of its table
+    (kernels and operators by their own device time) printed under
+    ``[tag]``, the table written to ``path`` (if given), and
+    the device's busy share of the step's wall.  Returns (busy ms, wall ms)
+    or None when the profiler read no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
+    table = events.table(sort_by="self_cuda_time_total", row_limit=30)
+    if path is not None:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(table)
+    print(f"[{tag}] " + f"\n[{tag}] ".join(table.splitlines()[:20]))
+    if not busy:
+        print(f"[{tag}] the profiler read no device event ({card})")
+        return None
+    print(f"[{tag}] device busy {busy:.1f} ms of the profiled step's {wall:.1f} ms "
+          f"({busy / wall:.1%}) ({card})")
+    return busy, wall
+
+
+def train_phase(torch, np, card: str, kernels: dict, phases: dict,
+                profile_dir: str | None = None) -> None:
+    """Phase 7, the training path: (a) the training forward (plain attention,
+    as the reference's trainer) against the serving prefill (flash) on
+    ``qwen3-1.7b``, float32 cut to 4 layers and bf16 at full depth; (b)
+    ``qwen3-1.7b`` trained at full width and depth, one more step profiled;
+    (c) ``mamba2-2.7b`` trained at full width and depth; (d) ``tiny-reasoner`` trained from scratch by
+    ``examples/torch_train_reasoner.py``'s recipe, saved, reloaded bitwise
+    and served on the kernels."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.eat import make_probe
+    from repro_torch.core.monitor import ReasoningMonitor
+    from repro_torch.core.stopping import EATStopper
+    from repro_torch.data.synthetic import ChainTask, Tokens
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.model import Model, init_params, train_logits
+    from repro_torch.serving.cache import CacheConfig, alloc_cache
+    from repro_torch.serving.engine import EngineConfig, ReasoningEngine
+    from repro_torch.serving.sampler import SamplerConfig
+    from repro_torch.serving.scheduler import SlotScheduler
+    from repro_torch.training.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.utils.treeutil import tree_flatten_with_paths
+
+    t_phase = time.perf_counter()
+    qcfg = get_config("qwen3-1.7b")
+
+    # (a) the training forward against the serving prefill, same weights, a
+    # 96-token batch: max |difference| over max |logits|
+    for cfg, bar in ((dataclasses.replace(qcfg, name=qcfg.name + "-4L-f32",
+                                          n_layers=4, dtype="float32"), 1e-5),
+                     (qcfg, 3e-2)):
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(3),
+                             device="cuda")
+        model = Model(cfg, params)
+        B, S = 2, 96
+        toks = torch.randint(0, cfg.vocab, (B, S), device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(4))
+        pos = torch.arange(S, dtype=torch.int32, device="cuda").expand(B, S).contiguous()
+        before = dict(fa.flash_attention_cuda.variant_launches)
+        with torch.no_grad():
+            ref = train_logits(params, cfg, toks, pos, pos, remat=False).float()
+            cache = alloc_cache(cfg, B, S, device="cuda")
+            out = model.logits(model.prefill(toks, pos, pos, cache)).float()
+        flash = {k: v - before[k] for k, v in fa.flash_attention_cuda.variant_launches.items()}
+        err = (out - ref).abs().max().item() / ref.abs().max().item()
+        check(bool(torch.isfinite(out).all() and torch.isfinite(ref).all())
+              and err <= bar and sum(flash.values()) == cfg.n_layers,
+              f"{cfg.name}: training forward vs serving prefill {err} (bar {bar}), "
+              f"flash launches {flash}")
+        print(f"[train] {cfg.name}: training forward (plain attention) vs serving "
+              f"prefill + logits (flash kernel, {json.dumps(flash)} launches), "
+              f"B {B} x {S} tokens: max |diff| / max |logits| {err:.3e} (bar {bar:g}; "
+              f"max |logits| {ref.abs().max().item():.3f}) ({card})")
+        phases[f"train_vs_prefill_{cfg.dtype}"] = err
+        del params, model, ref, out, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (b) qwen3-1.7b at full width and depth
+    phases["train_qwen"] = train_run(
+        torch, qcfg, card, profile=True,
+        table_path=Path(profile_dir) / "profile_train.txt" if profile_dir else None)
+
+    # (c) mamba2-2.7b at full width and depth (8 steps take ~15 s: no cut)
+    phases["train_mamba"] = train_run(torch, get_config("mamba2-2.7b"), card)
+
+    # (d) tiny-reasoner by the example's recipe, saved, reloaded, served
+    sys.path.insert(0, str(ROOT / "examples"))
+    from torch_train_reasoner import train
+
+    steps = 1200
+    t0 = time.perf_counter()
+    cfg, params, hist = train(steps, "cuda", log=lambda line: print(
+        f"[train] tiny-reasoner {line.strip()} ({card})"))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    (_, l0, a0), (_, l1, a1) = hist[0], hist[-1]
+    check(l1 < 0.5 * l0, f"tiny-reasoner: last loss {l1} not below half the first {l0}")
+    print(f"[train] tiny-reasoner: {steps} steps of batch 64 in {train_s:.1f} s "
+          f"({train_s / steps * 1e3:.1f} ms per step, host clock), loss {l0:.4f} -> "
+          f"{l1:.4f}, accuracy {a0:.3f} -> {a1:.3f} ({card})")
+    with tempfile.TemporaryDirectory() as td:
+        path = str(Path(td) / "tiny_reasoner_torch.ckpt")
+        save_checkpoint(path, params, cfg)
+        size = Path(path).stat().st_size
+        back = load_checkpoint(path, cfg, device="cuda")
+    same = all(a.dtype == b.dtype and torch.equal(a, b) for (_, a), (_, b) in
+               zip(tree_flatten_with_paths(back), tree_flatten_with_paths(params)))
+    check(same, "tiny-reasoner: the reloaded checkpoint differs from the trained weights")
+    print(f"[train] tiny-reasoner checkpoint: {size} bytes, reloaded onto the card "
+          f"bitwise ({card})")
+
+    model = Model(cfg, back)
+    batch = ChainTask().serve_batch(np.random.default_rng(0), 32)
+    slots, budget = 8, 110
+    ecfg = EngineConfig(
+        max_reasoning_tokens=budget, pad_id=Tokens.PAD,
+        end_think_id=Tokens.END_THINK, newline_id=Tokens.NEWLINE,
+        eos_id=Tokens.EOS, sampler=SamplerConfig(greedy=True),
+        capacity=SlotScheduler.required_capacity(batch["prompts"].shape[1], 32,
+                                                 slots, budget),
+        cache=CacheConfig(kind="paged", page_size=16, attn_impl="auto"))
+    mon = ReasoningMonitor(stopper=EATStopper(alpha=0.2, delta=1e-3),
+                           probe=make_probe(Tokens.END_THINK, (Tokens.ANS,)),
+                           newline_id=Tokens.NEWLINE)
+    eng = ReasoningEngine(model, ecfg, mon)
+    served = {}
+    for what, use_monitor in (("EAT delta 1e-3 alpha 0.2", True),
+                              ("token budget alone", False)):
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        res = eng.serve(batch["prompts"], batch["prompt_len"], None,
+                        batch_size=slots, answer_len=4, use_monitor=use_monitor)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        check(len(res) == 32 and all(r["status"] in ("exited", "exhausted")
+                                     for r in res),
+              f"tiny-reasoner {what}: not every request finished")
+        ans = np.array([ChainTask.extract_answer(r["answer_tokens"][None])[0]
+                        for r in res])
+        acc = float((ans == batch["answers"]).mean())
+        n_tok = [r["n_reasoning"] for r in res]
+        exits = {k: [r["exit_reason"] for r in res].count(k)
+                 for k in ("eat", "end_think", "budget")}
+        served[what] = {"accuracy": acc, "reasoning_tokens": sum(n_tok),
+                        "wall_s": wall, "launches": launches}
+        print(f"[train] tiny-reasoner served ({what}; 32 ChainTask prompts, {slots} "
+              f"slots, paged, greedy, attn_impl auto): forced-answer accuracy "
+              f"{acc:.3f}, reasoning tokens {sum(n_tok)} (per request "
+              f"{min(n_tok)}-{max(n_tok)}), exits {json.dumps(exits)}, wall "
+              f"{wall:.3f} s (first serve of its graphs: captures included); "
+              f"launches {json.dumps(launches)} ({card})")
+    eat = served["EAT delta 1e-3 alpha 0.2"]["launches"]
+    check(all(n > 0 for n in eat.values()),
+          f"tiny-reasoner EAT serve: a kernel was not launched: {eat}")
+    phases["train_reasoner"] = {"train_s": train_s, "loss": [l0, l1],
+                                "accuracy": [a0, a1], "served": served}
+    del eng, model, params, back
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases["train_phase_s"] = time.perf_counter() - t_phase
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write the torch.profiler tables of the profiled paged "
                          "8B serve (DIR/profile.txt) and mamba2 serve "
-                         "(DIR/profile_mamba2.txt), and profile one more "
+                         "(DIR/profile_mamba2.txt) and qwen3-1.7b train step "
+                         "(DIR/profile_train.txt), and profile one more "
                          "qwen3-1.7b proxy serve (DIR/profile_proxy.txt)")
     args = ap.parse_args()
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -1970,10 +2242,16 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- 7. the training path, the 8B model freed first
+    train_phase(torch, np, card, {name: kernels[name] for name in
+                                  ("flash_attention", "paged_attention",
+                                   "entropy_probe")}, phases,
+                profile_dir=args.profile)
+
     print("[phases] " + json.dumps({k: (round(v, 3) if isinstance(v, float) else v)
                                     for k, v in phases.items()}))
 
-    # ---- 7. result lines: launches from the path each kernel serves (the
+    # ---- 8. result lines: launches from the path each kernel serves (the
     # profiled 8B paged self-EAT serve; ssd_scan from the profiled mamba2
     # serve; decode_attention, which no serve path calls, from its own phase)
     launches["decode_attention"] = decode_launches

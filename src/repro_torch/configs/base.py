@@ -6,7 +6,7 @@ here describes the same model as its JAX twin.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Literal
 
 Activation = Literal["silu", "geglu", "gelu"]
@@ -70,6 +70,26 @@ class ModelConfig:
         if self.arch_type == "ssm":
             return ("ssm",) * self.n_layers
         return ("attn",) * self.n_layers
+
+    def reduced(self) -> "ModelConfig":
+        """The reference's CPU-test variant of this config: 2 layers, width
+        at most 128, vocab at most 512, heads of 32, float32 (the dense and
+        SSM fields of ``ModelConfig.reduced``)."""
+        n_heads = max(2, min(self.n_heads, 4))
+        kw: dict = dict(
+            name=self.name + "-reduced",
+            n_layers=2,
+            d_model=min(self.d_model, 128),
+            vocab=min(self.vocab, 512),
+            n_heads=n_heads,
+            n_kv_heads=max(1, min(self.n_kv_heads, n_heads)),
+            head_dim=32,
+            d_ff=min(self.d_ff, 256) or 256,
+            dtype="float32",
+        )
+        if self.ssm is not None:
+            kw["ssm"] = replace(self.ssm, d_state=16, head_dim=16, chunk=16)
+        return replace(self, **kw)
 
 
 REGISTRY: dict[str, ModelConfig] = {}

@@ -1,0 +1,24 @@
+"""Host data pipeline (port of ``repro/data/pipeline.py``, one device): the
+reference's batch iterator, and its batches moved to the device."""
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+
+from repro_torch.data.synthetic import ChainTask
+from repro_torch.device import upload
+
+
+def train_batches(task: ChainTask, batch_size: int, seed: int = 0) -> Iterator[dict]:
+    """Endless numpy batches of ``task``, the reference's bitwise (the same
+    ``ChainTask`` and generator)."""
+    rng = np.random.default_rng(seed)
+    while True:
+        yield task.batch(rng, batch_size)
+
+
+def device_put_batch(batch: dict, device) -> dict:
+    """The batch's arrays as tensors on ``device`` (``device.upload``:
+    through pinned memory, not blocking the host, on the card)."""
+    return {k: upload(v, device) for k, v in batch.items()}

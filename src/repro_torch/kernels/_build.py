@@ -114,6 +114,20 @@ def resolve_impl(impl: str, x: torch.Tensor) -> str:
     return impl
 
 
+def no_autograd(op: str, *tensors) -> None:
+    """Refuse to run ``op`` under autograd.  A kernel writes its result
+    into a fresh buffer through a raw pointer, so the output would carry no
+    ``grad_fn``: the gradients of everything upstream would be cut without
+    an error.  No kernel of the port has a backward (nor has any in the
+    reference); training runs the plain versions."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{op}: an input requires grad, and the CUDA kernel has no "
+            f"backward; run it under torch.no_grad() or call the plain "
+            f"version (impl='plain'), which autograd differentiates")
+
+
 def dtype_code(x: torch.Tensor) -> int:
     """The kernels' element-type switch: 0 = float32, 1 = bfloat16."""
     if x.dtype == torch.float32:

@@ -124,6 +124,7 @@ def _slots(lib, device, variant: str, code: int, Dk: int, Dv: int,
 
 def decode_attention_cuda(q, k, v, q_pos, kv_pos, *, window: int = 0,
                           scale: float) -> torch.Tensor:
+    _build.no_autograd("decode_attention", q, k, v)
     B, m, Hq, Dk = q.shape
     C, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     code = _build.dtype_code(q)

@@ -130,6 +130,7 @@ def entropy_probe_cuda(h, w, vocab: int, *, variant=None) -> torch.Tensor:
     ``variant``: None for ``entropy_variant``'s choice, or ``"mma"`` /
     ``"scalar"`` to force one (the comparisons and timings of
     ``chip_smoke.py`` and the GPU tests)."""
+    _build.no_autograd("entropy_probe", h, w)
     _build.expect(h, h.dtype, 2, "h")
     if not w.is_cuda or w.dtype != h.dtype or w.dim() != 2:
         raise ValueError(f"w must be a 2-D CUDA tensor of {h.dtype}")

@@ -117,6 +117,7 @@ def attention_plain(q, k, v, q_pos, kv_pos, *, causal: bool = True,
 
 def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, causal: bool = True,
                          window: int = 0, scale: float) -> torch.Tensor:
+    _build.no_autograd("flash_attention", q, k, v)
     B, Sq, Hq, Dk = q.shape
     Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     for x, name in ((q, "q"), (k, "k"), (v, "v")):

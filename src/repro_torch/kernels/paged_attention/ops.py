@@ -102,6 +102,7 @@ def paged_attention_cuda(q, k_pool, v_pool, pages, counts, bpos, q_pos, *,
     """``logical`` (B, NBK) int32: the logical block of each rank;
     ``num_blocks``: the logical capacity of a row in blocks (every logical
     block index is below it).  Both fix the split and are required."""
+    _build.no_autograd("paged_attention", q, k_pool, v_pool)
     if logical is None or num_blocks is None:
         raise ValueError("paged_attention_cuda needs logical (the logical "
                          "block of each rank) and num_blocks (the logical "

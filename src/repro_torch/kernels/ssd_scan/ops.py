@@ -120,6 +120,7 @@ def ssd_scan_cuda(u, logd, Bm, Cm, *, chunk: int, h0=None, variant=None):
     ``variant``: None for ``ssd_variant``'s choice, or ``"mma"`` /
     ``"scalar"`` to force one (the comparisons and timings of
     ``chip_smoke.py``)."""
+    _build.no_autograd("ssd_scan", u, logd, Bm, Cm, h0)
     Bsz, S, nh, hp = u.shape
     G, N = Bm.shape[2], Bm.shape[3]
     for x, name, nd in ((u, "u", 4), (logd, "logd", 3), (Bm, "Bm", 4),

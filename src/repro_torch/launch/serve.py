@@ -8,12 +8,17 @@
       --requests 8 --batch 4 --budget 64                     # Mamba2, GPU
   python -m repro_torch.launch.serve --device cpu --arch tiny --requests 4 \\
       --batch 2 --monitor proxy --proxy-config tiny-proxy     # black-box EAT
+  python -m repro_torch.launch.serve --arch tiny-reasoner --requests 32 \\
+      --batch 8 --ckpt artifacts/tiny_reasoner_torch.ckpt    # trained weights
   python -m repro_torch.launch.serve --arch tiny --requests 10 --batch 4 \\
       --cache paged --attn-impl auto --overlap on            # overlapped loop
 
-Random weights from a fixed seed (there is no checkpoint loader in the
-port yet), so verify mechanics — token counts, exits, slot recycling — not
-accuracy.  ``--attn-impl``: ``gather`` materialises the paged cache's
+``--ckpt`` loads the generator's weights from a checkpoint in the
+reference's format (``repro_torch.launch.train --ckpt``,
+``examples/torch_train_reasoner.py`` or the JAX package's trainer); without
+it the weights are random from a fixed seed (a warning says so), so verify
+mechanics — token counts, exits, slot recycling — not accuracy.
+``--attn-impl``: ``gather`` materialises the paged cache's
 logical view; ``auto``/``cuda``/``plain`` read K/V off the page pools
 (``auto`` = the CUDA kernels on the GPU, the plain versions on the CPU).
 An SSM model (``mamba2-2.7b``, ``tiny-ssm``) has no KV cache to page and
@@ -21,8 +26,9 @@ serves with ``--cache ring`` only.  Its prefill runs the chunked scan only
 for a prompt batch wider than 16 tokens; the task's prompts are shorter, so
 here, as in the JAX launcher, they take the recurrent step.
 ``--monitor proxy`` serves black-box: a second model (``--proxy-config``,
-default a twin of ``--arch``, seeded apart) shadows the emitted stream and
-supplies the EAT exits; it must share the generator's vocabulary.
+default a twin of ``--arch``, seeded apart, or ``--proxy-ckpt``'s weights)
+shadows the emitted stream and supplies the EAT exits; it must share the
+generator's vocabulary.
 ``--overlap on`` serves through the overlapped loop
 (``serving/pipeline.py``: chunk N+1 dispatched before chunk N is read); it
 needs ``--requests`` and gets one chunk of capacity headroom.  The
@@ -48,6 +54,7 @@ from repro_torch.serving.engine import EngineConfig, ReasoningEngine
 from repro_torch.serving.proxy import ProxyConfig
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.scheduler import SlotScheduler
+from repro_torch.training.checkpoint import load_checkpoint
 
 
 def main(argv=None):
@@ -83,6 +90,11 @@ def main(argv=None):
     ap.add_argument("--proxy-config", default=None, metavar="ARCH",
                     help="--monitor proxy: the proxy model's architecture "
                          "(default: --arch, a twin seeded apart)")
+    ap.add_argument("--ckpt", default=None,
+                    help="the generator's checkpoint (default: random weights)")
+    ap.add_argument("--proxy-ckpt", default=None,
+                    help="--monitor proxy: the proxy's checkpoint (default: "
+                         "random weights)")
     ap.add_argument("--overlap", choices=["off", "on"], default="off",
                     help="on: the overlapped serve loop (dispatch chunk N+1 "
                          "before reading chunk N; needs --requests)")
@@ -94,16 +106,21 @@ def main(argv=None):
     if args.overlap == "on" and not args.requests:
         ap.error("--overlap on applies to the --requests serving loop: "
                  "pass --requests N")
-    if args.monitor != "proxy" and args.proxy_config:
-        ap.error("--proxy-config only applies with --monitor proxy")
+    if args.monitor != "proxy" and (args.proxy_config or args.proxy_ckpt):
+        ap.error("--proxy-config/--proxy-ckpt only apply with --monitor proxy "
+                 "(default monitor is 'self')")
     cfg = get_config(args.arch)
     if cfg.arch_type == "ssm" and args.cache == "paged":
         ap.error(f"--arch {args.arch} is an SSM: its state has no KV capacity "
                  f"axis to page; use --cache ring")
     dev = resolve_device(args.device)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    model = Model(cfg, init_params(cfg, gen, device=dev))
-    print("WARNING: no checkpoint — random weights")
+    if args.ckpt:
+        params = load_checkpoint(args.ckpt, cfg, device=dev)
+    else:
+        print("WARNING: no checkpoint — random weights")
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    model = Model(cfg, params)
     proxy = None
     if args.monitor == "proxy":
         pcfg = get_config(args.proxy_config or args.arch)
@@ -111,9 +128,13 @@ def main(argv=None):
             raise SystemExit(f"proxy arch {pcfg.name} must share the "
                              f"generator's tokenizer (vocab {cfg.vocab}, got "
                              f"{pcfg.vocab})")
-        pgen = torch.Generator(device=dev).manual_seed(1)
-        proxy = ProxyConfig(model=Model(pcfg, init_params(pcfg, pgen, device=dev)))
-        print("WARNING: no proxy checkpoint — random proxy weights")
+        if args.proxy_ckpt:
+            pparams = load_checkpoint(args.proxy_ckpt, pcfg, device=dev)
+        else:
+            print("WARNING: no proxy checkpoint — random proxy weights")
+            pparams = init_params(pcfg, torch.Generator(device=dev).manual_seed(1),
+                                  device=dev)
+        proxy = ProxyConfig(model=Model(pcfg, pparams))
 
     ecfg = EngineConfig(
         max_reasoning_tokens=args.budget, capacity=args.budget + 128,

@@ -1,11 +1,20 @@
-"""Model facade: embedding glue and the prefill / decode / probe entry
-points (port of ``repro/models/model.py``).
+"""Model facade: embedding glue, the prefill / decode / probe entry points
+and the training loss (port of ``repro/models/model.py``).
 
 ``Model`` is an ``nn.Module`` holding the weights (frozen, inference only);
 the cache is an explicit argument that the committing calls (``prefill``,
 ``decode_step``) update in place.  The EAT probe (``probe_entropy``) is a
 forward over the probe tokens against the live cache that commits nothing,
 followed by the fused entropy kernel.
+
+Training is functional, as in the reference: ``train_loss(params, cfg,
+batch)`` takes the parameter tree itself (its leaves ``requires_grad``;
+``training/train_loop.py`` keeps it in a ``TrainState`` beside the
+optimizer's moments, the reference's ``TrainState(params, opt)``).  No
+serving ``Model`` ever builds an autograd graph: its weights stay frozen.
+A trained tree serves through the same constructor as an ``init_params``
+or ``from_jax`` tree, ``Model(cfg, params)``, which wraps the same storage
+without gradients.
 
 Parameter tree (the JAX layout with the layer axis unstacked)::
 
@@ -36,7 +45,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device="cuda") -> dict:
     """Seeded random weights, made on ``device`` (the generator must live
     there too): the layout and scales of the reference's ``Model.init``."""
-    dev = resolve_device(device)
+    return build_params(cfg, generator, resolve_device(device))
+
+
+def build_params(cfg: ModelConfig, generator, dev: torch.device) -> dict:
+    """``init_params`` on a resolved device; on the ``meta`` device (with
+    no generator) it gives every leaf's shape and dtype without memory."""
     dtype = torch_dtype(cfg.dtype)
     layers = []
     for kind in cfg.block_kinds():
@@ -161,3 +175,61 @@ class Model(nn.Module):
         return next_token_entropy(hidden[:, -1].contiguous(),
                                   self.unembed_matrix(), self.cfg.vocab,
                                   impl=entropy_impl)
+
+
+# ------------------------------------------------------------------ train
+
+
+def train_logits(params: dict, cfg: ModelConfig, tokens, positions, pos1d, *,
+                 remat: bool = True, window: int | None = None) -> torch.Tensor:
+    """The training forward (no cache; plain attention and scan, as the
+    reference's trainer): logits (B, S, Vp) in the storage dtype."""
+    window = cfg.sliding_window if window is None else window
+    x = common.embed_apply(params["embed"], tokens, cfg)
+    hidden = tfm.forward_train(params["layers"], params["final_norm"], x,
+                               positions, pos1d, cfg, valid=pos1d >= 0,
+                               remat=remat, window=window)
+    return common.lm_head_apply(params["embed"], hidden, cfg)
+
+
+def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
+               remat: bool = True, z_loss: float = 1e-4,
+               window: int | None = None):
+    """batch: tokens (B, S); targets, loss_mask, positions, pos1d (B, S),
+    tensors on the parameters' device.  Returns (loss, metrics dict of
+    0-dim device tensors: ce, z_loss, accuracy, tokens, loss)."""
+    unknown = set(batch) - {"tokens", "targets", "loss_mask", "positions", "pos1d"}
+    if unknown:
+        raise ValueError(f"batch keys {sorted(unknown)} need modules the port "
+                         f"lacks (encoder-decoder frames, VLM image embeds)")
+    logits = train_logits(params, cfg, batch["tokens"], batch["positions"],
+                          batch["pos1d"], remat=remat, window=window)
+    loss, metrics = cross_entropy_loss(logits, batch["targets"],
+                                       batch["loss_mask"], cfg.vocab,
+                                       z_loss=z_loss)
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def cross_entropy_loss(logits, targets, mask, vocab: int, *,
+                       z_loss: float = 1e-4):
+    """Masked CE over the valid vocabulary (padding columns excluded) plus
+    the z-loss on log Z, in float32.  The max is detached (the reference's
+    ``stop_gradient``), so the z-loss gradient flows through log Z alone;
+    the target's log-probability is a gather, which equals the reference's
+    one-hot contraction exactly."""
+    Vp = logits.shape[-1]
+    lf = logits.float()
+    col_valid = torch.arange(Vp, device=lf.device) < vocab
+    lf = torch.where(col_valid, lf, -1e30)
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    shifted = lf - m
+    logz = torch.log(torch.exp(shifted).sum(dim=-1))                # (B, S)
+    ll = shifted.gather(-1, targets.long()[..., None])[..., 0] - logz
+    maskf = mask.float()
+    denom = maskf.sum().clamp_min(1.0)
+    ce = -(ll * maskf).sum() / denom
+    zl = ((logz + m[..., 0]) ** 2 * maskf).sum() / denom
+    loss = ce + z_loss * zl
+    acc = ((lf.argmax(dim=-1) == targets) * maskf).sum() / denom
+    return loss, {"ce": ce, "z_loss": zl, "accuracy": acc, "tokens": maskf.sum()}

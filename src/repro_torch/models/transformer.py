@@ -1,8 +1,13 @@
-"""The cached forward of a dense GQA decoder and of a Mamba2 stack (port of
-the dense and SSM branches of ``repro/models/transformer.py``:
-``write_slots``, the paged-cache helpers, ``page_native_ok``,
-``attn_block_cached``, ``ssm_block_full`` / ``ssm_block_step`` and
-``forward_cached``).
+"""The cached forward of a dense GQA decoder and of a Mamba2 stack, and
+their training forward (port of the dense and SSM branches of
+``repro/models/transformer.py``: ``write_slots``, the paged-cache helpers,
+``page_native_ok``, ``attn_block_cached``, ``attn_block_full``,
+``ssm_block_full`` / ``ssm_block_step``, ``forward_cached`` and
+``forward_train``).
+
+``forward_train`` runs the plain attention and the plain SSD scan, as the
+reference's trainer does (its ``Model(cfg, attn_impl="xla")`` and
+``ssd_chunked``): no kernel of the port has a backward.
 
 Cache layout (built in ``serving/cache.py``)::
 
@@ -33,9 +38,10 @@ from __future__ import annotations
 import contextlib
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention.ops import attention
+from repro_torch.kernels.flash_attention.ops import attention, attention_plain
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models import attention as att
 from repro_torch.models import ssm as ssm_mod
@@ -178,6 +184,19 @@ def attn_block_cached(p, x, positions, pos1d, cfg: ModelConfig, entry: dict,
     return x + mlp_apply(p["ffn"], h2, cfg)
 
 
+def attn_block_full(p, x, positions, pos1d, cfg: ModelConfig, *,
+                    window: int = 0):
+    """One full-sequence decoder block (training): causal self-attention
+    over the block's own keys by the plain attention, then the MLP."""
+    h = rmsnorm(x, p["norm1"], cfg.norm_eps, cfg.rmsnorm_one_plus)
+    q, k, v = att.gqa_qkv(p["attn"], h, positions, cfg)
+    o = attention_plain(q, k, v, pos1d, pos1d, causal=True, window=window,
+                        scale=att.attn_scale(cfg))
+    x = x + att.gqa_out(p["attn"], o)
+    h2 = rmsnorm(x, p["norm2"], cfg.norm_eps, cfg.rmsnorm_one_plus)
+    return x + mlp_apply(p["ffn"], h2, cfg)
+
+
 def ssm_block_full(p, x, cfg: ModelConfig, *, valid=None, state=None,
                    scan_impl: str = "auto"):
     h = rmsnorm(x, p["norm"], cfg.norm_eps, cfg.rmsnorm_one_plus)
@@ -212,6 +231,27 @@ def _ssm_layers(layers, x, pos1d, cache, cfg: ModelConfig, *, commit: bool,
         if commit:
             states[i] = new
     return x
+
+
+def forward_train(layers, final_norm, x, positions, pos1d, cfg: ModelConfig, *,
+                  valid=None, remat: bool = True, window: int = 0):
+    """Full-sequence forward over the stack, no cache (training).  Returns
+    the final-normed hidden states.  ``remat`` recomputes each layer in the
+    backward pass (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint`` around its scan body): only the layers' inputs are
+    kept."""
+    if cfg.arch_type == "dense":
+        def body(p, xx):
+            return attn_block_full(p, xx, positions, pos1d, cfg, window=window)
+    elif cfg.arch_type == "ssm":
+        def body(p, xx):
+            return ssm_block_full(p, xx, cfg, valid=valid, scan_impl="plain")[0]
+    else:
+        raise ValueError(f"the port trains dense and ssm models, not "
+                         f"{cfg.arch_type!r}")
+    for p in layers:
+        x = checkpoint(body, p, x, use_reentrant=False) if remat else body(p, x)
+    return rmsnorm(x, final_norm, cfg.norm_eps, cfg.rmsnorm_one_plus)
 
 
 def forward_cached(layers, final_norm, x, positions, pos1d, slots, cache,

@@ -1,14 +1,22 @@
-"""Parameter bridge from the JAX reference.
+"""Parameter bridge to and from the JAX reference's layout.
 
-``from_jax`` takes the pytree of the reference's ``Model.init`` as nested
-dicts of numpy arrays and returns the port's parameter tree
-(``models/model.py``) on ``device``.  Weights keep JAX's ``(d_in, d_out)``
-layout, so this copies and never transposes; the only reshaping is
-unstacking the leading ``(L, ...)`` layer axis that the reference's
-``init_stack`` builds.  A tied config simply has no ``lm_head``: the port
-unembeds through the transposed embedding view, as the reference does.
+The port keeps one dict per layer (``models/model.py``); the reference
+stacks every layer leaf along a leading ``(L, ...)`` axis
+(``transformer.init_stack``) under ``{"embed": ..., "stack": {"layers",
+"final_norm"}}``.  Weights keep JAX's ``(d_in, d_out)`` layout on both
+sides, so nothing is transposed.  A tied config has no ``lm_head``: the
+port unembeds through the transposed embedding view, as the reference does.
 Each leaf keeps its own dtype: a bfloat16 model's SSM ``dt_bias``,
 ``A_log`` and ``D`` are float32 in the reference and stay so.
+
+* ``from_jax`` takes the reference's pytree as nested dicts of numpy arrays
+  (the parity tests' bridge) and returns the port's tree on ``device``.
+* ``to_jax`` is its inverse: the reference's stacked layout as CPU tensors
+  in each leaf's own dtype.  numpy has no bfloat16 of its own, so the
+  reference's numpy form of a bf16 leaf is its raw 16-bit pattern
+  (``leaf_bytes`` / ``leaf_from_bytes``, the checkpoint format's).
+* ``param_specs`` gives the reference's path, shape and dtype of every leaf
+  of a config, without building the weights.
 """
 from __future__ import annotations
 
@@ -17,27 +25,107 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.utils.treeutil import tree_flatten_with_paths
+
+#: the dtypes a parameter file may hold: numpy's names, the storage numpy
+#: reads the bytes as, and the torch dtype
+DTYPES = {"float32": (np.float32, torch.float32),
+          "bfloat16": (np.int16, torch.bfloat16)}
+
+
+def dtype_name(t: torch.Tensor) -> str:
+    name = str(t.dtype).removeprefix("torch.")
+    if name not in DTYPES:
+        raise TypeError(f"parameters are float32 or bfloat16, got {t.dtype}")
+    return name
+
+
+def leaf_bytes(t: torch.Tensor) -> bytes:
+    """A tensor's C-order bytes, as numpy's ``tobytes`` gives them for the
+    reference's array (bf16 through its int16 bit pattern)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy().tobytes()
+
+
+def leaf_from_bytes(data: bytes, dtype: str, shape) -> torch.Tensor:
+    """The inverse of ``leaf_bytes``: a CPU tensor of ``dtype`` (a numpy
+    dtype name) and ``shape``."""
+    np_dtype, t_dtype = DTYPES[dtype]
+    arr = np.frombuffer(data, dtype=np_dtype).reshape(shape).copy()
+    return torch.from_numpy(arr).view(t_dtype)
+
+
+def _check_arch(cfg: ModelConfig) -> None:
+    if cfg.arch_type not in ("dense", "ssm"):
+        raise ValueError(f"the port has no {cfg.arch_type!r} model "
+                         f"(dense and ssm only)")
+
+
+def unstack(stacked: dict, cfg: ModelConfig, device) -> dict:
+    """The reference's layout (tensors, layer leaves ``(L, ...)``) -> the
+    port's parameter tree on ``device``."""
+    _check_arch(cfg)
+    dev = resolve_device(device)
+
+    def own(t: torch.Tensor) -> torch.Tensor:     # never the input's storage
+        return t.to(dev, copy=True)
+
+    def tree(d: dict, i: int) -> dict:
+        return {k: tree(v, i) if isinstance(v, dict) else own(v[i])
+                for k, v in d.items()}
+
+    emb = stacked["embed"]
+    embed = {"embedding": own(emb["embedding"])}
+    if not cfg.tie_embeddings:
+        embed["lm_head"] = own(emb["lm_head"])
+    stack = stacked["stack"]
+    return {"embed": embed, "final_norm": own(stack["final_norm"]),
+            "layers": [tree(stack["layers"], i) for i in range(cfg.n_layers)]}
 
 
 def from_jax(np_tree: dict, cfg: ModelConfig, device="cuda") -> dict:
-    dev = resolve_device(device)
-
     def t(a) -> torch.Tensor:
         # numpy knows bfloat16 only through ml_dtypes: go through float32
         a = np.asarray(a)
         dtype = torch_dtype(a.dtype.name)
-        return torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+        return torch.from_numpy(a.astype(np.float32)).to(dtype)
 
-    def tree(d: dict, i: int) -> dict:
-        return {k: tree(v, i) if isinstance(v, dict) else t(v[i])
-                for k, v in d.items()}
+    def tree(d: dict) -> dict:
+        return {k: tree(v) if isinstance(v, dict) else t(v) for k, v in d.items()}
 
-    emb = np_tree["embed"]
-    embed = {"embedding": t(emb["embedding"])}
-    if not cfg.tie_embeddings:
-        embed["lm_head"] = t(emb["lm_head"])
-    stack = np_tree["stack"]
-    lay = stack["layers"]
-    layers = [tree(lay, i) for i in range(cfg.n_layers)]
-    return {"embed": embed, "final_norm": t(stack["final_norm"]),
-            "layers": layers}
+    return unstack(tree(np_tree), cfg, device)
+
+
+def to_jax(params: dict, cfg: ModelConfig) -> dict:
+    """The port's tree -> the reference's layout, as CPU tensors in each
+    leaf's dtype (layer leaves stacked along a new leading axis)."""
+    _check_arch(cfg)
+    layers = params["layers"]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{cfg.name} has {cfg.n_layers} layers, the tree "
+                         f"{len(layers)}")
+    host = lambda t: t.detach().cpu()  # noqa: E731
+
+    def stack(ds: list) -> dict:
+        return {k: stack([d[k] for d in ds]) if isinstance(ds[0][k], dict)
+                else torch.stack([host(d[k]) for d in ds]) for k in ds[0]}
+
+    return {"embed": {k: host(v) for k, v in params["embed"].items()},
+            "stack": {"final_norm": host(params["final_norm"]),
+                      "layers": stack(list(layers))}}
+
+
+def param_specs(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], str]]:
+    """{reference path: (shape, dtype name)} of every leaf of ``cfg``."""
+    from repro_torch.models.model import build_params
+
+    _check_arch(cfg)
+    meta = build_params(cfg, None, torch.device("meta"))
+    spec = lambda t, lead=(): ((*lead, *t.shape), dtype_name(t))  # noqa: E731
+    specs = {f"embed/{k}": spec(t) for k, t in meta["embed"].items()}
+    specs["stack/final_norm"] = spec(meta["final_norm"])
+    for path, t in tree_flatten_with_paths(meta["layers"][0]):
+        specs[f"stack/layers/{path}"] = spec(t, (cfg.n_layers,))
+    return specs

@@ -8,7 +8,8 @@
   tolerance (atol 1e-5, rtol 1e-4: two float32 forwards feed each value).
 * Inside the port: paged == ring bitwise (tokens, answers, EAT traces),
   also with admission holes in a tight page pool.
-* The package imports neither jax nor repro; the CLI runs on the CPU.
+* The package (the trainer and the example that trains too) imports none
+  of jax, repro, msgpack and ml_dtypes; the CLI runs on the CPU.
 """
 import os
 import subprocess
@@ -174,6 +175,9 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.core.stopping, repro_torch.core.eat\n"
         "import repro_torch.serving.engine, repro_torch.serving.device_loop\n"
         "import repro_torch.serving.pipeline\n"
+        "import repro_torch.launch.train, repro_torch.training.checkpoint\n"
+        "import repro_torch.training.optimizer, repro_torch.training.train_loop\n"
+        "import repro_torch.data.pipeline, repro_torch.utils.msgpack\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -181,7 +185,10 @@ def test_port_imports_neither_jax_nor_repro():
         "import chip_smoke\n"
         "sys.path.insert(0, sys.argv[1] + '/benchmarks')\n"
         "import torch_trace_harness\n"
-        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "sys.path.insert(0, sys.argv[1] + '/examples')\n"
+        "import torch_train_reasoner\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'repro', 'msgpack', 'ml_dtypes'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code, ROOT], capture_output=True,
