@@ -95,6 +95,23 @@ imports nothing of JAX or of the JAX package.  Phases:
    cold graph, warm graph and eager on one engine as above, with the
    launches of its kernels counted (every entropy call the tensor-core
    kernel);
+5b. ``deepseek-moe-16b`` (arXiv:2401.06066; the 8B and mamba2 engines freed,
+   the 8B model kept for phase 6): flash (16 q and 16 kv heads: g = 1),
+   paged (m 1 and 2, g = 1) and entropy (its untied 2048 x 102,400 head)
+   against their plain versions at its shapes, timed (``[kernels] moe``
+   lines); kernel path vs plain path of the model (float32 cut to 4 layers,
+   1e-5; then bf16 at the full 28 layers within ``MOE_BF16_TOL``: the
+   logits with the plain path's expert routes on both paths, the EAT with
+   each path's own, and the routes the two paths pick differently
+   counted); seeded random
+   weights at full width and depth (16.4 B parameters, 32.8 GB); a paged
+   self-EAT serve of phase 4's traffic (prompts drawn over its 102,400
+   vocabulary) as cold graph, warm graph and eager serves of one engine,
+   warm == eager bitwise, 0 captures and 0 ``device_if`` reads warm, flash
+   all mma (28 per prefill), every entropy call mma, one more warm serve
+   under the profiler (``[profile moe]``: launches checked, busy share);
+   a ring serve of the same traffic, bitwise the paged streams; warm
+   tokens/s, chunk ms on the card and the phase's peak memory;
 Every serve prints its host reads (``[serve] ... host reads``): the
 decode chunks it ran with their median time on the card, its
 device-to-host snapshot copies, which must be one per chunk after the
@@ -103,8 +120,10 @@ captures, and the ``device_if`` predicate reads, the only other host reads
 in an eager chunk and none in a replayed one.  One more warm graph serve of
 the 8B paged configuration and of ``mamba2-2.7b`` runs under the profiler:
 the wrappers' launch counts over it (eager calls, plus each graph's
-captured calls once per replay) must equal the kernels the profiler saw,
-and must equal the unprofiled warm serve's; these checked counts are the
+captured calls once per replay) must equal the kernels the profiler saw
+(in one whole serve: one in which the profiler kept fewer is profiled
+again, up to ``PROFILE_ATTEMPTS`` serves in all), and must equal the
+unprofiled warm serve's; these checked counts are the
 ``launches`` of the result line.  ``--profile DIR`` writes their tables to
 DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
 6. the paper's evaluation path (App. H) on ``eat-paper-8b`` (``[trace]``):
@@ -143,7 +162,9 @@ DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
    token budget alone: the forced answers' accuracy, reasoning tokens,
    every request finished, and flash, paged and entropy launched during
    the EAT serve;
-8. one JSON line per the contract: ``{"kernels": [...]}`` (five records), the card line,
+8. one JSON line per the contract: ``{"kernels": [...]}`` (five records;
+   flash, paged and entropy carry a ``moe`` record: phase 5b's warm-serve
+   launches and its kernel readings at the MoE's shapes), the card line,
    and the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits nonzero before the result lines are printed.
@@ -1092,21 +1113,69 @@ PROFILED = {"flash_attention": (("flash_mma_kernel", "flash_kernel"), ()),
             "ssd_scan": (("ssd_state_kernel", "ssd_scan_kernel"), ())}
 
 
+#: Profiled serves at most, in ``profile_serve``, to see every counted launch
+#: in one of them.  On an H100 the profiler now and then keeps fewer device
+#: records than a long run of CUDA-graph replays launched: one whole run of
+#: this script saw 2001 of the MoE serve's 2072 counted paged calls, for each
+#: of the call's three kernels alike, where the runs before it saw all 2072.
+#: Kineto's own log (``KINETO_LOG_LEVEL=1``) counts the records it drops as
+#: out of range, a few in a profiled MoE serve and more in each later one of
+#: a process; a wider window around the serve does not lower that count.
+PROFILE_ATTEMPTS = 3
+
+
 def profile_serve(torch, serve, unprofiled_s: float, path: Path | None, tag: str,
                   kernels: dict) -> dict:
     """One more serve under torch.profiler: its table to ``path`` (if
     given), the top rows and the device busy share printed under ``[tag]``,
     and each wrapper's launch count over the serve (eager calls, plus each
     chunk graph's captured calls once per replay) checked against the
-    kernels the profiler saw.  Returns the checked counts."""
+    kernels the profiler saw.  The profiler must see exactly the counted
+    kernels of every wrapper in one whole serve: a serve in which it saw
+    fewer of some kernel is printed and profiled again, up to
+    ``PROFILE_ATTEMPTS`` serves; one in which it saw more fails at once.
+    Returns the checked counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    reset_counts(kernels)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = serve()
-    counted = {name: fn.launches for name, fn in kernels.items()}
-    events = prof.key_averages()
+    # the port's own kernels (csrc/*.cu, in an unnamed namespace), whatever
+    # their rank in the table
+    ours = "(anonymous namespace)::"
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        reset_counts(kernels)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall = serve()
+        counted = {name: fn.launches for name, fn in kernels.items()}
+        events = prof.key_averages()
+        seen = {}
+        for e in events:
+            name = e.key.removeprefix("void ")
+            if (e.device_type == DeviceType.CUDA and name.startswith(ours)
+                    and "at::" not in name):
+                base = name[len(ours):].split("(")[0].split("<")[0]
+                seen[base] = seen.get(base, 0) + e.count
+        saw = {}
+        for name, n in counted.items():
+            first, every = PROFILED[name]
+            got = [sum(seen.get(k, 0) for k in first)] + [seen.get(k, 0) for k in every]
+            check(all(g <= n for g in got),
+                  f"{tag}: {name} counted {n} launches, the profiler saw {got} "
+                  f"kernels ({', '.join(first + every)})")
+            saw[name] = got
+        short = {name: got for name, got in saw.items()
+                 if any(g != counted[name] for g in got)}
+        if not short:
+            break
+        print(f"[{tag}] profiled serve {attempt} of at most {PROFILE_ATTEMPTS}: the "
+              f"profiler kept fewer kernels than launched: "
+              + "; ".join(f"{name} counted {counted[name]}, saw {got} "
+                          f"({', '.join(sum(PROFILED[name], ()))})"
+                          for name, got in short.items()))
+    for name, got in short.items():
+        first, every = PROFILED[name]
+        check(False, f"{tag}: {name} counted {counted[name]} launches, the profiler saw "
+                     f"{got} kernels ({', '.join(first + every)}) in each of "
+                     f"{PROFILE_ATTEMPTS} profiled serves")
     # device-side events only: an operator row repeats its kernels' time
     busy_ms = sum(e.self_device_time_total for e in events
                   if e.device_type == DeviceType.CUDA) / 1e3
@@ -1115,27 +1184,15 @@ def profile_serve(torch, serve, unprofiled_s: float, path: Path | None, tag: str
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(table)
     print(f"[{tag}] " + f"\n[{tag}] ".join(table.splitlines()[:25]))
-    # the port's own kernels (csrc/*.cu, in an unnamed namespace), whatever
-    # their rank in the table
-    ours = "(anonymous namespace)::"
-    seen = {}
     for e in events:
         name = e.key.removeprefix("void ")
         if (e.device_type == DeviceType.CUDA and name.startswith(ours)
                 and "at::" not in name):
-            short = name[len(ours):].split("(")[0]
-            base = short.split("<")[0]
-            seen[base] = seen.get(base, 0) + e.count
-            print(f"[{tag}] kernel {short}: "
+            print(f"[{tag}] kernel {name[len(ours):].split('(')[0]}: "
                   f"{e.self_device_time_total / 1e3:.3f} ms device, {e.count} calls")
-    for name, n in counted.items():
-        first, every = PROFILED[name]
-        got = [sum(seen.get(k, 0) for k in first)] + [seen.get(k, 0) for k in every]
-        check(all(g == n for g in got),
-              f"{tag}: {name} counted {n} launches, the profiler saw {got} "
-              f"kernels ({', '.join(first + every)})")
     print(f"[{tag}] launches counted by the wrappers {json.dumps(counted)}: "
-          f"equal to the profiler's kernel counts")
+          f"equal to the profiler's kernel counts"
+          + (f" (profiled serve {attempt})" if attempt > 1 else ""))
     print(f"[{tag}] device busy {busy_ms:.1f} ms: {busy_ms / 1e3 / wall:.1%} of "
           f"the profiled serve ({wall:.3f} s), {busy_ms / 1e3 / unprofiled_s:.1%} "
           f"of the unprofiled one ({unprofiled_s:.3f} s)")
@@ -1144,6 +1201,32 @@ def profile_serve(torch, serve, unprofiled_s: float, path: Path | None, tag: str
 
 def rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
+
+
+def kernel_vs_plain(torch, model, prompts, probe):
+    """Prefill the last 64 tokens of two prompts, decode one, probe: kernel
+    path and plain path on the same weights (a ring cache; its decode and
+    probe reads through the paged kernel's ring comparator).  Returns
+    {impl: (prefill logits, decode logits, EAT)}."""
+    from repro_torch.serving.cache import alloc_cache
+
+    toks = torch.as_tensor(prompts[:2, -64:], device="cuda")
+    pos = torch.arange(64, dtype=torch.int32, device="cuda").expand(2, 64).contiguous()
+    nxt = torch.full((2, 1), 7, dtype=torch.long, device="cuda")
+    p1 = torch.full((2, 1), 64, dtype=torch.int32, device="cuda")
+    pp = torch.tensor([[65, 66]], dtype=torch.int32, device="cuda").expand(2, 2).contiguous()
+    ptoks = torch.tensor([probe.tokens], device="cuda").expand(2, 2)
+    outs = {}
+    for impl in ("cuda", "plain"):
+        model.attn_impl = model.paged_attn_impl = impl
+        cache = alloc_cache(model.cfg, 2, 96, device="cuda")
+        hidden = model.prefill(toks, pos, pos, cache)
+        logits = model.logits(hidden[:, -1]).float()
+        dlog = model.decode_step(nxt, p1, p1, cache)[:, -1].float()
+        eat = model.probe_entropy(ptoks, pp, pp, cache, entropy_impl=impl)
+        outs[impl] = (logits, dlog, eat)
+    model.attn_impl, model.paged_attn_impl = "auto", "gather"
+    return outs
 
 
 def mamba_phase(torch, np, kernels, phases, profile_dir=None) -> dict:
@@ -1333,6 +1416,386 @@ def mamba_phase(torch, np, kernels, phases, profile_dir=None) -> dict:
     check(profiled == launches, f"mamba2: the profiled serve's launches {profiled} "
           f"differ from the warm serve's {launches}")
     return profiled
+
+
+# ----------------------------------------------------------------- phase 5b
+
+#: deepseek-moe-16b at full width and depth, bf16, against its plain path:
+#: the relative L2 of the logits (both paths on the plain path's routes)
+#: and the EAT difference in nats (read on an H100: 1.9e-2 and 4.4e-4)
+MOE_BF16_TOL = 3e-2
+
+
+def moe_kernel_checks(torch, F, fa, pa, ep) -> dict:
+    """Phase 5b's kernel checks at ``deepseek-moe-16b``'s shapes, bf16:
+    flash at B 4, S 512 with 16 q and 16 kv heads of 128 (g = 1: MHA),
+    paged at m 1 and m 2 over ~40 pages per row with g = 1 (paged == ring
+    bitwise), entropy over its untied 2048 x 102,400 head at B 4, each
+    against its plain version within phase 3's bars and timed as there
+    (flash and SDPA by graph replay in turns, paged and entropy by graph
+    replay).  Returns {kernel: {max_abs_err, ms, plain_ms, bound_ms}}."""
+    dn, dtype = "bfloat16", torch.bfloat16
+    scale = 1.0 / math.sqrt(128)
+    bad, rec = [], {}
+    Hq = Hkv = 16
+
+    # flash (the prefill)
+    c = flash_case(torch, dtype, Hq=Hq, Hkv=Hkv)
+    args = (c["q"], c["k"], c["v"], c["q_pos"], c["kv_pos"])
+    before = dict(fa.flash_attention_cuda.variant_launches)
+    out = fa.flash_attention_cuda(*args, scale=scale)
+    after = fa.flash_attention_cuda.variant_launches
+    if {x: after[x] - before[x] for x in after} != {"mma": 1, "scalar": 0}:
+        bad.append(f"flash_attention g=1: launched {after} (before {before}), not one mma")
+    ref = fa.attention_plain(*args, scale=scale)
+    spread = fa.attention_plain(c["q"], c["k"], c["v"].abs(), c["q_pos"], c["kv_pos"],
+                                scale=scale)
+    err, ok, tol = agree(torch, "flash_attention", dn, out, ref, spread)
+    if not ok:
+        bad.append(f"flash_attention g=1: max abs err {err:.3e} ({tol})")
+    per_set = nbytes(*args) + nbytes(out)
+    sets = [flash_case(torch, dtype, seed=s, Hq=Hq, Hkv=Hkv)
+            for s in range(n_sets(per_set))]
+    calls = [lambda s=s: fa.flash_attention_cuda(
+        s["q"], s["k"], s["v"], s["q_pos"], s["kv_pos"], scale=scale) for s in sets]
+    mask = ((c["kv_pos"][:, None, None, :] >= 0)
+            & (c["kv_pos"][:, None, None, :] <= c["q_pos"][:, None, :, None]))
+    lib_sets = [tuple(s[n].transpose(1, 2) for n in ("q", "k", "v")) for s in sets]
+    lib_calls = [lambda t=t: F.scaled_dot_product_attention(
+        t[0], t[1], t[2], attn_mask=mask, scale=scale) for t in lib_sets]
+    k_turns, l_turns = in_turns(torch, calls, lib_calls)
+    p_ms = time_ms(torch, [lambda s=s: fa.attention_plain(
+        s["q"], s["k"], s["v"], s["q_pos"], s["kv_pos"], scale=scale) for s in sets],
+        iters=6)
+    B, S, _, D = c["q"].shape
+    b_ms, b_by = bound_ms(per_set, valid_pairs(torch, c["q_pos"], c["kv_pos"]) * Hq * 4 * D,
+                          dn)
+    rec["flash_attention"] = dict(max_abs_err=err, ms=statistics.median(k_turns),
+                                  plain_ms=p_ms, bound_ms=b_ms,
+                                  library_ms=statistics.median(l_turns))
+    print(f"[kernels] moe flash_attention {dn} B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} variant mma: "
+          f"max_abs_err {err:.3e} ({tol}); graph replay in turns, 5 rounds: kernel "
+          f"{turns_text(k_turns)}, sdpa {turns_text(l_turns)}; kernel / sdpa "
+          f"{statistics.median(k_turns) / statistics.median(l_turns):.3f}; plain "
+          f"{p_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+    del c, sets, lib_sets, calls, lib_calls, out, ref, spread
+
+    # paged (the decode m=1 and probe m=2 reads)
+    for m in (1, 2):
+        c, (k_ring, v_ring, kv_pos) = paged_case(torch, pa, dtype, m, Hq=Hq, Hkv=Hkv)
+        pargs = (c["q"], c["k_pool"], c["v_pool"], c["pages"], c["counts"], c["bpos"],
+                 c["q_pos"])
+        split = dict(logical=c["logical"], num_blocks=c["num_blocks"])
+        out = pa.paged_attention_cuda(*pargs, scale=scale, **split)
+        ref = pa.paged_attention_plain(*pargs, scale=scale)
+        ring = pa.ring_decode_attention(c["q"], k_ring, v_ring, c["q_pos"], kv_pos,
+                                        page_size=16, scale=scale, impl="cuda")
+        err, ok, tol = agree(torch, "paged_attention", dn, out, ref)
+        if not ok or not torch.equal(out, ring):
+            bad.append(f"paged_attention g=1 m={m}: max abs err {err:.3e} ({tol}), "
+                       f"paged == ring {torch.equal(out, ring)}")
+        mapped = int(c["counts"].sum())
+        ps = c["k_pool"].shape[1]
+        per_set = (2 * mapped * ps * Hkv * D * c["k_pool"].element_size()
+                   + nbytes(c["q"], c["pages"], c["logical"], c["counts"], c["bpos"],
+                            c["q_pos"]) + nbytes(out))
+        sets = [paged_case(torch, pa, dtype, m, seed=i, Hq=Hq, Hkv=Hkv)[0]
+                for i in range(n_sets(nbytes(c["k_pool"], c["v_pool"])))]
+        k_ms = graph_ms(torch, [lambda s=s: pa.paged_attention_cuda(
+            s["q"], s["k_pool"], s["v_pool"], s["pages"], s["counts"], s["bpos"],
+            s["q_pos"], scale=scale, logical=s["logical"], num_blocks=s["num_blocks"])
+            for s in sets])
+        p_ms = time_ms(torch, [lambda s=s: pa.paged_attention_plain(
+            s["q"], s["k_pool"], s["v_pool"], s["pages"], s["counts"], s["bpos"],
+            s["q_pos"], scale=scale) for s in sets], iters=6)
+        flat_pos = c["bpos"].reshape(c["bpos"].shape[0], -1)
+        b_ms, b_by = bound_ms(per_set, valid_pairs(torch, c["q_pos"], flat_pos) * Hq * 4 * D,
+                              dn)
+        K, n_split = pa.split_plan(ps, c["num_blocks"])
+        print(f"[kernels] moe paged_attention {dn} B{B} m{m} Hq{Hq} Hkv{Hkv} D{D} ps{ps} "
+              f"pages {mapped}: n_split {n_split}, grid ({B * Hkv}, {n_split}); "
+              f"max_abs_err {err:.3e} ({tol}); paged==ring bitwise; kernel {k_ms:.4f} ms "
+              f"(graph replay) plain {p_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+        if m == 1:
+            rec["paged_attention"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                                          bound_ms=b_ms, library_ms=None)
+        else:
+            rec["paged_attention"]["max_abs_err"] = max(
+                rec["paged_attention"]["max_abs_err"], err)
+        del c, sets, k_ring, v_ring, out, ref, ring
+
+    # entropy (the EAT probe over the untied head)
+    c = entropy_case(torch, dtype, 4, 2048, 102_400, 102_400, False)
+    h, w = c["h"], c["w"]
+    variant = ep.entropy_variant(h, w)
+    out = ep.entropy_probe_cuda(h, w, 102_400)
+    ref = ep.next_token_entropy_plain(h, w, 102_400)
+    err, ok, tol = agree(torch, "entropy_probe", dn, out, ref)
+    if variant != "mma" or not ok or not bool(torch.isfinite(out).all()):
+        bad.append(f"entropy_probe 2048 x 102,400: variant {variant}, max abs err "
+                   f"{err:.3e} ({tol})")
+    k_ms = graph_ms(torch, [lambda: ep.entropy_probe_cuda(h, w, 102_400)])
+    p_ms = time_ms(torch, [lambda: ep.next_token_entropy_plain(h, w, 102_400)], iters=6)
+    b_ms, b_by = bound_ms(nbytes(h, w) + 4 * 4, 2 * 4 * 2048 * 102_400, dn)
+    rec["entropy_probe"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                library_ms=None)
+    print(f"[kernels] moe entropy_probe {dn} B4 d2048 Vp102400 untied (d, Vp): variant "
+          f"{variant}; max_abs_err {err:.3e} ({tol}); kernel {k_ms:.4f} ms (graph "
+          f"replay) plain {p_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}), kernel at "
+          f"{b_ms / k_ms:.3f} of it")
+    del c, h, w, out, ref
+    torch.cuda.empty_cache()
+    check(not bad, "moe kernel vs plain: " + "; ".join(bad))
+    return rec
+
+
+def moe_kernel_vs_plain(torch, model, prompts, probe):
+    """``kernel_vs_plain`` on an MoE model twice: each path routing by its
+    own router outputs, then both paths taking the plain path's routes
+    (weights and experts, call by call).  Returns (free outputs, shared
+    outputs, token-layer top-k sets the two paths picked differently in
+    the first run, token-layer sets in all)."""
+    from repro_torch.models import moe as moe_mod
+
+    own = moe_mod.router_topk
+    calls = []
+
+    def recorded(p, x, cfg):
+        out = own(p, x, cfg)
+        calls.append(out[:2])
+        return out
+
+    moe_mod.router_topk = recorded
+    try:
+        free = kernel_vs_plain(torch, model, prompts, probe)   # kernel, then plain
+    finally:
+        moe_mod.router_topk = own
+    n = len(calls) // 2
+    kernel_calls, plain_calls = calls[:n], calls[n:]
+    differ = sum(int((torch.sort(a[1], -1).values != torch.sort(b[1], -1).values)
+                     .any(-1).sum()) for a, b in zip(kernel_calls, plain_calls))
+    routes = sum(a[1][..., 0].numel() for a in kernel_calls)
+    plain_routes = iter(plain_calls + plain_calls)
+
+    def shared_routes(p, x, cfg):
+        w, i = next(plain_routes)
+        return w, i, own(p, x, cfg)[2]
+
+    moe_mod.router_topk = shared_routes
+    try:
+        shared = kernel_vs_plain(torch, model, prompts, probe)
+    finally:
+        moe_mod.router_topk = own
+    return free, shared, differ, routes
+
+
+def moe_phase(torch, np, F, kernels: dict, phases: dict, card: str,
+              profile_dir=None) -> dict:
+    """Phase 5b: ``deepseek-moe-16b``.  Its kernels at its shapes
+    (``moe_kernel_checks``); kernel path vs plain path of the model
+    (float32 cut to 4 layers, then bf16 at the full 28); seeded random
+    weights at full width and depth on the card; a paged self-EAT serve of
+    phase 4's traffic (prompts over its 102,400 vocabulary) as cold graph,
+    warm graph and eager serves of one engine, warm == eager bitwise, and a
+    ring serve of the same traffic, bitwise the paged one's streams; flash,
+    paged and entropy launched in the warm serve (every flash call mma, 28
+    per prefill; every entropy call mma); one more warm serve under the
+    profiler, its counts checked.  ``kernels``: flash, paged and entropy's
+    wrappers.  Returns {"launches": the profiled serve's counts, "kernels":
+    the kernel records}."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.eat import make_probe
+    from repro_torch.core.monitor import ReasoningMonitor
+    from repro_torch.core.stopping import EATStopper
+    from repro_torch.kernels.entropy_probe import ops as ep
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.serving import device_loop
+    from repro_torch.serving.cache import CacheConfig
+    from repro_torch.serving.engine import EngineConfig, ReasoningEngine
+    from repro_torch.serving.sampler import SamplerConfig
+    from repro_torch.serving.scheduler import SlotScheduler
+
+    t_phase = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    recs = moe_kernel_checks(torch, F, fa, pa, ep)
+
+    cfg = get_config("deepseek-moe-16b")
+    probe = make_probe(1, (6,))
+    prompts, lens = serve_workload(np, vocab=cfg.vocab)
+    check(int(prompts.max()) < cfg.vocab, "prompt ids past the vocab")
+
+    # float32, full width, depth cut to 4 layers (1 dense, 3 MoE): the
+    # kernels agree with the plain path to 1e-5 (relative L2 of the logits,
+    # nats of EAT)
+    cfg32 = dataclasses.replace(cfg, name=cfg.name + "-4L-f32", n_layers=4,
+                                dtype="float32")
+    model32 = Model(cfg32, init_params(cfg32, torch.Generator(device="cuda").manual_seed(1),
+                                       device="cuda"))
+    outs = kernel_vs_plain(torch, model32, prompts, probe)
+    for i, what in enumerate(("prefill logits", "decode logits")):
+        rel = rel_l2(outs["cuda"][i], outs["plain"][i])
+        check(bool(torch.isfinite(outs["cuda"][i]).all()) and rel < 1e-5,
+              f"{cfg32.name} {what}: kernel vs plain relative L2 {rel}")
+        print(f"[model] {cfg32.name} {what}: kernel vs plain relative L2 {rel:.3e} "
+              f"(tol 1e-5)")
+    d_eat = (outs["cuda"][2] - outs["plain"][2]).abs().max().item()
+    check(d_eat < 1e-5, f"{cfg32.name} EAT: kernel vs plain differ by {d_eat}")
+    print(f"[model] {cfg32.name} EAT kernel vs plain max diff {d_eat:.3e} (tol 1e-5)")
+    del model32, outs
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = Model(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                   device="cuda"))
+    torch.cuda.synchronize()
+    phases["moe_init_s"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    mo = cfg.moe
+    print(f"[model] {cfg.name}: {cfg.n_layers} layers ({mo.first_k_dense} dense, ff "
+          f"{mo.dense_d_ff}) d{cfg.d_model} Hq{cfg.n_heads}/Hkv{cfg.n_kv_heads} hd"
+          f"{cfg.resolved_head_dim} experts {mo.n_routed} routed (top {mo.top_k}) + "
+          f"{mo.n_shared} shared of {mo.d_expert} Vp{cfg.padded_vocab} {cfg.dtype}: "
+          f"{n_params / 1e9:.3f} B params, {n_params * 2 / 1e9:.2f} GB, init "
+          f"{phases['moe_init_s']:.1f} s")
+    # bf16 at full depth.  Each path routes by its own float32
+    # probabilities of its own bf16 activations, and near ties between the
+    # k-th and (k+1)-th expert pick differently on the two paths (read on an
+    # H100: 561 of 3,618 token-layer routes), which moves the logits by more
+    # than the kernels do.  So the logits are held to the bar with the
+    # plain path's routes on both paths (the kernels' own difference), and
+    # the EAT with each path's own routes; the logits of the free-routing
+    # comparison are printed beside.
+    free, shared, differ, routes = moe_kernel_vs_plain(torch, model, prompts, probe)
+    for i, what in enumerate(("prefill logits", "decode logits")):
+        rel = rel_l2(shared["cuda"][i], shared["plain"][i])
+        check(bool(torch.isfinite(free["cuda"][i]).all()) and rel < MOE_BF16_TOL,
+              f"{cfg.name} {what}: kernel vs plain relative L2 {rel} (same routes)")
+        print(f"[model] {cfg.name} {what}: kernel vs plain relative L2 {rel:.3e} with "
+              f"the plain path's routes on both (tol {MOE_BF16_TOL:g}); each path "
+              f"routing itself {rel_l2(free['cuda'][i], free['plain'][i]):.3e}")
+    print(f"[model] {cfg.name}: the two paths routed {differ} of {routes} token-layer "
+          f"top-{mo.top_k} sets differently")
+    eat_k, eat_p = free["cuda"][2], free["plain"][2]
+    d_eat = (eat_k - eat_p).abs().max().item()
+    check(bool(torch.isfinite(eat_k).all()) and d_eat < MOE_BF16_TOL,
+          f"{cfg.name} EAT: kernel {eat_k.tolist()} vs plain {eat_p.tolist()}")
+    print(f"[model] {cfg.name} EAT (each path routing itself) kernel "
+          f"{[round(x, 4) for x in eat_k.tolist()]} plain "
+          f"{[round(x, 4) for x in eat_p.tolist()]} max diff {d_eat:.3e} "
+          f"(tol {MOE_BF16_TOL:g})")
+    del free, shared
+
+    # the serve: phase 4's traffic (8 requests, 4 slots, budget 64, chunk 16,
+    # page 16, greedy, an EAT probe every 8 tokens, exit at the 2nd
+    # evaluation, answers of 4)
+    n_req, batch, budget, chunk = len(lens), 4, 64, 16
+    capacity = SlotScheduler.required_capacity(prompts.shape[1], n_req, batch, budget)
+
+    def engine(kind: str):
+        ecfg = EngineConfig(max_reasoning_tokens=budget, capacity=capacity,
+                            chunk_len=chunk, sampler=SamplerConfig(greedy=True),
+                            cache=CacheConfig(kind=kind, page_size=16, attn_impl="auto"))
+        mon = ReasoningMonitor(stopper=EATStopper(alpha=0.2, delta=1e9), probe=probe,
+                               schedule="every_n", every_n=8, min_evals=2)
+        eng = ReasoningEngine(model, ecfg, mon)
+        return eng, Watch(torch, eng, device_loop, kernels)
+
+    def serve(eng, watch, what: str, eager: bool = False):
+        watch.begin()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = eng.serve(prompts, lens, None, batch_size=batch, answer_len=4,
+                        record_trace=True, eager=eager)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        return res, wall, watch.end(f"{cfg.name} {what}")
+
+    eng, watch = engine("paged")
+    cold_res, cold_s, cold = serve(eng, watch, "cold graph serve")
+    check(cold["tiers"]["executor"]["captures"] > 0, f"{cfg.name}: no chunk graph captured")
+    print(graph_line(f"{cfg.name} paged cold serve ({cold_s:.3f} s)", cold))
+    reset_counts(kernels)
+    res, warm_s, warm = serve(eng, watch, "warm graph serve")
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    flash_variants = dict(kernels["flash_attention"].variant_launches)
+    entropy_variants = dict(kernels["entropy_probe"].variant_launches)
+    wt = warm["tiers"]["executor"]
+    check(wt["captures"] == 0 and wt["replays"] == wt["chunks"] + wt["rollouts"]
+          and warm["device_if"] == 0,
+          f"{cfg.name}: the warm serve captured, ran a chunk or a rollout eagerly, "
+          f"or read device_if: {warm['line']}")
+    check(same_results(res, cold_res, np), f"{cfg.name}: cold and warm graph serves differ")
+    e_res, eager_s, eager = serve(eng, watch, "eager serve", eager=True)
+    check(same_results(res, e_res, np),
+          f"{cfg.name}: the warm graph serve differs from the eager serve")
+    check(len(res) == n_req and all(r["status"] in ("exited", "exhausted") for r in res),
+          f"{cfg.name}: not every request finished")
+    exits = [r["exit_reason"] for r in res]
+    check("eat" in exits, f"{cfg.name}: no request exited by EAT: {exits}")
+    slots = [r["slot"] for r in res]
+    check(len(set(slots)) < len(slots), f"{cfg.name}: no slot served two requests: {slots}")
+    prefills = 1 + n_req - batch                    # the cohort, then admissions
+    want = {"mma": cfg.n_layers * prefills, "scalar": 0}
+    check(flash_variants == want, f"{cfg.name}: flash launches per variant "
+          f"{flash_variants}, expected {want} ({cfg.n_layers} per prefill x {prefills})")
+    check_entropy_mma(f"{cfg.name} serve", entropy_variants, launches["entropy_probe"])
+    for name, n in launches.items():
+        check(n > 0, f"{cfg.name}: {name} was not launched during the serve")
+    n_tok = sum(r["n_reasoning"] for r in res)
+    chunk_ms = statistics.median(wt["chunk_ms"])
+    e_chunk_ms = statistics.median(eager["tiers"]["executor"]["chunk_ms"])
+    phases.update(moe_cold_serve_s=cold_s, moe_serve_s=warm_s, moe_eager_serve_s=eager_s,
+                  moe_tok_s=n_tok / warm_s, moe_chunk_ms=chunk_ms)
+    print(f"[serve] {cfg.name} paged: {n_req} requests through {batch} slots {slots}, "
+          f"exits {exits} ({exits.count('eat')} by EAT), reasoning tokens "
+          f"{[r['n_reasoning'] for r in res]}, {warm_s:.3f} s warm graph serve, "
+          f"{n_tok / warm_s:.1f} reasoning tokens/s (cold serve {cold_s:.3f} s, eager "
+          f"serve {eager_s:.3f} s); graph serve == eager serve bitwise (tokens, exits, "
+          f"slots, answers, EAT traces) ({card})")
+    print(f"[serve] {cfg.name} host reads, warm graph serve: {warm['line']}")
+    print(f"[serve] {cfg.name} host reads, eager serve: {eager['line']}")
+    for kind in ("chunk", "rollout"):
+        g = wt[f"{kind}_ms"]
+        e = eager["tiers"]["executor"][f"{kind}_ms"]
+        print(f"[{kind}] {cfg.name} executor: replay {statistics.median(g):.3f} ms "
+              f"(range {min(g):.3f}-{max(g):.3f}, {len(g)} calls), eager "
+              f"{statistics.median(e):.3f} ms (range {min(e):.3f}-{max(e):.3f}, "
+              f"{len(e)} calls), median on the card ({card})")
+    print(f"[serve] launches during the {cfg.name} warm graph serve: "
+          f"{json.dumps(launches)} (flash per variant {json.dumps(flash_variants)}: "
+          f"{cfg.n_layers} mma per prefill x {prefills}; entropy per variant "
+          f"{json.dumps(entropy_variants)})")
+    profiled = profile_serve(
+        torch, lambda: serve(eng, watch, "profiled serve")[:2], warm_s,
+        Path(profile_dir) / "profile_moe.txt" if profile_dir else None,
+        "profile moe", kernels)
+    check(profiled == launches, f"{cfg.name}: the profiled serve's launches {profiled} "
+          f"differ from the warm serve's {launches}")
+    pool = eng.executor.graphs.pool_bytes
+    del eng, watch
+
+    # the ring serve of the same traffic: the paged serve's streams bitwise
+    r_eng, r_watch = engine("ring")
+    r_res, ring_s, _ = serve(r_eng, r_watch, "ring cold graph serve")
+    check(same_results(res, r_res, np, slots=False),
+          f"{cfg.name}: the paged and ring streams differ")
+    pool += r_eng.executor.graphs.pool_bytes
+    print(f"[serve] {cfg.name} ring: {ring_s:.3f} s (cold graph serve); paged == ring "
+          f"bitwise (tokens, exits, answers, EAT traces)")
+    del r_eng, r_watch, model
+    peak = torch.cuda.max_memory_allocated() - base
+    phases["moe_peak_gb"] = peak / 1e9
+    phases["moe_phase_s"] = time.perf_counter() - t_phase
+    print(f"[graphs] {cfg.name}: graph pool {pool / 2**20:.1f} MiB added by the paged "
+          f"and ring engines' captures; {peak / 1e9:.2f} GB peak allocated over the "
+          f"phase (max_memory_allocated above the {base / 1e9:.2f} GB held before it); "
+          f"phase {phases['moe_phase_s']:.1f} s ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": profiled, "kernels": recs}
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1644,7 +2107,7 @@ def train_phase(torch, np, card: str, kernels: dict, phases: dict,
         pos = torch.arange(S, dtype=torch.int32, device="cuda").expand(B, S).contiguous()
         before = dict(fa.flash_attention_cuda.variant_launches)
         with torch.no_grad():
-            ref = train_logits(params, cfg, toks, pos, pos, remat=False).float()
+            ref = train_logits(params, cfg, toks, pos, pos, remat=False)[0].float()
             cache = alloc_cache(cfg, B, S, device="cuda")
             out = model.logits(model.prefill(toks, pos, pos, cache)).float()
         flash = {k: v - before[k] for k, v in fa.flash_attention_cuda.variant_launches.items()}
@@ -1849,28 +2312,6 @@ def main() -> None:
     probe = make_probe(1, (6,))
     prompts, lens = serve_workload(np)
 
-    def kernel_vs_plain(model):
-        """Prefill 64 tokens, decode one, probe: kernel path and plain path
-        on the same weights.  Returns {impl: (prefill logits, decode
-        logits, EAT)}."""
-        toks = torch.as_tensor(prompts[:2, -64:], device="cuda")
-        pos = torch.arange(64, dtype=torch.int32, device="cuda").expand(2, 64).contiguous()
-        nxt = torch.full((2, 1), 7, dtype=torch.long, device="cuda")
-        p1 = torch.full((2, 1), 64, dtype=torch.int32, device="cuda")
-        pp = torch.tensor([[65, 66]], dtype=torch.int32, device="cuda").expand(2, 2).contiguous()
-        ptoks = torch.tensor([probe.tokens], device="cuda").expand(2, 2)
-        outs = {}
-        for impl in ("cuda", "plain"):
-            model.attn_impl = model.paged_attn_impl = impl
-            cache = alloc_cache(model.cfg, 2, 96, device="cuda")
-            hidden = model.prefill(toks, pos, pos, cache)
-            logits = model.logits(hidden[:, -1]).float()
-            dlog = model.decode_step(nxt, p1, p1, cache)[:, -1].float()
-            eat = model.probe_entropy(ptoks, pp, pp, cache, entropy_impl=impl)
-            outs[impl] = (logits, dlog, eat)
-        model.attn_impl, model.paged_attn_impl = "auto", "gather"
-        return outs
-
     # float32 at full width, depth cut to 4 layers: the kernels must agree
     # with the plain path to 1e-5 (relative L2 of the logits, nats of EAT;
     # read on an H100: 1.5e-6 and 9.5e-7)
@@ -1878,7 +2319,7 @@ def main() -> None:
                                 dtype="float32")
     model32 = Model(cfg32, init_params(cfg32, torch.Generator(device="cuda").manual_seed(1),
                                        device="cuda"))
-    outs = kernel_vs_plain(model32)
+    outs = kernel_vs_plain(torch, model32, prompts, probe)
     for i, what in enumerate(("prefill logits", "decode logits")):
         rel = rel_l2(outs["cuda"][i], outs["plain"][i])
         check(bool(torch.isfinite(outs["cuda"][i]).all()) and rel < 1e-5,
@@ -1904,7 +2345,7 @@ def main() -> None:
     # 1e-3 nats (read on an H100: 1.1e-4; bf16 roundings at different points
     # compound over 36 layers, so the logits' relative L2 is printed, not
     # held to a bar)
-    outs = kernel_vs_plain(model)
+    outs = kernel_vs_plain(torch, model, prompts, probe)
     for i, what in enumerate(("prefill logits", "decode logits")):
         check(bool(torch.isfinite(outs["cuda"][i]).all()), f"8B {what} not finite")
         print(f"[model] {what}: kernel vs plain relative L2 "
@@ -2236,6 +2677,15 @@ def main() -> None:
     launches["ssd_scan"] = m_launches["ssd_scan"]
     phases["mamba_s"] = time.perf_counter() - t0
 
+    # ---- 5b. deepseek-moe-16b, full width and depth (the 8B model stays
+    # for phase 6; its engines and mamba2's are freed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = moe_phase(torch, np, F, {name: kernels[name] for name in
+                                   ("flash_attention", "paged_attention",
+                                    "entropy_probe")}, phases, card,
+                    profile_dir=args.profile)
+
     # ---- 6. the evaluation path on eat-paper-8b
     trace_phase(torch, np, model, probe, prompts, lens, kernels, phases)
     del model
@@ -2273,6 +2723,12 @@ def main() -> None:
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         if "variant" in r:
             out[-1]["variant"] = r["variant"]
+        if name in moe["launches"]:
+            m = moe["kernels"][name]
+            out[-1]["moe"] = {"launches": moe["launches"][name],
+                              "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                              "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                              "library_ms": m["library_ms"]}
     out[-1]["launches_counted_over"] = ("its own kernel phase: no serve path "
                                         "calls decode_attention")
     print(json.dumps({"kernels": out}))

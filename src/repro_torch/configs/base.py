@@ -1,7 +1,7 @@
-"""Model configuration: the dense-decoder and Mamba2 (``arch_type="ssm"``)
-parts of the JAX package's ``ModelConfig`` and ``SSMConfig``
-(``repro/configs/base.py``), copied so the port imports nothing of
-``repro``.  Field names and defaults are the reference's, so a config built
+"""Model configuration: the dense-decoder, Mamba2 (``arch_type="ssm"``)
+and mixture-of-experts (``arch_type="moe"``) parts of the JAX package's
+``ModelConfig``, ``SSMConfig`` and ``MoEConfig`` (``repro/configs/base.py``),
+copied so the port imports nothing of ``repro``.  Field names and defaults are the reference's, so a config built
 here describes the same model as its JAX twin.
 """
 from __future__ import annotations
@@ -10,6 +10,21 @@ from dataclasses import dataclass, replace
 from typing import Literal
 
 Activation = Literal["silu", "geglu", "gelu"]
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts sub-config (DeepSeek-style fine-grained MoE)."""
+
+    n_routed: int = 0                 # number of routed experts
+    n_shared: int = 0                 # always-on shared experts
+    top_k: int = 0                    # experts per token
+    d_expert: int = 0                 # hidden dim of each expert FFN
+    first_k_dense: int = 1            # leading layers that use a dense FFN
+    dense_d_ff: int = 0               # d_ff of those dense layers
+    capacity_factor: float = 1.25     # expert-parallel capacity factor
+    router_aux_weight: float = 0.001  # load-balance aux loss weight
+    routed_scale: float = 1.0         # scaling on routed output (DeepSeek uses 1.0)
 
 
 @dataclass(frozen=True)
@@ -51,6 +66,7 @@ class ModelConfig:
     sliding_window: int = 0           # 0 = full attention; >0 = SWA window
     attn_temperature: float = 0.0     # 0 -> 1/sqrt(head_dim)
 
+    moe: MoEConfig | None = None
     ssm: SSMConfig | None = None
 
     dtype: str = "bfloat16"
@@ -71,10 +87,17 @@ class ModelConfig:
             return ("ssm",) * self.n_layers
         return ("attn",) * self.n_layers
 
+    def moe_layer_mask(self) -> tuple[bool, ...]:
+        """True where the FFN is MoE (False = dense FFN): every layer from
+        ``first_k_dense`` on, as in the reference's ``init_stack``."""
+        if self.moe is None or self.moe.n_routed == 0:
+            return (False,) * self.n_layers
+        return tuple(i >= self.moe.first_k_dense for i in range(self.n_layers))
+
     def reduced(self) -> "ModelConfig":
         """The reference's CPU-test variant of this config: 2 layers, width
-        at most 128, vocab at most 512, heads of 32, float32 (the dense and
-        SSM fields of ``ModelConfig.reduced``)."""
+        at most 128, vocab at most 512, heads of 32, at most 4 experts,
+        float32 (the dense, MoE and SSM fields of ``ModelConfig.reduced``)."""
         n_heads = max(2, min(self.n_heads, 4))
         kw: dict = dict(
             name=self.name + "-reduced",
@@ -87,6 +110,16 @@ class ModelConfig:
             d_ff=min(self.d_ff, 256) or 256,
             dtype="float32",
         )
+        if self.moe is not None:
+            kw["moe"] = replace(
+                self.moe,
+                n_routed=min(self.moe.n_routed, 4),
+                n_shared=min(self.moe.n_shared, 1),
+                top_k=min(self.moe.top_k, 2),
+                d_expert=64,
+                first_k_dense=min(self.moe.first_k_dense, 1),
+                dense_d_ff=128 if self.moe.dense_d_ff else 0,
+            )
         if self.ssm is not None:
             kw["ssm"] = replace(self.ssm, d_state=16, head_dim=16, chunk=16)
         return replace(self, **kw)

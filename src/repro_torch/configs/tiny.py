@@ -1,5 +1,5 @@
 """Tiny configs for CPU tests (copies of ``repro/configs/tiny.py``)."""
-from repro_torch.configs.base import ModelConfig, SSMConfig, register
+from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig, register
 
 TINY = register(
     ModelConfig(
@@ -47,6 +47,22 @@ TINY_REASONER = register(
         d_ff=256,
         vocab=64,
         tie_embeddings=True,
+        dtype="float32",
+    )
+)
+
+TINY_MOE = register(
+    ModelConfig(
+        name="tiny-moe",
+        arch_type="moe",
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=4,
+        head_dim=16,
+        d_ff=128,
+        vocab=64,
+        moe=MoEConfig(n_routed=4, n_shared=1, top_k=2, d_expert=32, first_k_dense=1, dense_d_ff=128),
         dtype="float32",
     )
 )

@@ -58,7 +58,7 @@ def softmax_block_step(carry, qf, kb, vb, qp, kp, *, causal: bool, window: int):
     probabilities are exactly 0, so a fully masked block returns the carry
     unchanged, bit for bit."""
     m_run, l_run, acc = carry
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb.float())
+    s = _scores(qf, kb)
     valid = kp >= 0
     if causal:
         valid = valid & (kp <= qp)
@@ -71,6 +71,19 @@ def softmax_block_step(carry, qf, kb, vb, qp, kp, *, causal: bool, window: int):
     l_run = l_run * alpha + p.sum(dim=-1)
     pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(vb.dtype).float(), vb.float())
     return m_new, l_run, acc * alpha[..., None] + pv
+
+
+def _scores(qf, kb):
+    """The float32 scores (B, Hkv, g, Sq, blk), each one product over d.  A
+    single query row per kv head (g = Sq = 1: multi-head attention at
+    decode) gets a copied second row: for one row cuBLAS takes a GEMV,
+    which sums d in another order than its GEMM kernels and the CUDA
+    kernels (one FMA chain in ascending d) do, and a score summed in
+    another order can round a bf16 probability the other way."""
+    if qf.shape[1] * qf.shape[3] == 1:
+        two = torch.cat([qf, qf], dim=1)
+        return torch.einsum("bqhgd,bkhd->bhgqk", two, kb.float())[:, :, :, :1]
+    return torch.einsum("bqhgd,bkhd->bhgqk", qf, kb.float())
 
 
 def softmax_init(B, Hkv, g, Sq, Dv, device):

@@ -23,6 +23,12 @@ Parameter tree (the JAX layout with the layer axis unstacked)::
      "layers": [{"norm1", "attn": {wq, wk, wv, wo, [q_norm, k_norm],
                                    [bq, bk, bv]},
                  "norm2", "ffn": {w_up, w_gate, w_down}}, ...]}
+                # arch "moe": layers from first_k_dense on hold "moe":
+                #   {"router": (d, E) float32, "experts": {w_up, w_gate,
+                #   w_down: (E, d_in, d_out)}, ["shared": {w_up, w_gate,
+                #   w_down}]} in place of "ffn"; the first ones an "ffn" of
+                #   width dense_d_ff (the reference's dense_layers then
+                #   moe_layers, one flat list here)
                 # arch "ssm": [{"norm", "ssm": {w_z, w_x, w_b, w_c, w_dt,
                 #   conv_x_w, conv_x_b, conv_bc_w, conv_bc_b, dt_bias, A_log,
                 #   D, norm_w, out_proj}}, ...]
@@ -38,6 +44,7 @@ from repro_torch.kernels.entropy_probe.ops import next_token_entropy
 from repro_torch.models import common
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import gqa_init
+from repro_torch.models.moe import moe_init
 from repro_torch.models.ssm import ssm_init
 
 
@@ -52,18 +59,23 @@ def build_params(cfg: ModelConfig, generator, dev: torch.device) -> dict:
     """``init_params`` on a resolved device; on the ``meta`` device (with
     no generator) it gives every leaf's shape and dtype without memory."""
     dtype = torch_dtype(cfg.dtype)
+    dense_ff = (cfg.moe.dense_d_ff or cfg.d_ff) if cfg.moe is not None else cfg.d_ff
     layers = []
-    for kind in cfg.block_kinds():
+    for kind, use_moe in zip(cfg.block_kinds(), cfg.moe_layer_mask()):
         norm = common.rmsnorm_init(cfg.d_model, dtype, dev, cfg.rmsnorm_one_plus)
         if kind == "ssm":
             layers.append({"norm": norm, "ssm": ssm_init(generator, cfg, dtype, dev)})
             continue
-        layers.append({
+        layer = {
             "norm1": norm,
             "attn": gqa_init(generator, cfg, dtype, dev),
             "norm2": common.rmsnorm_init(cfg.d_model, dtype, dev, cfg.rmsnorm_one_plus),
-            "ffn": common.mlp_init(generator, cfg, cfg.d_ff, dtype, dev),
-        })
+        }
+        if use_moe:
+            layer["moe"] = moe_init(generator, cfg, dtype, dev)
+        else:
+            layer["ffn"] = common.mlp_init(generator, cfg, dense_ff, dtype, dev)
+        layers.append(layer)
     return {
         "embed": common.embed_init(generator, cfg, dtype, dev),
         "final_norm": common.rmsnorm_init(cfg.d_model, dtype, dev, cfg.rmsnorm_one_plus),
@@ -81,20 +93,30 @@ def _param_dict(d: dict) -> nn.ParameterDict:
 
 class Block(nn.Module):
     """One layer's weights, indexable like the JAX layer dict: a decoder
-    layer (norm1, attn, norm2, ffn) or a Mamba2 layer (norm, ssm)."""
+    layer (norm1, attn, norm2, ffn or moe) or a Mamba2 layer (norm, ssm).
+    A dict of weights is a ``ParameterDict``; a dict of dicts (the MoE's,
+    whose experts are a dict) a nested ``Block``."""
 
     def __init__(self, p: dict):
         super().__init__()
         for name, v in p.items():
-            setattr(self, name, _param_dict(v) if isinstance(v, dict) else _frozen(v))
+            if not isinstance(v, dict):
+                setattr(self, name, _frozen(v))
+            elif any(isinstance(x, dict) for x in v.values()):
+                setattr(self, name, Block(v))
+            else:
+                setattr(self, name, _param_dict(v))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
 
+    def __contains__(self, name: str) -> bool:
+        return name in self._modules or name in self._parameters
+
 
 class Model(nn.Module):
-    """A dense GQA decoder or a Mamba2 stack (``arch_type="ssm"``) for
-    serving.
+    """A dense GQA decoder, a mixture-of-experts decoder (``arch_type=
+    "moe"``) or a Mamba2 stack (``arch_type="ssm"``) for serving.
 
     ``attn_impl`` selects the prefill attention and ``scan_impl`` the SSM
     prefill scan (``auto``: the CUDA kernel for CUDA tensors, the plain
@@ -183,13 +205,14 @@ class Model(nn.Module):
 def train_logits(params: dict, cfg: ModelConfig, tokens, positions, pos1d, *,
                  remat: bool = True, window: int | None = None) -> torch.Tensor:
     """The training forward (no cache; plain attention and scan, as the
-    reference's trainer): logits (B, S, Vp) in the storage dtype."""
+    reference's trainer): (logits (B, S, Vp) in the storage dtype, the
+    MoE layers' summed aux loss, 0-dim float32)."""
     window = cfg.sliding_window if window is None else window
     x = common.embed_apply(params["embed"], tokens, cfg)
-    hidden = tfm.forward_train(params["layers"], params["final_norm"], x,
-                               positions, pos1d, cfg, valid=pos1d >= 0,
-                               remat=remat, window=window)
-    return common.lm_head_apply(params["embed"], hidden, cfg)
+    hidden, aux = tfm.forward_train(params["layers"], params["final_norm"], x,
+                                    positions, pos1d, cfg, valid=pos1d >= 0,
+                                    remat=remat, window=window)
+    return common.lm_head_apply(params["embed"], hidden, cfg), aux
 
 
 def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
@@ -197,16 +220,21 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
                window: int | None = None):
     """batch: tokens (B, S); targets, loss_mask, positions, pos1d (B, S),
     tensors on the parameters' device.  Returns (loss, metrics dict of
-    0-dim device tensors: ce, z_loss, accuracy, tokens, loss)."""
+    0-dim device tensors: ce, z_loss, accuracy, tokens, loss, and for an
+    MoE config aux_loss, which the loss carries times
+    ``router_aux_weight``)."""
     unknown = set(batch) - {"tokens", "targets", "loss_mask", "positions", "pos1d"}
     if unknown:
         raise ValueError(f"batch keys {sorted(unknown)} need modules the port "
                          f"lacks (encoder-decoder frames, VLM image embeds)")
-    logits = train_logits(params, cfg, batch["tokens"], batch["positions"],
-                          batch["pos1d"], remat=remat, window=window)
+    logits, aux = train_logits(params, cfg, batch["tokens"], batch["positions"],
+                               batch["pos1d"], remat=remat, window=window)
     loss, metrics = cross_entropy_loss(logits, batch["targets"],
                                        batch["loss_mask"], cfg.vocab,
                                        z_loss=z_loss)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux
+        metrics["aux_loss"] = aux
     metrics["loss"] = loss
     return loss, metrics
 

@@ -1,9 +1,12 @@
-"""The cached forward of a dense GQA decoder and of a Mamba2 stack, and
-their training forward (port of the dense and SSM branches of
-``repro/models/transformer.py``: ``write_slots``, the paged-cache helpers,
+"""The cached forward of a dense GQA decoder, a mixture-of-experts decoder
+and a Mamba2 stack, and their training forward (port of the dense, MoE and
+SSM branches of ``repro/models/transformer.py``: ``write_slots``, the paged-cache helpers,
 ``page_native_ok``, ``attn_block_cached``, ``attn_block_full``,
 ``ssm_block_full`` / ``ssm_block_step``, ``forward_cached`` and
-``forward_train``).
+``forward_train``).  An MoE layer (one holding ``moe``) runs
+``models/moe.py``'s ``moe_apply`` where a dense layer runs its MLP; the
+reference's ``dense_seg`` and ``moe_seg`` are one flat list of layers and
+cache entries here.
 
 ``forward_train`` runs the plain attention and the plain SSD scan, as the
 reference's trainer does (its ``Model(cfg, attn_impl="xla")`` and
@@ -46,6 +49,7 @@ from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models import attention as att
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import mlp_apply, rmsnorm
+from repro_torch.models.moe import moe_apply
 
 
 def write_slots(cur, m: int, capacity: int, device) -> torch.Tensor:
@@ -180,21 +184,31 @@ def attn_block_cached(p, x, positions, pos1d, cfg: ModelConfig, entry: dict,
                           causal=True, window=window, scale=scale,
                           impl=attn_impl)
     x = x + att.gqa_out(p["attn"], o)
+    return ffn_residual(p, x, cfg)[0]
+
+
+def ffn_residual(p, x, cfg: ModelConfig):
+    """The block's second half: ``x + FFN(norm2(x))``, the FFN an MoE where
+    the layer holds ``moe`` and its MLP otherwise.  Returns (x, the MoE's
+    aux loss or None)."""
     h2 = rmsnorm(x, p["norm2"], cfg.norm_eps, cfg.rmsnorm_one_plus)
-    return x + mlp_apply(p["ffn"], h2, cfg)
+    if "moe" in p:
+        f, aux = moe_apply(p["moe"], h2, cfg)
+        return x + f, aux
+    return x + mlp_apply(p["ffn"], h2, cfg), None
 
 
 def attn_block_full(p, x, positions, pos1d, cfg: ModelConfig, *,
                     window: int = 0):
     """One full-sequence decoder block (training): causal self-attention
-    over the block's own keys by the plain attention, then the MLP."""
+    over the block's own keys by the plain attention, then the MLP or the
+    MoE.  Returns (x, aux loss or None)."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps, cfg.rmsnorm_one_plus)
     q, k, v = att.gqa_qkv(p["attn"], h, positions, cfg)
     o = attention_plain(q, k, v, pos1d, pos1d, causal=True, window=window,
                         scale=att.attn_scale(cfg))
     x = x + att.gqa_out(p["attn"], o)
-    h2 = rmsnorm(x, p["norm2"], cfg.norm_eps, cfg.rmsnorm_one_plus)
-    return x + mlp_apply(p["ffn"], h2, cfg)
+    return ffn_residual(p, x, cfg)
 
 
 def ssm_block_full(p, x, cfg: ModelConfig, *, valid=None, state=None,
@@ -236,22 +250,26 @@ def _ssm_layers(layers, x, pos1d, cache, cfg: ModelConfig, *, commit: bool,
 def forward_train(layers, final_norm, x, positions, pos1d, cfg: ModelConfig, *,
                   valid=None, remat: bool = True, window: int = 0):
     """Full-sequence forward over the stack, no cache (training).  Returns
-    the final-normed hidden states.  ``remat`` recomputes each layer in the
-    backward pass (``torch.utils.checkpoint``, the reference's
-    ``jax.checkpoint`` around its scan body): only the layers' inputs are
-    kept."""
-    if cfg.arch_type == "dense":
+    (the final-normed hidden states, the MoE layers' aux losses summed in
+    layer order, 0-dim float32: 0 without MoE layers).  ``remat``
+    recomputes each layer in the backward pass (``torch.utils.checkpoint``,
+    the reference's ``jax.checkpoint`` around its scan body): only the
+    layers' inputs are kept."""
+    if cfg.arch_type in ("dense", "moe"):
         def body(p, xx):
             return attn_block_full(p, xx, positions, pos1d, cfg, window=window)
     elif cfg.arch_type == "ssm":
         def body(p, xx):
-            return ssm_block_full(p, xx, cfg, valid=valid, scan_impl="plain")[0]
+            return ssm_block_full(p, xx, cfg, valid=valid, scan_impl="plain")[0], None
     else:
-        raise ValueError(f"the port trains dense and ssm models, not "
+        raise ValueError(f"the port trains dense, moe and ssm models, not "
                          f"{cfg.arch_type!r}")
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in layers:
-        x = checkpoint(body, p, x, use_reentrant=False) if remat else body(p, x)
-    return rmsnorm(x, final_norm, cfg.norm_eps, cfg.rmsnorm_one_plus)
+        x, aux = checkpoint(body, p, x, use_reentrant=False) if remat else body(p, x)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return rmsnorm(x, final_norm, cfg.norm_eps, cfg.rmsnorm_one_plus), aux_total
 
 
 def forward_cached(layers, final_norm, x, positions, pos1d, slots, cache,

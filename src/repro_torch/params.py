@@ -3,7 +3,11 @@
 The port keeps one dict per layer (``models/model.py``); the reference
 stacks every layer leaf along a leading ``(L, ...)`` axis
 (``transformer.init_stack``) under ``{"embed": ..., "stack": {"layers",
-"final_norm"}}``.  Weights keep JAX's ``(d_in, d_out)`` layout on both
+"final_norm"}}``; an MoE config stacks its first ``first_k_dense`` layers
+under ``stack/dense_layers`` and the rest under ``stack/moe_layers`` (no
+``dense_layers`` when there are none), which the port keeps as one flat
+list, dense layers first.  Expert leaves keep their ``(E, d_in, d_out)``
+layout under the layer axis.  Weights keep JAX's ``(d_in, d_out)`` layout on both
 sides, so nothing is transposed.  A tied config has no ``lm_head``: the
 port unembeds through the transposed embedding view, as the reference does.
 Each leaf keeps its own dtype: a bfloat16 model's SSM ``dt_bias``,
@@ -58,9 +62,19 @@ def leaf_from_bytes(data: bytes, dtype: str, shape) -> torch.Tensor:
 
 
 def _check_arch(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "ssm"):
+    if cfg.arch_type not in ("dense", "moe", "ssm"):
         raise ValueError(f"the port has no {cfg.arch_type!r} model "
-                         f"(dense and ssm only)")
+                         f"(dense, moe and ssm only)")
+
+
+def _segments(cfg: ModelConfig) -> list[tuple[str, int, int]]:
+    """The reference's stacked layer groups: (key under ``stack``, first
+    layer, layer count)."""
+    if cfg.arch_type != "moe":
+        return [("layers", 0, cfg.n_layers)]
+    fk = cfg.moe.first_k_dense
+    segs = [("dense_layers", 0, fk)] if fk else []
+    return segs + [("moe_layers", fk, cfg.n_layers - fk)]
 
 
 def unstack(stacked: dict, cfg: ModelConfig, device) -> dict:
@@ -81,8 +95,10 @@ def unstack(stacked: dict, cfg: ModelConfig, device) -> dict:
     if not cfg.tie_embeddings:
         embed["lm_head"] = own(emb["lm_head"])
     stack = stacked["stack"]
+    layers = [tree(stack[key], i) for key, _, n in _segments(cfg)
+              for i in range(n)]
     return {"embed": embed, "final_norm": own(stack["final_norm"]),
-            "layers": [tree(stack["layers"], i) for i in range(cfg.n_layers)]}
+            "layers": layers}
 
 
 def from_jax(np_tree: dict, cfg: ModelConfig, device="cuda") -> dict:
@@ -112,9 +128,11 @@ def to_jax(params: dict, cfg: ModelConfig) -> dict:
         return {k: stack([d[k] for d in ds]) if isinstance(ds[0][k], dict)
                 else torch.stack([host(d[k]) for d in ds]) for k in ds[0]}
 
+    out = {"final_norm": host(params["final_norm"])}
+    for key, i0, n in _segments(cfg):
+        out[key] = stack(list(layers[i0:i0 + n]))
     return {"embed": {k: host(v) for k, v in params["embed"].items()},
-            "stack": {"final_norm": host(params["final_norm"]),
-                      "layers": stack(list(layers))}}
+            "stack": out}
 
 
 def param_specs(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], str]]:
@@ -126,6 +144,7 @@ def param_specs(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], str]]:
     spec = lambda t, lead=(): ((*lead, *t.shape), dtype_name(t))  # noqa: E731
     specs = {f"embed/{k}": spec(t) for k, t in meta["embed"].items()}
     specs["stack/final_norm"] = spec(meta["final_norm"])
-    for path, t in tree_flatten_with_paths(meta["layers"][0]):
-        specs[f"stack/layers/{path}"] = spec(t, (cfg.n_layers,))
+    for key, i0, n in _segments(cfg):
+        for path, t in tree_flatten_with_paths(meta["layers"][i0]):
+            specs[f"stack/{key}/{path}"] = spec(t, (n,))
     return specs
