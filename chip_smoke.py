@@ -141,6 +141,23 @@ DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
    K 8 x 4 tokens; and the per-token loop (``_reason_per_token``) against
    ``reason`` on the chunk graphs, unmonitored, in tokens/s in turns (3
    each), which must give the same tokens;
+6b. ``deepseek-v2-236b`` (arXiv:2405.04434: multi-head latent attention
+   and 160 routed + 2 shared experts; the 8B model freed first): the flash
+   kernel at MLA's absorbed shapes (128 q heads of 576 against one kv head,
+   values the 512-wide latent; the cohort prefill, m 512 over 512 slots,
+   and a decode, m 1 over the serve's 704-slot view) and at the expanded
+   training shape (192/128), bf16 and float32, every call on the scalar
+   kernel, against the plain version and timed in turns with SDPA
+   (``[kernels] mla`` lines); kernel path vs plain path at full width
+   (float32 cut to 2 layers, 1e-5; bf16 at 8 layers within
+   ``MOE_BF16_TOL``, the logits with shared expert routes); seeded random
+   weights at full width and 8 of 60 layers (``MLA_LAYERS``: 58.38 GB of
+   weights, what one card holds), served as phase 5b serves (``serve_cell``):
+   cold, warm and eager paged self-EAT serves of phase 4's traffic, warm ==
+   eager bitwise, 0 captures, flash 8 scalar launches per forward and none
+   on the tensor cores, no paged read (MLA reads the gathered view), every
+   entropy call mma, a profiled serve (``[profile mla]``), a ring serve
+   bitwise the paged one, tokens/s, chunk ms and the phase's peak memory;
 7. the training path (``[train]`` lines, each with the card's name and
    power limit), the 8B model freed first: the training forward (plain
    attention, as the reference's trainer runs) against ``Model.prefill`` +
@@ -164,7 +181,8 @@ DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
    the EAT serve;
 8. one JSON line per the contract: ``{"kernels": [...]}`` (five records;
    flash, paged and entropy carry a ``moe`` record: phase 5b's warm-serve
-   launches and its kernel readings at the MoE's shapes), the card line,
+   launches and its kernel readings at the MoE's shapes; flash an ``mla``
+   record: phase 6b's), the card line,
    and the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits nonzero before the result lines are printed.
@@ -286,13 +304,13 @@ def graph_ms(torch, fns, reps: int = 20) -> float:
     return start.elapsed_time(end) / (reps * len(fns))
 
 
-def in_turns(torch, a_fns, b_fns, rounds: int = 5):
+def in_turns(torch, a_fns, b_fns, rounds: int = 5, reps: int = 20):
     """``graph_ms`` of two sets of calls in turns, a, b, a, b, ... over
     ``rounds`` rounds in this call: (a's readings, b's readings)."""
     ta, tb = [], []
     for _ in range(rounds):
-        ta.append(graph_ms(torch, a_fns))
-        tb.append(graph_ms(torch, b_fns))
+        ta.append(graph_ms(torch, a_fns, reps))
+        tb.append(graph_ms(torch, b_fns, reps))
     return ta, tb
 
 
@@ -1589,49 +1607,12 @@ def moe_kernel_vs_plain(torch, model, prompts, probe):
     return free, shared, differ, routes
 
 
-def moe_phase(torch, np, F, kernels: dict, phases: dict, card: str,
-              profile_dir=None) -> dict:
-    """Phase 5b: ``deepseek-moe-16b``.  Its kernels at its shapes
-    (``moe_kernel_checks``); kernel path vs plain path of the model
-    (float32 cut to 4 layers, then bf16 at the full 28); seeded random
-    weights at full width and depth on the card; a paged self-EAT serve of
-    phase 4's traffic (prompts over its 102,400 vocabulary) as cold graph,
-    warm graph and eager serves of one engine, warm == eager bitwise, and a
-    ring serve of the same traffic, bitwise the paged one's streams; flash,
-    paged and entropy launched in the warm serve (every flash call mma, 28
-    per prefill; every entropy call mma); one more warm serve under the
-    profiler, its counts checked.  ``kernels``: flash, paged and entropy's
-    wrappers.  Returns {"launches": the profiled serve's counts, "kernels":
-    the kernel records}."""
-    from repro_torch.configs.base import get_config
-    from repro_torch.core.eat import make_probe
-    from repro_torch.core.monitor import ReasoningMonitor
-    from repro_torch.core.stopping import EATStopper
-    from repro_torch.kernels.entropy_probe import ops as ep
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.paged_attention import ops as pa
+def f32_kernel_vs_plain(torch, cfg32, prompts, probe) -> None:
+    """A float32 model of ``cfg32`` (seeded random weights, depth cut by the
+    caller) through ``kernel_vs_plain``: the logits' relative L2 and the
+    EAT within 1e-5.  Frees the model."""
     from repro_torch.models.model import Model, init_params
-    from repro_torch.serving import device_loop
-    from repro_torch.serving.cache import CacheConfig
-    from repro_torch.serving.engine import EngineConfig, ReasoningEngine
-    from repro_torch.serving.sampler import SamplerConfig
-    from repro_torch.serving.scheduler import SlotScheduler
 
-    t_phase = time.perf_counter()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    recs = moe_kernel_checks(torch, F, fa, pa, ep)
-
-    cfg = get_config("deepseek-moe-16b")
-    probe = make_probe(1, (6,))
-    prompts, lens = serve_workload(np, vocab=cfg.vocab)
-    check(int(prompts.max()) < cfg.vocab, "prompt ids past the vocab")
-
-    # float32, full width, depth cut to 4 layers (1 dense, 3 MoE): the
-    # kernels agree with the plain path to 1e-5 (relative L2 of the logits,
-    # nats of EAT)
-    cfg32 = dataclasses.replace(cfg, name=cfg.name + "-4L-f32", n_layers=4,
-                                dtype="float32")
     model32 = Model(cfg32, init_params(cfg32, torch.Generator(device="cuda").manual_seed(1),
                                        device="cuda"))
     outs = kernel_vs_plain(torch, model32, prompts, probe)
@@ -1645,29 +1626,21 @@ def moe_phase(torch, np, F, kernels: dict, phases: dict, card: str,
     check(d_eat < 1e-5, f"{cfg32.name} EAT: kernel vs plain differ by {d_eat}")
     print(f"[model] {cfg32.name} EAT kernel vs plain max diff {d_eat:.3e} (tol 1e-5)")
     del model32, outs
+    gc.collect()
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    model = Model(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                                   device="cuda"))
-    torch.cuda.synchronize()
-    phases["moe_init_s"] = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    mo = cfg.moe
-    print(f"[model] {cfg.name}: {cfg.n_layers} layers ({mo.first_k_dense} dense, ff "
-          f"{mo.dense_d_ff}) d{cfg.d_model} Hq{cfg.n_heads}/Hkv{cfg.n_kv_heads} hd"
-          f"{cfg.resolved_head_dim} experts {mo.n_routed} routed (top {mo.top_k}) + "
-          f"{mo.n_shared} shared of {mo.d_expert} Vp{cfg.padded_vocab} {cfg.dtype}: "
-          f"{n_params / 1e9:.3f} B params, {n_params * 2 / 1e9:.2f} GB, init "
-          f"{phases['moe_init_s']:.1f} s")
-    # bf16 at full depth.  Each path routes by its own float32
-    # probabilities of its own bf16 activations, and near ties between the
-    # k-th and (k+1)-th expert pick differently on the two paths (read on an
-    # H100: 561 of 3,618 token-layer routes), which moves the logits by more
-    # than the kernels do.  So the logits are held to the bar with the
-    # plain path's routes on both paths (the kernels' own difference), and
-    # the EAT with each path's own routes; the logits of the free-routing
-    # comparison are printed beside.
+
+def moe_bf16_kernel_vs_plain(torch, model, prompts, probe) -> None:
+    """A bf16 MoE ``model`` through ``moe_kernel_vs_plain``.  Each path
+    routes by its own float32 probabilities of its own bf16 activations,
+    and near ties between the k-th and (k+1)-th expert pick differently on
+    the two paths (read on an H100: 561 of 3,618 token-layer routes of
+    deepseek-moe-16b), which moves the logits by more than the kernels do.
+    So the logits are held to ``MOE_BF16_TOL`` with the plain path's routes
+    on both paths (the kernels' own difference), and the EAT with each
+    path's own routes; the logits of the free-routing comparison are
+    printed beside."""
+    cfg, mo = model.cfg, model.cfg.moe
     free, shared, differ, routes = moe_kernel_vs_plain(torch, model, prompts, probe)
     for i, what in enumerate(("prefill logits", "decode logits")):
         rel = rel_l2(shared["cuda"][i], shared["plain"][i])
@@ -1688,9 +1661,115 @@ def moe_phase(torch, np, F, kernels: dict, phases: dict, card: str,
           f"(tol {MOE_BF16_TOL:g})")
     del free, shared
 
-    # the serve: phase 4's traffic (8 requests, 4 slots, budget 64, chunk 16,
-    # page 16, greedy, an EAT probe every 8 tokens, exit at the 2nd
-    # evaluation, answers of 4)
+
+def moe_phase(torch, np, F, kernels: dict, phases: dict, card: str,
+              profile_dir=None) -> dict:
+    """Phase 5b: ``deepseek-moe-16b``.  Its kernels at its shapes
+    (``moe_kernel_checks``); kernel path vs plain path of the model
+    (float32 cut to 4 layers, then bf16 at the full 28); seeded random
+    weights at full width and depth on the card; a paged self-EAT serve of
+    phase 4's traffic (prompts over its 102,400 vocabulary) as cold graph,
+    warm graph and eager serves of one engine, warm == eager bitwise, and a
+    ring serve of the same traffic, bitwise the paged one's streams; flash,
+    paged and entropy launched in the warm serve (every flash call mma, 28
+    per prefill; every entropy call mma); one more warm serve under the
+    profiler, its counts checked.  ``kernels``: flash, paged and entropy's
+    wrappers.  Returns {"launches": the profiled serve's counts, "kernels":
+    the kernel records}."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.eat import make_probe
+    from repro_torch.kernels.entropy_probe import ops as ep
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.models.model import Model, init_params
+
+    t_phase = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    recs = moe_kernel_checks(torch, F, fa, pa, ep)
+
+    cfg = get_config("deepseek-moe-16b")
+    probe = make_probe(1, (6,))
+    prompts, lens = serve_workload(np, vocab=cfg.vocab)
+    check(int(prompts.max()) < cfg.vocab, "prompt ids past the vocab")
+
+    # float32, full width, depth cut to 4 layers (1 dense, 3 MoE): the
+    # kernels agree with the plain path to 1e-5 (relative L2 of the logits,
+    # nats of EAT)
+    cfg32 = dataclasses.replace(cfg, name=cfg.name + "-4L-f32", n_layers=4,
+                                dtype="float32")
+    f32_kernel_vs_plain(torch, cfg32, prompts, probe)
+
+    t0 = time.perf_counter()
+    model = Model(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                   device="cuda"))
+    torch.cuda.synchronize()
+    phases["moe_init_s"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    mo = cfg.moe
+    print(f"[model] {cfg.name}: {cfg.n_layers} layers ({mo.first_k_dense} dense, ff "
+          f"{mo.dense_d_ff}) d{cfg.d_model} Hq{cfg.n_heads}/Hkv{cfg.n_kv_heads} hd"
+          f"{cfg.resolved_head_dim} experts {mo.n_routed} routed (top {mo.top_k}) + "
+          f"{mo.n_shared} shared of {mo.d_expert} Vp{cfg.padded_vocab} {cfg.dtype}: "
+          f"{n_params / 1e9:.3f} B params, {n_params * 2 / 1e9:.2f} GB, init "
+          f"{phases['moe_init_s']:.1f} s")
+    # bf16 at full depth
+    moe_bf16_kernel_vs_plain(torch, model, prompts, probe)
+
+    # the serve: phase 4's traffic, its flash calls all on the tensor cores
+    # (28 per prefill) and its paged reads launched
+    L = cfg.n_layers
+    profiled = serve_cell(
+        torch, np, model, probe, prompts, lens, kernels, phases, card, key="moe",
+        flash_want=lambda forwards, prefills: {"mma": L * prefills, "scalar": 0},
+        flash_text=f"{L} mma per prefill", paged_want=None,
+        profile_path=Path(profile_dir) / "profile_moe.txt" if profile_dir else None)
+    del model
+    phase_end(torch, phases, "moe", cfg.name, base, t_phase, card)
+    return {"launches": profiled, "kernels": recs}
+
+
+def phase_end(torch, phases: dict, key: str, name: str, base: int, t_phase: float,
+              card: str) -> None:
+    """A serving phase's closing line: its engines' graph pools, its peak
+    allocation above the ``base`` it started with, its wall; then frees
+    what it left."""
+    peak = torch.cuda.max_memory_allocated() - base
+    phases[f"{key}_peak_gb"] = peak / 1e9
+    phases[f"{key}_phase_s"] = time.perf_counter() - t_phase
+    print(f"[graphs] {name}: graph pool {phases[f'{key}_pool_mib']:.1f} MiB added by "
+          f"the engines' captures; {peak / 1e9:.2f} GB peak allocated over the "
+          f"phase (max_memory_allocated above the {base / 1e9:.2f} GB held before it); "
+          f"phase {phases[f'{key}_phase_s']:.1f} s ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_cell(torch, np, model, probe, prompts, lens, kernels: dict, phases: dict,
+               card: str, *, key: str, flash_want, flash_text: str, paged_want,
+               profile_path) -> dict:
+    """Phase 4's traffic (8 requests, 4 slots, budget 64, chunk 16, page 16,
+    greedy, an EAT probe every 8 tokens, exit at the 2nd evaluation,
+    answers of 4) on ``model``, paged self-EAT, as cold graph, warm graph
+    and eager serves of one engine: warm == cold == eager bitwise, 0
+    captures and 0 ``device_if`` reads warm, every request finished, a slot
+    reused, at least one EAT exit, flash's launches per variant in the warm
+    serve ``flash_want(model forwards, prefills)``, every entropy call
+    mma, paged launched (``paged_want`` None) or launched ``paged_want``
+    times; one more warm serve under the profiler, its counts checked; then
+    a ring serve of the same traffic, bitwise the paged streams.
+    Prints under ``[serve]``, ``[chunk]``, ``[rollout]``, ``[graphs]`` and
+    ``[profile {key}]``; readings go to ``phases`` under ``key``.  Frees
+    its engines.  Returns the profiled serve's launches."""
+    from repro_torch.core.monitor import ReasoningMonitor
+    from repro_torch.core.stopping import EATStopper
+    from repro_torch.serving import device_loop
+    from repro_torch.serving.cache import CacheConfig
+    from repro_torch.serving.engine import EngineConfig, ReasoningEngine
+    from repro_torch.serving.sampler import SamplerConfig
+    from repro_torch.serving.scheduler import SlotScheduler
+
+    cfg = model.cfg
     n_req, batch, budget, chunk = len(lens), 4, 64, 16
     capacity = SlotScheduler.required_capacity(prompts.shape[1], n_req, batch, budget)
 
@@ -1738,17 +1817,26 @@ def moe_phase(torch, np, F, kernels: dict, phases: dict, card: str,
     slots = [r["slot"] for r in res]
     check(len(set(slots)) < len(slots), f"{cfg.name}: no slot served two requests: {slots}")
     prefills = 1 + n_req - batch                    # the cohort, then admissions
-    want = {"mma": cfg.n_layers * prefills, "scalar": 0}
+    # model forwards: the prefills, a decode and a probe forward per step of
+    # each replayed chunk, answer_len + 1 per rollout, eager probes
+    forwards = (prefills + 2 * chunk * wt["chunks"] + 5 * wt["rollouts"]
+                + wt["probe_calls"])
+    want = flash_want(forwards, prefills)
     check(flash_variants == want, f"{cfg.name}: flash launches per variant "
-          f"{flash_variants}, expected {want} ({cfg.n_layers} per prefill x {prefills})")
+          f"{flash_variants}, expected {want} ({flash_text}; {prefills} prefills, "
+          f"{forwards} forwards)")
     check_entropy_mma(f"{cfg.name} serve", entropy_variants, launches["entropy_probe"])
-    for name, n in launches.items():
-        check(n > 0, f"{cfg.name}: {name} was not launched during the serve")
+    check(launches["entropy_probe"] > 0, f"{cfg.name}: entropy_probe was not launched")
+    n_paged = launches["paged_attention"]
+    check(n_paged > 0 if paged_want is None else n_paged == paged_want,
+          f"{cfg.name}: paged_attention launched {n_paged} times, expected "
+          + ("some" if paged_want is None else str(paged_want)))
     n_tok = sum(r["n_reasoning"] for r in res)
     chunk_ms = statistics.median(wt["chunk_ms"])
     e_chunk_ms = statistics.median(eager["tiers"]["executor"]["chunk_ms"])
-    phases.update(moe_cold_serve_s=cold_s, moe_serve_s=warm_s, moe_eager_serve_s=eager_s,
-                  moe_tok_s=n_tok / warm_s, moe_chunk_ms=chunk_ms)
+    phases.update({f"{key}_cold_serve_s": cold_s, f"{key}_serve_s": warm_s,
+                   f"{key}_eager_serve_s": eager_s, f"{key}_tok_s": n_tok / warm_s,
+                   f"{key}_chunk_ms": chunk_ms, f"{key}_eager_chunk_ms": e_chunk_ms})
     print(f"[serve] {cfg.name} paged: {n_req} requests through {batch} slots {slots}, "
           f"exits {exits} ({exits.count('eat')} by EAT), reasoning tokens "
           f"{[r['n_reasoning'] for r in res]}, {warm_s:.3f} s warm graph serve, "
@@ -1766,12 +1854,11 @@ def moe_phase(torch, np, F, kernels: dict, phases: dict, card: str,
               f"{len(e)} calls), median on the card ({card})")
     print(f"[serve] launches during the {cfg.name} warm graph serve: "
           f"{json.dumps(launches)} (flash per variant {json.dumps(flash_variants)}: "
-          f"{cfg.n_layers} mma per prefill x {prefills}; entropy per variant "
+          f"{flash_text}: {prefills} prefills, {forwards} forwards; entropy per variant "
           f"{json.dumps(entropy_variants)})")
     profiled = profile_serve(
         torch, lambda: serve(eng, watch, "profiled serve")[:2], warm_s,
-        Path(profile_dir) / "profile_moe.txt" if profile_dir else None,
-        "profile moe", kernels)
+        profile_path, f"profile {key}", kernels)
     check(profiled == launches, f"{cfg.name}: the profiled serve's launches {profiled} "
           f"differ from the warm serve's {launches}")
     pool = eng.executor.graphs.pool_bytes
@@ -1783,19 +1870,11 @@ def moe_phase(torch, np, F, kernels: dict, phases: dict, card: str,
     check(same_results(res, r_res, np, slots=False),
           f"{cfg.name}: the paged and ring streams differ")
     pool += r_eng.executor.graphs.pool_bytes
-    print(f"[serve] {cfg.name} ring: {ring_s:.3f} s (cold graph serve); paged == ring "
-          f"bitwise (tokens, exits, answers, EAT traces)")
-    del r_eng, r_watch, model
-    peak = torch.cuda.max_memory_allocated() - base
-    phases["moe_peak_gb"] = peak / 1e9
-    phases["moe_phase_s"] = time.perf_counter() - t_phase
-    print(f"[graphs] {cfg.name}: graph pool {pool / 2**20:.1f} MiB added by the paged "
-          f"and ring engines' captures; {peak / 1e9:.2f} GB peak allocated over the "
-          f"phase (max_memory_allocated above the {base / 1e9:.2f} GB held before it); "
-          f"phase {phases['moe_phase_s']:.1f} s ({card})")
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {"launches": profiled, "kernels": recs}
+    print(f"[serve] {cfg.name} ring: {ring_s:.3f} s (cold graph serve); paged == "
+          f"ring bitwise (tokens, exits, answers, EAT traces)")
+    del r_eng, r_watch
+    phases[f"{key}_pool_mib"] = pool / 2**20
+    return profiled
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1960,6 +2039,193 @@ def trace_phase(torch, np, model, probe, prompts, lens, kernels: dict,
     phases["per_token_tok_s"] = statistics.median(per)
     phases["chunk_graph_tok_s"] = statistics.median(chk)
     phases["trace_phase_s"] = time.perf_counter() - t0
+
+
+
+# ----------------------------------------------------------------- phase 6b
+
+#: deepseek-v2-236b's depth on one card: 8 of its 60 layers (1 dense, 7 MoE:
+#: 58.38 GB of bf16 weights).  At 9 (66.33 GB) the init's transients, the
+#: caches, the prefill's buffers and the graph pools would not fit beside
+#: them in the card's 80 GB.
+MLA_LAYERS = 8
+
+
+def mla_attn_case(torch, dtype, m, C, *, expanded=False, seed=0):
+    """Flash inputs at MLA's shapes, for the serve's B 4 rows and H 128
+    heads.  Absorbed (the serving path): q (B, m, H, 576) against one kv
+    head, k = cat(c, kr) (B, C, 1, 576) and v = c (B, C, 1, 512), as
+    ``mla_absorbed_attend`` builds them.  Expanded (the training forward):
+    q and k (B, C, H, 192), v (B, C, H, 128).  m == C: a left-padded
+    prefill (row b has 64 b pad slots); m < C: the m newest of row b's
+    C - 100 b tokens (the rest of the ring empty)."""
+    B, H = 4, 128
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    if expanded:
+        q, k, v = rnd(B, m, H, 192), rnd(B, C, H, 192), rnd(B, C, H, 128)
+    else:
+        q, c, kr = rnd(B, m, H, 576), rnd(B, C, 512), rnd(B, C, 64)
+        k, v = torch.cat([c, kr], dim=-1)[:, :, None, :], c[:, :, None, :]
+    ar = torch.arange(C, device="cuda", dtype=torch.int32)[None]
+    rows = torch.arange(B, device="cuda", dtype=torch.int32)[:, None]
+    if m == C:
+        pad = rows * 64
+        kv_pos = torch.where(ar >= pad, ar - pad, -1).to(torch.int32).contiguous()
+        q_pos = kv_pos
+    else:
+        n = C - 100 * rows
+        kv_pos = torch.where(ar < n, ar, -1).to(torch.int32).contiguous()
+        q_pos = (n - m + ar[:, :m]).to(torch.int32).contiguous()
+    return dict(q=q, k=k, v=v, q_pos=q_pos, kv_pos=kv_pos)
+
+
+def mla_kernel_checks(torch, F, fa, capacity: int) -> dict:
+    """Phase 6b's flash checks: the scalar kernel at the absorbed shapes of
+    ``deepseek-v2-236b``'s serve (the cohort prefill, m 512 over 512 slots;
+    a decode, m 1 over the paged view of ``capacity`` slots) and at the
+    expanded training shape (192/128, 128 kv heads), bf16 and float32, each
+    against the plain version within phase 3's bars (float32 1e-5; bf16 one
+    ulp + 2^-7 x the attention of |v|).  Each case is timed by CUDA-graph
+    replay, in turns with SDPA where SDPA takes the shape (3 rounds,
+    medians), the plain version by CUDA events, with its bound.  Returns
+    the flash record: the bf16 prefill's readings, with ``decode`` and
+    ``expanded`` records beside them."""
+    scale = 1.0 / math.sqrt(128 + 64)
+    bad, recs = [], {}
+    cases = [("prefill", 512, 512, False), ("decode", 1, capacity, False),
+             ("expanded", 512, 512, True)]
+    for what, m, C, expanded in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).removeprefix("torch.")
+            c = mla_attn_case(torch, dtype, m, C, expanded=expanded)
+            args = (c["q"], c["k"], c["v"], c["q_pos"], c["kv_pos"])
+            before = dict(fa.flash_attention_cuda.variant_launches)
+            out = fa.flash_attention_cuda(*args, scale=scale)
+            after = fa.flash_attention_cuda.variant_launches
+            launched = {x: after[x] - before[x] for x in after}
+            ref = fa.attention_plain(*args, scale=scale)
+            spread = (fa.attention_plain(c["q"], c["k"], c["v"].abs(), c["q_pos"],
+                                         c["kv_pos"], scale=scale)
+                      if dtype == torch.bfloat16 else None)
+            err, ok, tol = agree(torch, "flash_attention", dn, out, ref, spread)
+            B, _, Hq, Dk = c["q"].shape
+            Hkv, Dv = c["k"].shape[2], c["v"].shape[-1]
+            label = f"{what} {dn} B{B} m{m} C{C} Hq{Hq} Hkv{Hkv} Dk{Dk} Dv{Dv}"
+            if launched != {"mma": 0, "scalar": 1} or not ok:
+                bad.append(f"{label}: launched {launched}, max abs err {err:.3e} ({tol})")
+            per_set = nbytes(*args) + nbytes(out)
+            sets = [c] + [mla_attn_case(torch, dtype, m, C, expanded=expanded, seed=s)
+                          for s in range(1, n_sets(per_set))]
+            calls = [lambda s=s: fa.flash_attention_cuda(
+                s["q"], s["k"], s["v"], s["q_pos"], s["kv_pos"], scale=scale)
+                for s in sets]
+            lib_calls, lib = None, None
+            if dtype == torch.bfloat16:
+                mask = ((c["kv_pos"][:, None, None, :] >= 0)
+                        & (c["kv_pos"][:, None, None, :] <= c["q_pos"][:, None, :, None]))
+                lib_calls = [lambda s=s: F.scaled_dot_product_attention(
+                    s["q"].transpose(1, 2), s["k"].transpose(1, 2), s["v"].transpose(1, 2),
+                    attn_mask=mask, scale=scale, enable_gqa=Hq != Hkv) for s in sets]
+                try:
+                    lib_calls[0]()
+                    torch.cuda.synchronize()
+                except (RuntimeError, TypeError) as e:
+                    lib_calls, lib = None, f"none (SDPA refused: {str(e).splitlines()[0]})"
+            reps = 3 if m > 1 else 20
+            if lib_calls:
+                k_t, l_t = in_turns(torch, calls, lib_calls, rounds=3, reps=reps)
+                k_ms, l_ms = statistics.median(k_t), statistics.median(l_t)
+                timing = (f"graph replay in turns, 3 rounds: kernel {turns_text(k_t)}, "
+                          f"sdpa {turns_text(l_t)}")
+            else:
+                k_ms, l_ms = graph_ms(torch, calls, reps), None
+                timing = f"kernel {k_ms:.4f} ms (graph replay), sdpa {lib or 'not timed'}"
+            p_ms = time_ms(torch, [lambda: fa.attention_plain(*args, scale=scale)],
+                           iters=3, warmup=1)
+            pairs = valid_pairs(torch, c["q_pos"], c["kv_pos"])
+            b_ms, b_by = bound_ms(per_set, pairs * Hq * 2 * (Dk + Dv), dn)
+            print(f"[kernels] mla flash_attention {label} variant scalar: max_abs_err "
+                  f"{err:.3e} ({tol}); {timing}; plain {p_ms:.4f} ms; bound "
+                  f"{b_ms:.4f} ms ({b_by}: {pairs} valid pairs x {Hq} heads, "
+                  f"{per_set / 1e6:.1f} MB), kernel at {b_ms / k_ms:.4f} of it")
+            recs[what, dn] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                  bound_by=b_by, library_ms=l_ms)
+            del c, sets, calls, lib_calls, out, ref, spread
+            torch.cuda.empty_cache()
+    check(not bad, "mla flash kernel vs plain: " + "; ".join(bad))
+    rec = dict(recs["prefill", "bfloat16"])
+    rec["max_abs_err"] = max(r["max_abs_err"] for r in recs.values())
+    for what in ("decode", "expanded"):
+        rec[what] = {k: v for k, v in recs[what, "bfloat16"].items() if k != "max_abs_err"}
+    rec["float32_ms"] = {what: recs[what, "float32"]["ms"] for what in
+                         ("prefill", "decode", "expanded")}
+    return rec
+
+
+def mla_phase(torch, np, F, kernels: dict, phases: dict, card: str,
+              profile_dir=None) -> dict:
+    """Phase 6b: ``deepseek-v2-236b`` (MLA + MoE) at full width and
+    ``MLA_LAYERS`` of its 60 layers.  The flash kernel at MLA's shapes
+    (``mla_kernel_checks``); kernel path vs plain path of the model
+    (float32 cut to 2 layers, 1e-5; bf16 at 8 layers within
+    ``MOE_BF16_TOL``, the logits with the plain path's expert routes on both
+    paths); then ``serve_cell``: the paged self-EAT serve of phase 4's
+    traffic, every flash call the scalar kernel (8 per forward: prefills,
+    decodes, probes and rollouts all attend through the absorbed form), no
+    paged read (MLA keeps the gather path), every entropy call mma, and a
+    ring serve bitwise the paged one.  Returns {"launches": the profiled
+    serve's counts, "flash": the kernel record}."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.eat import make_probe
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.serving.scheduler import SlotScheduler
+
+    t_phase = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    probe = make_probe(1, (6,))
+    full = get_config("deepseek-v2-236b")
+    prompts, lens = serve_workload(np, vocab=full.vocab)
+    capacity = SlotScheduler.required_capacity(prompts.shape[1], len(lens), 4, 64)
+    rec = mla_kernel_checks(torch, F, fa, capacity)
+
+    # float32, full width, depth cut to 2 layers (1 dense, 1 MoE: 21.4 GB)
+    cfg32 = dataclasses.replace(full, name=full.name + "-2L-f32", n_layers=2,
+                                dtype="float32")
+    f32_kernel_vs_plain(torch, cfg32, prompts, probe)
+
+    cfg = dataclasses.replace(full, name=f"{full.name}-{MLA_LAYERS}L", n_layers=MLA_LAYERS)
+    t0 = time.perf_counter()
+    model = Model(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                   device="cuda"))
+    torch.cuda.synchronize()
+    phases["mla_init_s"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    mo, ml = cfg.moe, cfg.mla
+    print(f"[model] {cfg.name}: {cfg.n_layers} of {full.n_layers} layers "
+          f"({mo.first_k_dense} dense, ff {mo.dense_d_ff}) d{cfg.d_model} H{cfg.n_heads} "
+          f"MLA kv_lora {ml.kv_lora_rank} q_lora {ml.q_lora_rank} nope "
+          f"{ml.qk_nope_head_dim} rope {ml.qk_rope_head_dim} v {ml.v_head_dim}; experts "
+          f"{mo.n_routed} routed (top {mo.top_k}) + {mo.n_shared} shared of "
+          f"{mo.d_expert} Vp{cfg.padded_vocab} {cfg.dtype}: {n_params / 1e9:.3f} B "
+          f"params, {n_params * 2 / 1e9:.2f} GB, init {phases['mla_init_s']:.1f} s")
+    # bf16 at 8 layers
+    moe_bf16_kernel_vs_plain(torch, model, prompts, probe)
+
+    L = cfg.n_layers
+    profiled = serve_cell(
+        torch, np, model, probe, prompts, lens, kernels, phases, card, key="mla",
+        flash_want=lambda forwards, prefills: {"mma": 0, "scalar": L * forwards},
+        flash_text=f"{L} scalar per forward", paged_want=0,
+        profile_path=Path(profile_dir) / "profile_mla.txt" if profile_dir else None)
+    del model
+    phase_end(torch, phases, "mla", cfg.name, base, t_phase, card)
+    return {"launches": profiled, "flash": rec}
 
 
 # ------------------------------------------------------------------ phase 7
@@ -2574,14 +2840,16 @@ def main() -> None:
         return eng, watch, res, runs
 
     # (i) the 8B model monitoring itself: self-EAT's serve, bitwise
-    eng_self, _, res, runs = proxy_phase(f"{cfg.name} (same weights)", model,
-                                         cfg.n_layers)
+    eng_self, watch_self, res, runs = proxy_phase(f"{cfg.name} (same weights)",
+                                                  model, cfg.n_layers)
     phases["proxy_self_serve_s"] = runs[1][0]
     check(same_results(paged_res, res, np),
           "same-params proxy serve differs from self-EAT")
     print("[serve] same-params proxy == self-EAT paged serve bitwise (tokens, exits, "
           "slots, answers, EAT traces)")
-    del eng_self
+    # the watch holds the engine's executors, and through them the model:
+    # phase 6b needs the 8B model's memory back once phase 6 drops it
+    del eng_self, watch_self
 
     # (ii) qwen3-1.7b at full width and depth (seeded random weights, bf16,
     # tied 2048 x 151,936 table) monitoring the 8B generator
@@ -2692,6 +2960,13 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- 6b. deepseek-v2-236b (MLA) at full width, 8 of 60 layers, the 8B
+    # model freed first
+    mla = mla_phase(torch, np, F, {name: kernels[name] for name in
+                                   ("flash_attention", "paged_attention",
+                                    "entropy_probe")}, phases, card,
+                    profile_dir=args.profile)
+
     # ---- 7. the training path, the 8B model freed first
     train_phase(torch, np, card, {name: kernels[name] for name in
                                   ("flash_attention", "paged_attention",
@@ -2723,6 +2998,14 @@ def main() -> None:
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         if "variant" in r:
             out[-1]["variant"] = r["variant"]
+        if name == "flash_attention":
+            m = mla["flash"]
+            out[-1]["mla"] = {"launches": mla["launches"][name],
+                              "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                              "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                              "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+                              "decode": m["decode"], "expanded": m["expanded"],
+                              "float32_ms": m["float32_ms"]}
         if name in moe["launches"]:
             m = moe["kernels"][name]
             out[-1]["moe"] = {"launches": moe["launches"][name],

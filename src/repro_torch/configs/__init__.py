@@ -1,6 +1,7 @@
 """Config registry — importing this package registers the port's configs."""
 from repro_torch.configs import (  # noqa: F401
     deepseek_moe_16b,
+    deepseek_v2_236b,
     mamba2_2p7b,
     paper_native,
     qwen3_1p7b,
@@ -8,6 +9,7 @@ from repro_torch.configs import (  # noqa: F401
 )
 from repro_torch.configs.base import (  # noqa: F401
     REGISTRY,
+    MLAConfig,
     ModelConfig,
     MoEConfig,
     SSMConfig,

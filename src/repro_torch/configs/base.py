@@ -1,7 +1,8 @@
-"""Model configuration: the dense-decoder, Mamba2 (``arch_type="ssm"``)
-and mixture-of-experts (``arch_type="moe"``) parts of the JAX package's
-``ModelConfig``, ``SSMConfig`` and ``MoEConfig`` (``repro/configs/base.py``),
-copied so the port imports nothing of ``repro``.  Field names and defaults are the reference's, so a config built
+"""Model configuration: the dense-decoder, Mamba2 (``arch_type="ssm"``),
+mixture-of-experts (``arch_type="moe"``) and multi-head latent attention
+(``mla``) parts of the JAX package's ``ModelConfig``, ``SSMConfig``,
+``MoEConfig`` and ``MLAConfig`` (``repro/configs/base.py``), copied so the
+port imports nothing of ``repro``.  Field names and defaults are the reference's, so a config built
 here describes the same model as its JAX twin.
 """
 from __future__ import annotations
@@ -40,6 +41,17 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 multi-head latent attention sub-config."""
+
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str = "tiny"
     arch_type: str = "dense"
@@ -68,6 +80,7 @@ class ModelConfig:
 
     moe: MoEConfig | None = None
     ssm: SSMConfig | None = None
+    mla: MLAConfig | None = None
 
     dtype: str = "bfloat16"
 
@@ -97,7 +110,8 @@ class ModelConfig:
     def reduced(self) -> "ModelConfig":
         """The reference's CPU-test variant of this config: 2 layers, width
         at most 128, vocab at most 512, heads of 32, at most 4 experts,
-        float32 (the dense, MoE and SSM fields of ``ModelConfig.reduced``)."""
+        float32 (the dense, MoE, SSM and MLA fields of
+        ``ModelConfig.reduced``)."""
         n_heads = max(2, min(self.n_heads, 4))
         kw: dict = dict(
             name=self.name + "-reduced",
@@ -122,6 +136,11 @@ class ModelConfig:
             )
         if self.ssm is not None:
             kw["ssm"] = replace(self.ssm, d_state=16, head_dim=16, chunk=16)
+        if self.mla is not None:
+            kw["mla"] = MLAConfig(
+                kv_lora_rank=32, q_lora_rank=48, qk_nope_head_dim=32,
+                qk_rope_head_dim=16, v_head_dim=32,
+            )
         return replace(self, **kw)
 
 

@@ -23,6 +23,8 @@ Parameter tree (the JAX layout with the layer axis unstacked)::
      "layers": [{"norm1", "attn": {wq, wk, wv, wo, [q_norm, k_norm],
                                    [bq, bk, bv]},
                  "norm2", "ffn": {w_up, w_gate, w_down}}, ...]}
+                # with cfg.mla: "attn": {w_dq, q_norm, w_uq, w_dkv, kv_norm,
+                #   w_kr, w_uk, w_uv, wo} (multi-head latent attention)
                 # arch "moe": layers from first_k_dense on hold "moe":
                 #   {"router": (d, E) float32, "experts": {w_up, w_gate,
                 #   w_down: (E, d_in, d_out)}, ["shared": {w_up, w_gate,
@@ -43,7 +45,7 @@ from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.kernels.entropy_probe.ops import next_token_entropy
 from repro_torch.models import common
 from repro_torch.models import transformer as tfm
-from repro_torch.models.attention import gqa_init
+from repro_torch.models.attention import gqa_init, mla_init
 from repro_torch.models.moe import moe_init
 from repro_torch.models.ssm import ssm_init
 
@@ -68,7 +70,8 @@ def build_params(cfg: ModelConfig, generator, dev: torch.device) -> dict:
             continue
         layer = {
             "norm1": norm,
-            "attn": gqa_init(generator, cfg, dtype, dev),
+            "attn": (mla_init if cfg.mla is not None else gqa_init)(
+                generator, cfg, dtype, dev),
             "norm2": common.rmsnorm_init(cfg.d_model, dtype, dev, cfg.rmsnorm_one_plus),
         }
         if use_moe:
@@ -116,7 +119,8 @@ class Block(nn.Module):
 
 class Model(nn.Module):
     """A dense GQA decoder, a mixture-of-experts decoder (``arch_type=
-    "moe"``) or a Mamba2 stack (``arch_type="ssm"``) for serving.
+    "moe"``), either with multi-head latent attention (``cfg.mla``), or a
+    Mamba2 stack (``arch_type="ssm"``) for serving.
 
     ``attn_impl`` selects the prefill attention and ``scan_impl`` the SSM
     prefill scan (``auto``: the CUDA kernel for CUDA tensors, the plain

@@ -1,12 +1,16 @@
 """The cached forward of a dense GQA decoder, a mixture-of-experts decoder
-and a Mamba2 stack, and their training forward (port of the dense, MoE and
-SSM branches of ``repro/models/transformer.py``: ``write_slots``, the paged-cache helpers,
-``page_native_ok``, ``attn_block_cached``, ``attn_block_full``,
+(either with multi-head latent attention, ``cfg.mla``) and a Mamba2 stack,
+and their training forward (port of the dense, MoE, MLA and SSM branches
+of ``repro/models/transformer.py``: ``write_slots``, the paged-cache
+helpers, ``page_native_ok``, ``attn_block_cached``, ``attn_block_full``,
 ``ssm_block_full`` / ``ssm_block_step``, ``forward_cached`` and
 ``forward_train``).  An MoE layer (one holding ``moe``) runs
 ``models/moe.py``'s ``moe_apply`` where a dense layer runs its MLP; the
 reference's ``dense_seg`` and ``moe_seg`` are one flat list of layers and
-cache entries here.
+cache entries here.  An MLA layer caches its latent ``c`` and rope key
+``kr`` and reads them in the absorbed form for every query width; a paged
+cache's pools are gathered into the logical view for it (never the
+page-native read, as in the reference).
 
 ``forward_train`` runs the plain attention and the plain SSD scan, as the
 reference's trainer does (its ``Model(cfg, attn_impl="xla")`` and
@@ -16,6 +20,8 @@ Cache layout (built in ``serving/cache.py``)::
 
     {"layers": [ {"k", "v"} per layer ],   # ring: (B, C, Hkv, hd) each
                                            # paged: pools (P, ps, Hkv, hd)
+              | [ {"c", "kr"} per layer ], # MLA: (B, C, kv_lora), (B, C,
+                                           # rope_d); paged: (P, ps, ...)
               | [ {"ssm", "conv": {"x", "bc"}} per layer ],   # arch "ssm"
      "pos": (B, C) int32 slot positions (-1 = empty),
      "cur": 0-dim int64 committed length (the shared ring pointer),
@@ -25,16 +31,18 @@ The JAX reference is pure: a probe's forward returns a new cache that the
 caller drops.  Here K/V are written into the cache tensors in place, so a
 non-committing forward (``commit=False``) builds its ``kv_pos`` as a new
 tensor and leaves ``pos`` and ``cur`` alone, and ``preserved_slots`` puts
-back the slots such a forward overwrites.  ``cur`` stays on the device:
-nothing here reads device data on the host.  A recurrent state has no
-slots: an SSM layer returns a new state, and only a committing forward puts
-it in the cache (replacing the layer's entry, never writing into its
-tensors), so a probe or a rollout leaves the live state as it was.
+back the slots (K/V or latents) such a forward overwrites.  ``cur`` stays
+on the device: nothing here reads device data on the host.  A recurrent
+state has no slots: an SSM layer returns a new state, and only a
+committing forward puts it in the cache (replacing the layer's entry,
+never writing into its tensors), so a probe or a rollout leaves the live
+state as it was.
 
 A committing forward may be masked by ``live``, a 0-dim bool device tensor
 (the masked decode step of a chunk run as one CUDA graph): where it is
-false, every slot write (``pos``, K/V) puts back the value it replaces and
-``cur`` advances by 0, so the forward leaves the cache exactly as it was.
+false, every slot write (``pos``, K/V, latents) puts back the value it
+replaces and ``cur`` advances by 0, so the forward leaves the cache
+exactly as it was.
 """
 from __future__ import annotations
 
@@ -97,10 +105,11 @@ def write_ring(t, slots, new, live=None) -> None:
 
 
 def page_native_ok(cfg: ModelConfig, m: int) -> bool:
-    """True when the page-native decode attention serves this call:
-    decode/probe-sized query widths.  The SAME predicate gates the ring and
-    the paged branches, so both backends pick the same implementation."""
-    return m <= 8
+    """True when the page-native decode attention serves this call: GQA
+    entries (MLA latents keep the gather path) and decode/probe-sized query
+    widths.  The SAME predicate gates the ring and the paged branches, so
+    both backends pick the same implementation."""
+    return cfg.mla is None and m <= 8
 
 
 def _slot_views(cache, slots):
@@ -122,24 +131,25 @@ def _slot_views(cache, slots):
 
 @contextlib.contextmanager
 def preserved_slots(cache, slots):
-    """Run a non-committing forward that writes K/V at ``slots``: on exit,
-    every such slot gets its K/V back.  Only a slot that was live (``pos >=
-    0``: a ring wrap, a probe or rollout past the capacity onto slot 0 and
-    the prompt) needs it, but the save and restore run unconditionally, so
-    no host read of ``pos`` decides them: writing an invisible (``pos ==
-    -1``) slot's old K/V back changes no output."""
-    kv = [e for e in cache["layers"] if "k" in e]
-    if not kv:
+    """Run a non-committing forward that writes K/V (or MLA latents) at
+    ``slots``: on exit, every such slot gets its old values back.  Only a
+    slot that was live (``pos >= 0``: a ring wrap, a probe or rollout past
+    the capacity onto slot 0 and the prompt) needs it, but the save and
+    restore run unconditionally, so no host read of ``pos`` decides them:
+    writing an invisible (``pos == -1``) slot's old values back changes no
+    output.  A recurrent (SSM) entry has no slots."""
+    slotted = [e for e in cache["layers"] if "ssm" not in e]
+    if not slotted:
         yield
         return
     read, write = _slot_views(cache, slots)
-    saved = [(read(e["k"]), read(e["v"])) for e in kv]
+    saved = [{n: read(t) for n, t in e.items()} for e in slotted]
     try:
         yield
     finally:
-        for e, (k, v) in zip(kv, saved):
-            write(e["k"], k)
-            write(e["v"], v)
+        for e, old in zip(slotted, saved):
+            for n, t in old.items():
+                write(e[n], t)
 
 
 # ===================================================================== blocks
@@ -153,8 +163,15 @@ def attn_block_cached(p, x, positions, pos1d, cfg: ModelConfig, entry: dict,
     ``slots`` (masked by ``live``) before the attention read.  ``paged =
     (table, ps, blocks, bpos)`` when the entry holds page pools; ``native``
     selects the page-native read (pools + compacted page list for paged
-    caches, the same block algorithm over the dense ring otherwise)."""
+    caches, the same block algorithm over the dense ring otherwise).  An
+    MLA layer writes its latents instead and reads them in the absorbed
+    form (``_mla_cached``)."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps, cfg.rmsnorm_one_plus)
+    if cfg.mla is not None:
+        x = x + _mla_cached(p["attn"], h, positions, pos1d, cfg, entry, kv_pos,
+                            slots, window=window, attn_impl=attn_impl,
+                            paged=paged, live=live)
+        return ffn_residual(p, x, cfg)[0]
     q, k_new, v_new = att.gqa_qkv(p["attn"], h, positions, cfg)
     scale = att.attn_scale(cfg)
     if paged is not None:
@@ -187,6 +204,30 @@ def attn_block_cached(p, x, positions, pos1d, cfg: ModelConfig, entry: dict,
     return ffn_residual(p, x, cfg)[0]
 
 
+def _mla_cached(p, h, positions, pos1d, cfg: ModelConfig, entry: dict, kv_pos,
+                slots, *, window: int, attn_impl: str, paged: tuple | None,
+                live):
+    """MLA's attention half of a cached block: the new latents ``c`` and
+    ``kr`` written at ``slots`` (masked by ``live``), then the absorbed
+    attention over the ring entry or the gathered view of the pools.
+    Returns y (B, m, d)."""
+    q_nope, q_rope = att.mla_q(p, h, positions, cfg)
+    c_new, kr_new = att.mla_latent(p, h, positions, cfg)
+    if paged is not None:
+        table = paged[0]
+        scatter_pages(entry["c"], table, slots, c_new, live)
+        scatter_pages(entry["kr"], table, slots, kr_new, live)
+        cache_c = gather_pages(entry["c"], table)
+        cache_kr = gather_pages(entry["kr"], table)
+    else:
+        write_ring(entry["c"], slots, c_new, live)
+        write_ring(entry["kr"], slots, kr_new, live)
+        cache_c, cache_kr = entry["c"], entry["kr"]
+    return att.mla_absorbed_attend(p, q_nope, q_rope, pos1d, cfg, cache_c,
+                                   cache_kr, kv_pos, window=window,
+                                   attn_impl=attn_impl)
+
+
 def ffn_residual(p, x, cfg: ModelConfig):
     """The block's second half: ``x + FFN(norm2(x))``, the FFN an MoE where
     the layer holds ``moe`` and its MLP otherwise.  Returns (x, the MoE's
@@ -201,9 +242,13 @@ def ffn_residual(p, x, cfg: ModelConfig):
 def attn_block_full(p, x, positions, pos1d, cfg: ModelConfig, *,
                     window: int = 0):
     """One full-sequence decoder block (training): causal self-attention
-    over the block's own keys by the plain attention, then the MLP or the
-    MoE.  Returns (x, aux loss or None)."""
+    over the block's own keys by the plain attention (MLA in its expanded
+    form), then the MLP or the MoE.  Returns (x, aux loss or None)."""
     h = rmsnorm(x, p["norm1"], cfg.norm_eps, cfg.rmsnorm_one_plus)
+    if cfg.mla is not None:
+        y, _ = att.mla_self_attention(p["attn"], h, positions, pos1d, cfg,
+                                      window=window)
+        return ffn_residual(p, x + y, cfg)
     q, k, v = att.gqa_qkv(p["attn"], h, positions, cfg)
     o = attention_plain(q, k, v, pos1d, pos1d, causal=True, window=window,
                         scale=att.attn_scale(cfg))

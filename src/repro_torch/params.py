@@ -7,7 +7,10 @@ stacks every layer leaf along a leading ``(L, ...)`` axis
 under ``stack/dense_layers`` and the rest under ``stack/moe_layers`` (no
 ``dense_layers`` when there are none), which the port keeps as one flat
 list, dense layers first.  Expert leaves keep their ``(E, d_in, d_out)``
-layout under the layer axis.  Weights keep JAX's ``(d_in, d_out)`` layout on both
+layout under the layer axis; an MLA layer's ``attn`` holds the reference's
+nine leaves (``w_dq``, ``q_norm``, ``w_uq``, ``w_dkv``, ``kv_norm``,
+``w_kr``, ``w_uk``, ``w_uv``, ``wo``), carried like any other.
+Weights keep JAX's ``(d_in, d_out)`` layout on both
 sides, so nothing is transposed.  A tied config has no ``lm_head``: the
 port unembeds through the transposed embedding view, as the reference does.
 Each leaf keeps its own dtype: a bfloat16 model's SSM ``dt_bias``,

@@ -1,10 +1,11 @@
 """Decode-state allocation: the ring KV cache and the block-paged variant
-for the dense GQA decoder, and the recurrent state of a Mamba2 stack (port
-of ``repro/serving/cache.py``).
+for the GQA and MLA decoders, and the recurrent state of a Mamba2 stack
+(port of ``repro/serving/cache.py``).
 
 Layout (consumed by ``models.transformer.forward_cached``)::
 
     cache = {"layers": [{"k", "v"} per layer]
+                     | [{"c", "kr"} per layer],                     # cfg.mla
                      | [{"ssm", "conv": {"x", "bc"}} per layer],   # arch "ssm"
              "pos": (B, C) int32 — absolute position held in each slot, -1 = empty,
              "cur": 0-dim int64 on the cache's device — committed length
@@ -13,10 +14,12 @@ Layout (consumed by ``models.transformer.forward_cached``)::
 
 SSM: ``ssm`` is the (B, nh, N, hp) float32 scan state, ``conv`` the
 (B, w-1, ·) causal-conv tails; there is no capacity axis, so no paged
-variant.  Ring: each layer's ``k``/``v`` is (B, C, Hkv, hd).  Paged: the
-same logical addressing, but ``k``/``v`` are page POOLS (num_pages,
-page_size, Hkv, hd) shared by all rows, plus a ``page_table`` (B, NB) int32
-mapping each row's logical block ``slot // page_size`` to a physical page;
+variant.  Ring: each layer's ``k``/``v`` is (B, C, Hkv, hd); an MLA
+layer's latent ``c`` (B, C, kv_lora) and rope key ``kr`` (B, C, rope_d).
+Paged: the same logical addressing, but each slot tensor is a page POOL
+(num_pages, page_size, ...) shared by all rows, plus a ``page_table`` (B,
+NB) int32 mapping each row's logical block ``slot // page_size`` to a
+physical page;
 page 0 is the trash page whose every read is position-masked.  Page-native reads additionally
 carry the compacted mapped-page list ``blocks`` (``blocks_arrays``).
 
@@ -79,10 +82,17 @@ class CacheConfig:
                              f"{'/'.join(ATTN_IMPLS)}, got {self.attn_impl!r}")
 
 
-def _kv(cfg: ModelConfig, lead: tuple, dtype, device) -> dict:
-    shape = lead + (cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+def _attn_entry(cfg: ModelConfig, lead: tuple, dtype, device) -> dict:
+    """One attention layer's slot tensors, ``lead`` = (B, C) or (num_pages,
+    page_size): K and V (..., Hkv, hd), or MLA's latent ``c`` (...,
+    kv_lora) and shared rope key ``kr`` (..., rope_d)."""
+    if cfg.mla is not None:
+        tails = {"c": (cfg.mla.kv_lora_rank,), "kr": (cfg.mla.qk_rope_head_dim,)}
+    else:
+        kv = (cfg.n_kv_heads, cfg.resolved_head_dim)
+        tails = {"k": kv, "v": kv}
+    return {n: torch.zeros(lead + t, dtype=dtype, device=device)
+            for n, t in tails.items()}
 
 
 def _cur(device) -> torch.Tensor:
@@ -98,7 +108,7 @@ def alloc_cache(cfg: ModelConfig, batch: int, capacity: int, *, device,
         layers = [ssm_state_init(cfg, batch, dtype, device)
                   for _ in range(cfg.n_layers)]
     else:
-        layers = [_kv(cfg, (batch, capacity), dtype, device)
+        layers = [_attn_entry(cfg, (batch, capacity), dtype, device)
                   for _ in range(cfg.n_layers)]
     return {
         "pos": torch.full((batch, capacity), -1, dtype=torch.int32, device=device),
@@ -138,7 +148,7 @@ def alloc_paged_cache(cfg: ModelConfig, batch: int, capacity: int,
         "cur": _cur(device),
         "page_table": torch.full((batch, NB), PAGE_TRASH, dtype=torch.int32,
                                  device=device),
-        "layers": [_kv(cfg, (num_pages, page_size), dtype, device)
+        "layers": [_attn_entry(cfg, (num_pages, page_size), dtype, device)
                    for _ in range(cfg.n_layers)],
     }
     return cache
@@ -160,8 +170,7 @@ def pack_paged_cache(paged: dict, dense: dict, table) -> dict:
     paged["cur"].copy_(dense["cur"])
     idx = table[:, :nbp].long()
     for pe, de in zip(paged["layers"], dense["layers"]):
-        for name in ("k", "v"):
-            src = de[name]
+        for name, src in de.items():
             B = src.shape[0]
             pe[name][idx] = src.reshape((B, nbp, ps) + tuple(src.shape[2:])).to(
                 pe[name].dtype)
@@ -187,8 +196,8 @@ def merge_paged_row(cache: dict, one: dict, row: int, row_table) -> dict:
     torch.maximum(cache["cur"], one["cur"], out=cache["cur"])
     idx = row_table[:nbp].long()
     for pe, oe in zip(cache["layers"], one["layers"]):
-        for name in ("k", "v"):
-            src = oe[name][0]
+        for name, t in oe.items():
+            src = t[0]
             pe[name][idx] = src.reshape((nbp, ps) + tuple(src.shape[1:])).to(
                 pe[name].dtype)
     return cache
@@ -214,14 +223,14 @@ def cache_leaves(cache: dict) -> list:
 
 def reset_cache(cache: dict) -> dict:
     """Empty ``cache`` in place: every slot empty (``pos`` -1), ``cur`` 0,
-    the page table all-trash, recurrent states zero.  K/V stay as they
-    are: a slot with ``pos`` -1 is masked out of every read."""
+    the page table all-trash, recurrent states zero.  K/V and MLA latents
+    stay as they are: a slot with ``pos`` -1 is masked out of every read."""
     cache["pos"].fill_(-1)
     cache["cur"].zero_()
     if "page_table" in cache:
         cache["page_table"].fill_(PAGE_TRASH)
     for e in cache["layers"]:
-        if "k" not in e:
+        if "ssm" in e:
             for t in _leaves(e):
                 t.zero_()
     return cache

@@ -798,7 +798,7 @@ def _graph_key(tag, cache) -> tuple:
     page-list bucket width."""
     blocks = cache.get("blocks")
     paged = "page_table" in cache
-    pool = tuple(cache["layers"][0]["k"].shape[:2]) if paged else ()
+    pool = tuple(next(iter(cache["layers"][0].values())).shape[:2]) if paged else ()
     return (tag, tuple(cache["pos"].shape), paged, pool,
             0 if blocks is None else blocks["pages"].shape[1])
 
