@@ -17,7 +17,8 @@ imports nothing of JAX or of the JAX package.  Phases:
    library-call times with CUDA events, and the roofline bound.  Flash
    prints the variant it launched (``ops.flash_variant``: the bf16
    tensor-core kernel, or the scalar kernel for float32) and the ptxas
-   registers and spills of every flash instantiation.  The paged kernel
+   registers and spills of every flash instantiation (the MLA kernel's
+   too; phase 6b drives it).  The paged kernel
    runs the decode (m 1) and probe (m 2) reads over ~40 pages per row and
    a decode over 128 pages, each row with two whole splits of logical
    blocks unmapped; each line gives the split count and grid, and dense
@@ -145,19 +146,22 @@ DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
    and 160 routed + 2 shared experts; the 8B model freed first): the flash
    kernel at MLA's absorbed shapes (128 q heads of 576 against one kv head,
    values the 512-wide latent; the cohort prefill, m 512 over 512 slots,
-   and a decode, m 1 over the serve's 704-slot view) and at the expanded
-   training shape (192/128), bf16 and float32, every call on the scalar
-   kernel, against the plain version and timed in turns with SDPA
-   (``[kernels] mla`` lines); kernel path vs plain path at full width
+   and a decode, m 1 over the serve's 704-slot view, split over the keys),
+   bf16 on the MLA kernel (``flash_mla_kernel``, its ptxas lines printed)
+   and float32 on the scalar one, and at the expanded training shape
+   (192/128) on the scalar kernel, against the plain version and timed in
+   turns with SDPA (``[kernels] mla`` lines); kernel path vs plain path at full width
    (float32 cut to 2 layers, 1e-5; bf16 at 8 layers within
    ``MOE_BF16_TOL``, the logits with shared expert routes); seeded random
    weights at full width and 8 of 60 layers (``MLA_LAYERS``: 58.38 GB of
    weights, what one card holds), served as phase 5b serves (``serve_cell``):
    cold, warm and eager paged self-EAT serves of phase 4's traffic, warm ==
-   eager bitwise, 0 captures, flash 8 scalar launches per forward and none
-   on the tensor cores, no paged read (MLA reads the gathered view), every
-   entropy call mma, a profiled serve (``[profile mla]``), a ring serve
-   bitwise the paged one, tokens/s, chunk ms and the phase's peak memory;
+   eager bitwise, 0 captures, flash 8 ``mla`` launches per forward and
+   none ``mma`` or ``scalar``, no paged read (MLA reads the gathered view),
+   every entropy call mma, 3 eager and 3 warm graph serves in turns, a
+   profiled serve (``[profile mla]``, with flash's share of the device
+   time), a ring serve bitwise the paged one, tokens/s, chunk ms and the
+   phase's peak memory;
 7. the training path (``[train]`` lines, each with the card's name and
    power limit), the 8B model freed first: the training forward (plain
    attention, as the reference's trainer runs) against ``Model.prefill`` +
@@ -1123,7 +1127,8 @@ def serve_workload(np, n_req=8, vocab=151_936, seed=0):
 
 #: the kernels one op call of each wrapper launches (a first kernel of each
 #: variant, and the kernels every call of it launches)
-PROFILED = {"flash_attention": (("flash_mma_kernel", "flash_kernel"), ()),
+PROFILED = {"flash_attention": (("flash_mma_kernel", "flash_mla_kernel", "flash_kernel"),
+                                ()),
             "paged_attention": (("paged_max_kernel",),
                                 ("paged_fold_kernel", "paged_merge_kernel")),
             "entropy_probe": (("entropy_mma_kernel", "tile_stats_kernel"),
@@ -1214,6 +1219,11 @@ def profile_serve(torch, serve, unprofiled_s: float, path: Path | None, tag: str
     print(f"[{tag}] device busy {busy_ms:.1f} ms: {busy_ms / 1e3 / wall:.1%} of "
           f"the profiled serve ({wall:.3f} s), {busy_ms / 1e3 / unprofiled_s:.1%} "
           f"of the unprofiled one ({unprofiled_s:.3f} s)")
+    flash_ms = sum(e.self_device_time_total for e in events
+                   if e.device_type == DeviceType.CUDA
+                   and e.key.removeprefix("void ").startswith(ours + "flash_")) / 1e3
+    print(f"[{tag}] flash kernels {flash_ms:.1f} ms of device time: "
+          f"{flash_ms / busy_ms:.1%} of the busy {busy_ms:.1f} ms")
     return counted
 
 
@@ -1463,7 +1473,7 @@ def moe_kernel_checks(torch, F, fa, pa, ep) -> dict:
     before = dict(fa.flash_attention_cuda.variant_launches)
     out = fa.flash_attention_cuda(*args, scale=scale)
     after = fa.flash_attention_cuda.variant_launches
-    if {x: after[x] - before[x] for x in after} != {"mma": 1, "scalar": 0}:
+    if {x: after[x] - before[x] for x in after} != {"mma": 1, "mla": 0, "scalar": 0}:
         bad.append(f"flash_attention g=1: launched {after} (before {before}), not one mma")
     ref = fa.attention_plain(*args, scale=scale)
     spread = fa.attention_plain(c["q"], c["k"], c["v"].abs(), c["q_pos"], c["kv_pos"],
@@ -1721,7 +1731,7 @@ def moe_phase(torch, np, F, kernels: dict, phases: dict, card: str,
     L = cfg.n_layers
     profiled = serve_cell(
         torch, np, model, probe, prompts, lens, kernels, phases, card, key="moe",
-        flash_want=lambda forwards, prefills: {"mma": L * prefills, "scalar": 0},
+        flash_want=lambda forwards, prefills: {"mma": L * prefills, "mla": 0, "scalar": 0},
         flash_text=f"{L} mma per prefill", paged_want=None,
         profile_path=Path(profile_dir) / "profile_moe.txt" if profile_dir else None)
     del model
@@ -1747,7 +1757,7 @@ def phase_end(torch, phases: dict, key: str, name: str, base: int, t_phase: floa
 
 def serve_cell(torch, np, model, probe, prompts, lens, kernels: dict, phases: dict,
                card: str, *, key: str, flash_want, flash_text: str, paged_want,
-               profile_path) -> dict:
+               profile_path, turns: int = 0) -> dict:
     """Phase 4's traffic (8 requests, 4 slots, budget 64, chunk 16, page 16,
     greedy, an EAT probe every 8 tokens, exit at the 2nd evaluation,
     answers of 4) on ``model``, paged self-EAT, as cold graph, warm graph
@@ -1756,8 +1766,10 @@ def serve_cell(torch, np, model, probe, prompts, lens, kernels: dict, phases: di
     reused, at least one EAT exit, flash's launches per variant in the warm
     serve ``flash_want(model forwards, prefills)``, every entropy call
     mma, paged launched (``paged_want`` None) or launched ``paged_want``
-    times; one more warm serve under the profiler, its counts checked; then
-    a ring serve of the same traffic, bitwise the paged streams.
+    times; ``turns`` eager and warm graph serves in turns (eager first),
+    each bitwise the warm serve; one more warm serve under the profiler,
+    its counts checked; then a ring serve of the same traffic, bitwise the
+    paged streams.
     Prints under ``[serve]``, ``[chunk]``, ``[rollout]``, ``[graphs]`` and
     ``[profile {key}]``; readings go to ``phases`` under ``key``.  Frees
     its engines.  Returns the profiled serve's launches."""
@@ -1856,6 +1868,20 @@ def serve_cell(torch, np, model, probe, prompts, lens, kernels: dict, phases: di
           f"{json.dumps(launches)} (flash per variant {json.dumps(flash_variants)}: "
           f"{flash_text}: {prefills} prefills, {forwards} forwards; entropy per variant "
           f"{json.dumps(entropy_variants)})")
+    walls = {"eager": [], "graph": []}
+    for _ in range(turns):
+        for mode in walls:
+            r, wall, _ = serve(eng, watch, f"{mode} serve in turns", eager=mode == "eager")
+            check(same_results(r, res, np), f"{cfg.name}: the {mode} serve in turns "
+                  f"differs from the warm graph serve")
+            walls[mode].append(wall)
+    if turns:
+        print(f"[serve] {cfg.name} paged walls in turns (eager, graph) x {turns}: "
+              + "; ".join(f"{mode} {statistics.median(w):.3f} s (range {min(w):.3f}-"
+                          f"{max(w):.3f}: {', '.join(f'{x:.3f}' for x in w)})"
+                          for mode, w in walls.items()) + f" ({card})")
+        phases[f"{key}_graph_turns_s"] = statistics.median(walls["graph"])
+        phases[f"{key}_eager_turns_s"] = statistics.median(walls["eager"])
     profiled = profile_serve(
         torch, lambda: serve(eng, watch, "profiled serve")[:2], warm_s,
         profile_path, f"profile {key}", kernels)
@@ -2054,8 +2080,8 @@ MLA_LAYERS = 8
 def mla_attn_case(torch, dtype, m, C, *, expanded=False, seed=0):
     """Flash inputs at MLA's shapes, for the serve's B 4 rows and H 128
     heads.  Absorbed (the serving path): q (B, m, H, 576) against one kv
-    head, k = cat(c, kr) (B, C, 1, 576) and v = c (B, C, 1, 512), as
-    ``mla_absorbed_attend`` builds them.  Expanded (the training forward):
+    head, k = cat(c, kr) (B, C, 1, 576) and v = c, the view k[..., :512]
+    (B, C, 1, 512), as ``mla_absorbed_attend`` builds them.  Expanded (the training forward):
     q and k (B, C, H, 192), v (B, C, H, 128).  m == C: a left-padded
     prefill (row b has 64 b pad slots); m < C: the m newest of row b's
     C - 100 b tokens (the rest of the ring empty)."""
@@ -2069,7 +2095,8 @@ def mla_attn_case(torch, dtype, m, C, *, expanded=False, seed=0):
         q, k, v = rnd(B, m, H, 192), rnd(B, C, H, 192), rnd(B, C, H, 128)
     else:
         q, c, kr = rnd(B, m, H, 576), rnd(B, C, 512), rnd(B, C, 64)
-        k, v = torch.cat([c, kr], dim=-1)[:, :, None, :], c[:, :, None, :]
+        k = torch.cat([c, kr], dim=-1)[:, :, None, :]
+        v = k[..., :512]
     ar = torch.arange(C, device="cuda", dtype=torch.int32)[None]
     rows = torch.arange(B, device="cuda", dtype=torch.int32)[:, None]
     if m == C:
@@ -2083,19 +2110,25 @@ def mla_attn_case(torch, dtype, m, C, *, expanded=False, seed=0):
     return dict(q=q, k=k, v=v, q_pos=q_pos, kv_pos=kv_pos)
 
 
-def mla_kernel_checks(torch, F, fa, capacity: int) -> dict:
-    """Phase 6b's flash checks: the scalar kernel at the absorbed shapes of
+def mla_kernel_checks(torch, F, fa, capacity: int, ptxas: list[str]) -> dict:
+    """Phase 6b's flash checks at the absorbed shapes of
     ``deepseek-v2-236b``'s serve (the cohort prefill, m 512 over 512 slots;
-    a decode, m 1 over the paged view of ``capacity`` slots) and at the
-    expanded training shape (192/128, 128 kv heads), bf16 and float32, each
-    against the plain version within phase 3's bars (float32 1e-5; bf16 one
-    ulp + 2^-7 x the attention of |v|).  Each case is timed by CUDA-graph
-    replay, in turns with SDPA where SDPA takes the shape (3 rounds,
-    medians), the plain version by CUDA events, with its bound.  Returns
+    a decode, m 1 over the paged view of ``capacity`` slots), bf16 on the
+    MLA kernel (``"mla"``; the decode split over the keys, its split count
+    printed) and float32 on the scalar kernel, and at the expanded training
+    shape (192/128, 128 kv heads), both on the scalar kernel; each against
+    the plain version within phase 3's bars (float32 1e-5; bf16 one ulp +
+    2^-7 x the attention of |v|).  Each case is timed by CUDA-graph replay,
+    in turns with SDPA where SDPA takes the shape (3 rounds, medians;
+    whether the two ranges overlap is printed), the plain version by CUDA
+    events, with its bound (the absorbed v is a view of k: its bytes are
+    k's).  ``ptxas``: the MLA kernels' ptxas lines, printed first.  Returns
     the flash record: the bf16 prefill's readings, with ``decode`` and
     ``expanded`` records beside them."""
     scale = 1.0 / math.sqrt(128 + 64)
     bad, recs = [], {}
+    for line in ptxas:
+        print(f"[kernels] mla flash_attention ptxas {line}")
     cases = [("prefill", 512, 512, False), ("decode", 1, capacity, False),
              ("expanded", 512, 512, True)]
     for what, m, C, expanded in cases:
@@ -2103,6 +2136,9 @@ def mla_kernel_checks(torch, F, fa, capacity: int) -> dict:
             dn = str(dtype).removeprefix("torch.")
             c = mla_attn_case(torch, dtype, m, C, expanded=expanded)
             args = (c["q"], c["k"], c["v"], c["q_pos"], c["kv_pos"])
+            want = fa.flash_variant(dtype, c["q"].shape[-1], c["v"].shape[-1])
+            check(want == ("mla" if dtype == torch.bfloat16 and not expanded
+                           else "scalar"), f"mla {what} {dn}: routed to {want}")
             before = dict(fa.flash_attention_cuda.variant_launches)
             out = fa.flash_attention_cuda(*args, scale=scale)
             after = fa.flash_attention_cuda.variant_launches
@@ -2115,9 +2151,11 @@ def mla_kernel_checks(torch, F, fa, capacity: int) -> dict:
             B, _, Hq, Dk = c["q"].shape
             Hkv, Dv = c["k"].shape[2], c["v"].shape[-1]
             label = f"{what} {dn} B{B} m{m} C{C} Hq{Hq} Hkv{Hkv} Dk{Dk} Dv{Dv}"
-            if launched != {"mma": 0, "scalar": 1} or not ok:
+            if launched != {x: int(x == want) for x in launched} or not ok:
                 bad.append(f"{label}: launched {launched}, max abs err {err:.3e} ({tol})")
-            per_set = nbytes(*args) + nbytes(out)
+            # each input read once: an absorbed v is k's first 512 columns
+            per_set = (nbytes(c["q"], c["k"], c["q_pos"], c["kv_pos"], out)
+                       + (0 if fa.is_k_prefix(c["v"], c["k"]) else nbytes(c["v"])))
             sets = [c] + [mla_attn_case(torch, dtype, m, C, expanded=expanded, seed=s)
                           for s in range(1, n_sets(per_set))]
             calls = [lambda s=s: fa.flash_attention_cuda(
@@ -2139,8 +2177,10 @@ def mla_kernel_checks(torch, F, fa, capacity: int) -> dict:
             if lib_calls:
                 k_t, l_t = in_turns(torch, calls, lib_calls, rounds=3, reps=reps)
                 k_ms, l_ms = statistics.median(k_t), statistics.median(l_t)
+                apart = max(k_t) < min(l_t) or max(l_t) < min(k_t)
                 timing = (f"graph replay in turns, 3 rounds: kernel {turns_text(k_t)}, "
-                          f"sdpa {turns_text(l_t)}")
+                          f"sdpa {turns_text(l_t)}, kernel / sdpa {k_ms / l_ms:.4f}, "
+                          f"ranges {'apart' if apart else 'overlap'}")
             else:
                 k_ms, l_ms = graph_ms(torch, calls, reps), None
                 timing = f"kernel {k_ms:.4f} ms (graph replay), sdpa {lib or 'not timed'}"
@@ -2148,12 +2188,15 @@ def mla_kernel_checks(torch, F, fa, capacity: int) -> dict:
                            iters=3, warmup=1)
             pairs = valid_pairs(torch, c["q_pos"], c["kv_pos"])
             b_ms, b_by = bound_ms(per_set, pairs * Hq * 2 * (Dk + Dv), dn)
-            print(f"[kernels] mla flash_attention {label} variant scalar: max_abs_err "
+            n_split = fa.mla_splits(B, m, Hq, Hkv, C) if want == "mla" else 0
+            splits = (f" ({n_split} splits of {fa.MLA_SPLIT_KEYS} keys + merge)"
+                      if n_split else "")
+            print(f"[kernels] mla flash_attention {label} variant {want}{splits}: max_abs_err "
                   f"{err:.3e} ({tol}); {timing}; plain {p_ms:.4f} ms; bound "
                   f"{b_ms:.4f} ms ({b_by}: {pairs} valid pairs x {Hq} heads, "
                   f"{per_set / 1e6:.1f} MB), kernel at {b_ms / k_ms:.4f} of it")
             recs[what, dn] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                  bound_by=b_by, library_ms=l_ms)
+                                  bound_by=b_by, library_ms=l_ms, variant=want)
             del c, sets, calls, lib_calls, out, ref, spread
             torch.cuda.empty_cache()
     check(not bad, "mla flash kernel vs plain: " + "; ".join(bad))
@@ -2174,10 +2217,11 @@ def mla_phase(torch, np, F, kernels: dict, phases: dict, card: str,
     (float32 cut to 2 layers, 1e-5; bf16 at 8 layers within
     ``MOE_BF16_TOL``, the logits with the plain path's expert routes on both
     paths); then ``serve_cell``: the paged self-EAT serve of phase 4's
-    traffic, every flash call the scalar kernel (8 per forward: prefills,
-    decodes, probes and rollouts all attend through the absorbed form), no
-    paged read (MLA keeps the gather path), every entropy call mma, and a
-    ring serve bitwise the paged one.  Returns {"launches": the profiled
+    traffic, every flash call the MLA kernel (8 per forward: prefills,
+    decodes, probes and rollouts all attend through the absorbed form) and
+    none scalar, no paged read (MLA keeps the gather path), every entropy
+    call mma, 3 eager and 3 warm graph serves in turns, and a ring serve
+    bitwise the paged one.  Returns {"launches": the profiled
     serve's counts, "flash": the kernel record}."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.eat import make_probe
@@ -2192,7 +2236,11 @@ def mla_phase(torch, np, F, kernels: dict, phases: dict, card: str,
     full = get_config("deepseek-v2-236b")
     prompts, lens = serve_workload(np, vocab=full.vocab)
     capacity = SlotScheduler.required_capacity(prompts.shape[1], len(lens), 4, 64)
-    rec = mla_kernel_checks(torch, F, fa, capacity)
+    from repro_torch.kernels import _build
+
+    ptxas = [line for kernel in ("flash_mla_kernel", "flash_mla_merge_kernel")
+             for line in ptxas_report(_build.BUILD_LOG.get("flash_attention", ""), kernel)]
+    rec = mla_kernel_checks(torch, F, fa, capacity, ptxas)
 
     # float32, full width, depth cut to 2 layers (1 dense, 1 MoE: 21.4 GB)
     cfg32 = dataclasses.replace(full, name=full.name + "-2L-f32", n_layers=2,
@@ -2220,8 +2268,8 @@ def mla_phase(torch, np, F, kernels: dict, phases: dict, card: str,
     L = cfg.n_layers
     profiled = serve_cell(
         torch, np, model, probe, prompts, lens, kernels, phases, card, key="mla",
-        flash_want=lambda forwards, prefills: {"mma": 0, "scalar": L * forwards},
-        flash_text=f"{L} scalar per forward", paged_want=0,
+        flash_want=lambda forwards, prefills: {"mma": 0, "mla": L * forwards, "scalar": 0},
+        flash_text=f"{L} mla per forward", paged_want=0, turns=3,
         profile_path=Path(profile_dir) / "profile_mla.txt" if profile_dir else None)
     del model
     phase_end(torch, phases, "mla", cfg.name, base, t_phase, card)
@@ -2531,7 +2579,8 @@ def main() -> None:
 
     # ---- 3. kernels vs plain at main-path shapes
     t0 = time.perf_counter()
-    flash_ptxas = [line for kernel in ("flash_mma_kernel", "flash_kernel")
+    flash_ptxas = [line for kernel in ("flash_mma_kernel", "flash_mla_kernel",
+                                       "flash_mla_merge_kernel", "flash_kernel")
                    for line in ptxas_report(_build.BUILD_LOG.get("flash_attention", ""),
                                             kernel)]
     paged_ptxas = [line for kernel in ("paged_max_kernel", "paged_fold_kernel",
@@ -2777,7 +2826,7 @@ def main() -> None:
     def check_flash_variants(what, counts, per_prefill):
         """Every flash launch of a bf16 serve is the tensor-core kernel:
         one per layer per prefill of each model, none scalar."""
-        want = {"mma": per_prefill * prefills, "scalar": 0}
+        want = {"mma": per_prefill * prefills, "mla": 0, "scalar": 0}
         check(counts == want, f"{what}: flash launches per variant {counts}, "
               f"expected {want} ({per_prefill} per prefill x {prefills} prefills)")
 
@@ -3004,6 +3053,7 @@ def main() -> None:
                               "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                               "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                               "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+                              "variant": m["variant"],
                               "decode": m["decode"], "expanded": m["expanded"],
                               "float32_ms": m["float32_ms"]}
         if name in moe["launches"]:

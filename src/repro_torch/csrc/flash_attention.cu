@@ -7,7 +7,7 @@
 // and (window > 0) less than `window` positions behind it.  q head h reads
 // kv head h / g.  Dv may differ from Dk.  Rows with no valid key give 0.
 //
-// Two kernels, chosen by the wrapper's rule (ops.flash_variant):
+// Three kernels, chosen by the wrapper's rule (ops.flash_variant):
 //
 // * flash_mma_kernel: bfloat16 at the head dims instantiated below, on the
 //   tensor cores (mma.sync.m16n8k16, bf16 in, float32 accumulate).  One
@@ -20,10 +20,49 @@
 //   across the 4 threads of a quad), and P is re-packed from the S
 //   accumulators into the A-fragments of P V (the C layout of m16n8 is the
 //   A layout of m16n8k16), with V fragments from ldmatrix.trans.
+// * flash_mla_kernel (+ flash_mla_merge_kernel at decode): bfloat16 at
+//   MLA's absorbed pairs (Dk, Dv) = (kv_lora + rope, kv_lora) instantiated
+//   below: 128 q heads against ONE kv head of 576, V the first 512 columns
+//   of K (the latent c of cat(c, kr)).  Described below.
 // * flash_kernel: the first, scalar kernel: float32 FMAs from shared
 //   memory.  It serves float32 (the tensor cores would compute in TF32,
 //   about 3 decimal digits, short of the 1e-5 float32 bar) and bf16 head
-//   dims outside the instantiated set.
+//   dims outside the instantiated sets (MLA's expanded 192/128 among them).
+//
+// The MLA kernel.  flash_mma_kernel's block is 64 queries of one q head:
+// at MLA's shape each block would read every key tile of the one shared kv
+// head for itself, 128 times over, and a decode (m 1) would fill one row
+// in 64.  So rows of a block are (query position, q head) pairs of one kv
+// head, as decode_mma_kernel takes rows = m * g: 64 consecutive rows, i.e.
+// 64 heads of one position at g = 128, and each key tile is read once for
+// them.  The 64 x 576 q tile stays in shared memory (74,752 B with 16-byte
+// row padding; in registers it would not fit beside the accumulator); 32-key
+// K tiles are double-buffered by cp.async (37,376 B each), 149.5 KB in all,
+// one block per SM.  V is not loaded: P V reads the K tile's first 512
+// columns again through ldmatrix.trans, so the op takes v only as the view
+// k[..., :Dv] (ops.flash_attention_cuda checks it).  The 64 x 512 float32
+// accumulator is 128 KB of registers: 8 warps, 4 row groups of 16 rows x 2
+// column halves of 256, 128 accumulator registers a thread (FlashMLA's
+// layout of a 64-row tile).  The two warps of a row group both compute S =
+// Q K^T for their rows (one FMA order, the same bits), which doubles the QK
+// products (1.5x the MMA work) but needs no exchange of row statistics or
+// probabilities through shared memory and no barrier between them.
+// At decode (m 1, B 4: 8 row tiles for 132 SMs) the keys are split: the
+// wrapper asks for splits of MLA_SPLIT_KEYS keys (a fixed multiple of the
+// key tile, never derived from Skv) whenever the grid has fewer row tiles
+// than the card has SMs, a rule of B, m and the heads alone; each split
+// writes its unnormalised (m, l, acc) rows and flash_mla_merge_kernel folds
+// them in increasing split order.  Splits and tiles are aligned at key 0,
+// and an empty tile or split is an exact identity step, so a gathered paged
+// view and a ring of another length give the same bits (see below).
+// What bounds it on the H100: bytes.  The cohort prefill (B 4, m 512, 128
+// heads, 357,184 valid causal pairs): q and out are 570 MB (0.17 ms at 3.35
+// TB/s) against 99.5 GFLOP (0.10 ms at 989 TFLOP/s; mma.sync with S computed
+// twice runs at well under half of that, so in practice the products bound
+// it: the design keeps each block's products on the tensor cores with the K
+// tile read once per 64 rows).  A decode (m 1 over 704 slots): 4.4 MB of q,
+// the latent cache and out, 0.0013 ms, where launch latency and the split
+// count decide.
 //
 // Both round where the plain version rounds: q times the bf16-rounded
 // scale, rounded to the storage type; float32 scores, masked to -1e30
@@ -566,6 +605,390 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ mla
+// The bf16 tensor-core kernel for MLA's absorbed attention (see the header).
+// Rows of a block are (query position, q head) pairs of one kv head: row r
+// of the m * g rows of (b, kv head) is position r / g, q head hk * g + r % g.
+// Warp w owns rows 16 (w % 4) .. + 16 and output columns (w / 4) * DV / 2 ..
+// + DV / 2; the two warps of a row group compute the same S for their rows
+// (one FMA order: the same bits), so each has every p of its rows in
+// registers without an exchange through shared memory.  V is K's first DV
+// columns: the K tile in shared memory is read again, transposed, for P V.
+
+constexpr int MLA_THREADS = 256;     // 8 warps: 4 row groups x 2 column halves
+constexpr int MLA_BM = 64;           // rows per block
+constexpr int MLA_BN = 32;           // keys per K tile
+constexpr int MLA_SPLIT_KEYS = 64;   // keys per split (ops.MLA_SPLIT_KEYS)
+constexpr int MLA_MERGE_WARPS = 8;   // merge: one row per warp
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+template <int DK>
+struct MlaSmem {
+  static constexpr int LD = DK + PAD;  // q tile (then the output), K tiles
+  static constexpr size_t Q_BYTES = (size_t)MLA_BM * LD * 2;
+  static constexpr size_t K_BYTES = (size_t)MLA_BN * LD * 2;  // per buffer
+  // q | K[2] | key positions [2][MLA_BN] | qmin, qmax x 2, count | tiles
+  static size_t bytes(int n_tiles) {
+    return Q_BYTES + 2 * K_BYTES + (2 * MLA_BN + 5 + (size_t)n_tiles) * sizeof(int);
+  }
+};
+
+// part_acc == nullptr: the whole key range, acc / l written to out (bf16).
+// Otherwise blockIdx.z is a split of MLA_SPLIT_KEYS keys, and the block
+// writes its unnormalised (m, l, acc) rows to part_ml / part_acc at
+// [(b * Hkv + hk) * n_split + split] * rows + r for flash_mla_merge_kernel.
+template <int DK, int DV>
+__global__ void __launch_bounds__(MLA_THREADS, 1) flash_mla_kernel(
+    const __nv_bfloat16* __restrict__ q,  // (B, Sq, Hq, DK)
+    const __nv_bfloat16* __restrict__ k,  // (B, Skv, Hkv, DK); V = k[..., :DV]
+    const int* __restrict__ q_pos,        // (B, Sq)
+    const int* __restrict__ kv_pos,       // (B, Skv)
+    __nv_bfloat16* __restrict__ out,      // (B, Sq, Hq, DV)
+    float* __restrict__ part_ml, float* __restrict__ part_acc,
+    int Sq, int Skv, int Hq, int Hkv, int causal, int window, float scale) {
+  static_assert(DK % 16 == 0 && DV % 32 == 0 && DV <= DK,
+                "DK a multiple of 16, DV of 32, V inside K's row");
+  using L = MlaSmem<DK>;
+  constexpr int KS = DK / 16;         // k-steps of S = Q K^T
+  constexpr int NS = MLA_BN / 8;      // n8 tiles of S
+  constexpr int HALF = DV / 2;        // output columns per warp
+  constexpr int NO = HALF / 8;        // n8 tiles of a warp's output
+
+  const int gq = Hq / Hkv, rows = Sq * gq;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * MLA_BM;  // longest rows first
+  const int bh = blockIdx.y, b = bh / Hkv, hk = bh - b * Hkv;
+  const bool split = part_acc != nullptr;
+  const int k_lo = split ? blockIdx.z * MLA_SPLIT_KEYS : 0;
+  const int k_hi = split ? min(Skv, k_lo + MLA_SPLIT_KEYS) : Skv;
+  const int t_lo = k_lo / MLA_BN;
+  const int n_tiles = max(0, (k_hi - k_lo + MLA_BN - 1) / MLA_BN);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp & 3, ch = warp >> 2;
+
+  // the (B, Sq, Hq) index of row r
+  auto head_row = [&](int r) -> size_t {
+    const int qi = r / gq;
+    return ((size_t)b * Sq + qi) * Hq + hk * gq + (r - qi * gq);
+  };
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::Q_BYTES);
+  int* kp_s = reinterpret_cast<int*>(smem_raw + L::Q_BYTES + 2 * L::K_BYTES);
+  int* red = kp_s + 2 * MLA_BN;  // qmin, qmax of warps 0 and 1, tile count
+  int* tiles = red + 5;          // [n_tiles]
+
+  // ---- the raw q tile, in flight while the block lists its key tiles
+  // (rows past m * g are zero)
+  for (int c = tid; c < MLA_BM * DK / 8; c += MLA_THREADS) {
+    const int r = c / (DK / 8), d = (c % (DK / 8)) * 8, R = r0 + r;
+    cp_async16(smem_u32(qs + r * L::LD + d), q + head_row(min(R, rows - 1)) * DK + d,
+               R < rows ? 16 : 0);
+  }
+  cp_async_commit();
+
+  // ---- the block's smallest and largest query position
+  {
+    int lo = INT_MAX, hi = INT_MIN;
+    if (tid < MLA_BM && r0 + tid < rows) lo = hi = q_pos[(size_t)b * Sq + (r0 + tid) / gq];
+    lo = __reduce_min_sync(FULL_MASK, lo);
+    hi = __reduce_max_sync(FULL_MASK, hi);
+    if (lane == 0 && warp < MLA_BM / 32) {
+      red[2 * warp] = lo;
+      red[2 * warp + 1] = hi;
+    }
+  }
+  for (int i = tid; i < n_tiles; i += MLA_THREADS) tiles[i] = 0;
+  __syncthreads();
+
+  // ---- the key tiles of [k_lo, k_hi) this block visits (conservative, by
+  // the block's smallest and largest position: a visited tile without a
+  // valid pair is an exact identity step)
+  {
+    const int qmin = min(red[0], red[2]), qmax = max(red[1], red[3]);
+    for (int i = k_lo + tid; i < k_hi; i += MLA_THREADS) {
+      const int kp = kv_pos[(size_t)b * Skv + i];
+      if (kp >= 0 && (!causal || kp <= qmax) && (window == 0 || qmin - kp < window))
+        tiles[i / MLA_BN - t_lo] = 1;
+    }
+  }
+  cp_async_wait<0>();  // the q tile
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int i = 0; i < n_tiles; ++i)
+      if (tiles[i]) tiles[n++] = t_lo + i;
+    red[4] = n;
+  }
+  // q times the bf16-rounded scale, rounded to bf16, in place, as the plain
+  // version scales it
+  {
+    const float scale_t = round_t<__nv_bfloat16>(scale);
+    for (int c = tid; c < MLA_BM * DK / 2; c += MLA_THREADS) {
+      const int r = c / (DK / 2), d = (c % (DK / 2)) * 2;
+      auto* p = reinterpret_cast<__nv_bfloat162*>(qs + r * L::LD + d);
+      const float2 x = __bfloat1622float2(*p);
+      *p = __floats2bfloat162_rn(x.x * scale_t, x.y * scale_t);
+    }
+  }
+  __syncthreads();
+  const int n_visit = red[4];
+
+  const int row0 = r0 + rg * 16 + g;  // this thread's rows: row0, row0 + 8
+  int qp[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    qp[i] = row0 + 8 * i < rows ? q_pos[(size_t)b * Sq + (row0 + 8 * i) / gq] : -1;
+  const bool active = r0 + rg * 16 < rows;  // the warp has a real row
+
+  // one key tile into buffer `buf`: K (V is its first DV columns) and the
+  // key positions (keys past Skv are zero with position -1)
+  auto issue = [&](int tile, int buf) {
+    const int k0 = tile * MLA_BN;
+    const uint32_t kdst = smem_u32(ks + buf * (L::K_BYTES / 2));
+    for (int c = tid; c < MLA_BN * DK / 8; c += MLA_THREADS) {
+      const int r = c / (DK / 8), d = (c % (DK / 8)) * 8, ki = k0 + r;
+      const __nv_bfloat16* src =
+          k + (((size_t)b * Skv + min(ki, Skv - 1)) * Hkv + hk) * DK + d;
+      cp_async16(kdst + (r * L::LD + d) * 2, src, ki < Skv ? 16 : 0);
+    }
+    if (tid < MLA_BN) {
+      int* dst = kp_s + buf * MLA_BN + tid;
+      if (k0 + tid < Skv)
+        cp_async4(smem_u32(dst), kv_pos + (size_t)b * Skv + k0 + tid);
+      else
+        *dst = -1;
+    }
+    cp_async_commit();
+  };
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+
+  if (n_visit > 0) issue(tiles[0], 0);
+  for (int it = 0; it < n_visit; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_visit) {  // the next tile's copies overlap this tile
+      issue(tiles[it + 1], buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    if (active) {
+      const __nv_bfloat16* kb = ks + buf * (L::K_BYTES / 2);
+      const int* kp = kp_s + buf * MLA_BN;
+
+      // S = Q K^T: Q's A-fragments from shared memory at every k-step; one
+      // ldmatrix.x4 gives the B-fragments of two n8 tiles of keys
+      float s[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      {
+        const int ar = rg * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+        const int ad = (lane >> 4) * 8;
+        const int key = (lane >> 4) * 8 + (lane & 7);
+        const int d = ((lane >> 3) & 1) * 8;
+#pragma unroll 6
+        for (int st = 0; st < KS; ++st) {
+          uint32_t qa[4];
+          ldmatrix_x4(qa, smem_u32(qs + ar * L::LD + st * 16 + ad));
+#pragma unroll
+          for (int np = 0; np < NS / 2; ++np) {
+            uint32_t bf[4];
+            ldmatrix_x4(bf, smem_u32(kb + (np * 16 + key) * L::LD + st * 16 + d));
+            mma_bf16(s[2 * np], qa, bf[0], bf[1]);
+            mma_bf16(s[2 * np + 1], qa, bf[2], bf[3]);
+          }
+        }
+      }
+
+      // mask, row max across the quad, p, alpha, l
+      uint32_t valid = 0;
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (is_valid(qp[e >> 1], kp[n * 8 + 2 * t + (e & 1)], causal, window))
+            valid |= 1u << (n * 4 + e);
+          else
+            s[n][e] = NEG_INF;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+        }
+      }
+      float alpha[2], m_new[2], lsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL_MASK, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL_MASK, mx[i], 2));
+        m_new[i] = fmaxf(m_run[i], mx[i]);
+        alpha[i] = expf(m_run[i] - m_new[i]);
+        m_run[i] = m_new[i];
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p =
+              (valid >> (n * 4 + e)) & 1u ? expf(s[n][e] - m_new[e >> 1]) : 0.f;
+          lsum[e >> 1] += p;
+          s[n][e] = p;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + lsum[i];
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+
+      // O += P V over this warp's column half: the S accumulators of n8
+      // tiles 2j and 2j + 1, rounded to bf16, are the A-fragment of k-step
+      // j; ldmatrix.x4.trans of the K tile's first DV columns gives V's
+      // B-fragments of two n8 tiles of the output
+      {
+        const int key = ((lane >> 3) & 1) * 8 + (lane & 7);
+        const int d = ch * HALF + (lane >> 4) * 8;
+#pragma unroll
+        for (int j = 0; j < NS / 2; ++j) {
+          const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                                  pack_bf16(s[2 * j][2], s[2 * j][3]),
+                                  pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                                  pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+#pragma unroll
+          for (int np = 0; np < NO / 2; ++np) {
+            uint32_t bf[4];
+            ldmatrix_x4_trans(bf, smem_u32(kb + (j * 16 + key) * L::LD + np * 16 + d));
+            mma_bf16(o[2 * np], pa, bf[0], bf[1]);
+            mma_bf16(o[2 * np + 1], pa, bf[2], bf[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next iteration's copies refill this buffer
+  }
+
+  if (!active) return;
+  float l_row[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(FULL_MASK, l, 1);
+    l += __shfl_xor_sync(FULL_MASK, l, 2);
+    l_row[i] = l;
+  }
+
+  if (split) {
+    // the split's unnormalised partial rows
+    const size_t base = ((size_t)bh * gridDim.z + blockIdx.z) * rows;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int R = row0 + 8 * i;
+      if (R >= rows) continue;
+      float* dst = part_acc + (base + R) * DV + ch * HALF + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<float2*>(dst + n * 8) = make_float2(o[n][2 * i], o[n][2 * i + 1]);
+      if (ch == 0 && t == 0) {
+        part_ml[(base + R) * 2] = m_run[i];
+        part_ml[(base + R) * 2 + 1] = l_row[i];
+      }
+    }
+    return;
+  }
+
+  // acc / l, 0 where no key was valid, staged through this warp's rows and
+  // columns of the q tile for 16-byte stores
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float den = fmaxf(l_row[i], 1e-30f);
+      const float x0 = l_row[i] > 0.f ? o[n][2 * i] / den : 0.f;
+      const float x1 = l_row[i] > 0.f ? o[n][2 * i + 1] / den : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(qs + (rg * 16 + g + 8 * i) * L::LD + ch * HALF +
+                                         n * 8 + 2 * t) = __floats2bfloat162_rn(x0, x1);
+    }
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * HALF / 8; c += 32) {
+    const int r = c / (HALF / 8), d = ch * HALF + (c % (HALF / 8)) * 8;
+    const int R = r0 + rg * 16 + r;
+    if (R < rows)
+      *reinterpret_cast<uint4*>(out + head_row(R) * DV + d) =
+          *reinterpret_cast<const uint4*>(qs + (rg * 16 + r) * L::LD + d);
+  }
+}
+
+// Folds the splits of each row in increasing split order, as
+// decode_merge_kernel does: M = the largest split max, then l and acc summed
+// with weights exp(m_s - M).  A split with no valid key (m = -1e30, l = 0,
+// acc = 0) adds exact zeros, so trailing empty splits leave the bits alone.
+template <int DV>
+__global__ void __launch_bounds__(MLA_MERGE_WARPS * 32) flash_mla_merge_kernel(
+    const float* __restrict__ part_ml, const float* __restrict__ part_acc,
+    __nv_bfloat16* __restrict__ out,  // (B, Sq, Hq, DV)
+    int Sq, int Hq, int Hkv, int n_split) {
+  const int gq = Hq / Hkv, rows = Sq * gq;
+  const int bh = blockIdx.x, b = bh / Hkv, hk = bh - b * Hkv;
+  const int lane = threadIdx.x & 31;
+  const int R = blockIdx.y * MLA_MERGE_WARPS + (threadIdx.x >> 5);
+  if (R >= rows) return;
+  const size_t base = (size_t)bh * n_split * rows + R;
+  float M = NEG_INF;
+  for (int s = 0; s < n_split; ++s) M = fmaxf(M, part_ml[(base + (size_t)s * rows) * 2]);
+  float l = 0.f, a[DV / 32];
+#pragma unroll
+  for (int j = 0; j < DV / 32; ++j) a[j] = 0.f;
+  for (int s = 0; s < n_split; ++s) {
+    const size_t i = base + (size_t)s * rows;
+    const float w = expf(part_ml[i * 2] - M);
+    l += w * part_ml[i * 2 + 1];
+#pragma unroll
+    for (int j = 0; j < DV / 32; ++j) a[j] += w * part_acc[i * DV + j * 32 + lane];
+  }
+  const int qi = R / gq;
+  __nv_bfloat16* dst = out + (((size_t)b * Sq + qi) * Hq + hk * gq + (R - qi * gq)) * DV;
+#pragma unroll
+  for (int j = 0; j < DV / 32; ++j)
+    dst[j * 32 + lane] = __float2bfloat16_rn(l > 0.f ? a[j] / fmaxf(l, 1e-30f) : 0.f);
+}
+
+template <int DK, int DV>
+cudaError_t launch_mla(const void* q, const void* k, const void* q_pos,
+                       const void* kv_pos, void* out, void* part_ml, void* part_acc,
+                       int B, int Sq, int Skv, int Hq, int Hkv, int causal,
+                       int window, float scale, int n_split, cudaStream_t stream) {
+  const int rows = Sq * (Hq / Hkv);
+  const int span = n_split > 0 ? MLA_SPLIT_KEYS : Skv;
+  const size_t smem = MlaSmem<DK>::bytes((span + MLA_BN - 1) / MLA_BN);
+  cudaError_t err = repro::allow_smem(flash_mla_kernel<DK, DV>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((rows + MLA_BM - 1) / MLA_BM, B * Hkv, n_split > 0 ? n_split : 1);
+  flash_mla_kernel<DK, DV><<<grid, MLA_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const int*>(q_pos), static_cast<const int*>(kv_pos),
+      static_cast<__nv_bfloat16*>(out),
+      n_split > 0 ? static_cast<float*>(part_ml) : nullptr,
+      n_split > 0 ? static_cast<float*>(part_acc) : nullptr, Sq, Skv, Hq, Hkv,
+      causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 0) return err;
+  dim3 mgrid(B * Hkv, (rows + MLA_MERGE_WARPS - 1) / MLA_MERGE_WARPS);
+  flash_mla_merge_kernel<DV><<<mgrid, MLA_MERGE_WARPS * 32, 0, stream>>>(
+      static_cast<const float*>(part_ml), static_cast<const float*>(part_acc),
+      static_cast<__nv_bfloat16*>(out), Sq, Hq, Hkv, n_split);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The bf16 tensor-core kernel at the instantiated (Dk, Dv) pairs: those of
@@ -586,6 +1009,28 @@ extern "C" int flash_attention_mma(const void* q, const void* k, const void* v,
   REPRO_MMA_CASE(128, 128)
   REPRO_MMA_CASE(96, 64)
 #undef REPRO_MMA_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 MLA kernel at the instantiated (Dk, Dv) pairs: those of
+// ops.MLA_HEAD_DIMS; any other pair is refused, never re-routed.  V is
+// k[..., :Dv] (no v pointer).  n_split 0: one launch over all keys;
+// n_split > 0: that many splits of MLA_SPLIT_KEYS keys into part_ml
+// (n_split * B * Hkv * Sq * Hq / Hkv * 2 floats) and part_acc (the same
+// rows times Dv), then the merge: two launches.
+extern "C" int flash_attention_mla(const void* q, const void* k, const void* q_pos,
+                                   const void* kv_pos, void* out, void* part_ml,
+                                   void* part_acc, int B, int Sq, int Skv, int Hq,
+                                   int Hkv, int Dk, int Dv, int causal, int window,
+                                   float scale, int n_split, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+#define REPRO_MLA_CASE(DK, DV)                                                      \
+  if (Dk == DK && Dv == DV)                                                         \
+    return launch_mla<DK, DV>(q, k, q_pos, kv_pos, out, part_ml, part_acc, B, Sq, \
+                              Skv, Hq, Hkv, causal, window, scale, n_split, s);
+  REPRO_MLA_CASE(576, 512)
+  REPRO_MLA_CASE(48, 32)
+#undef REPRO_MLA_CASE
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,7 +8,8 @@
   in the storage dtype before the two products, float32 statistics).
 * ``flash_attention_cuda`` — the hand-written kernels
   (``csrc/flash_attention.cu``, replacing ``flash_attention_pallas``):
-  the bf16 tensor-core kernel or the scalar kernel, by ``flash_variant``.
+  the bf16 tensor-core kernel, the bf16 MLA kernel or the scalar kernel,
+  by ``flash_variant``.
 * ``attention`` — the dispatcher: ``impl="auto"`` picks the kernel for
   CUDA tensors and the plain version for CPU tensors.
 """
@@ -30,22 +31,53 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"flash_attention": [_I, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
                "flash_attention_mma": [_P, _P, _P, _P, _P, _P,
-                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]}
+                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+               "flash_attention_mla": [_P, _P, _P, _P, _P, _P, _P,
+                                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                       _P]}
 #: (Dk, Dv) pairs the bf16 tensor-core kernel is instantiated for: the
 #: port's configs (eat-paper-8b and qwen3-1.7b at 128) and its tests
 MMA_HEAD_DIMS = frozenset({(16, 16), (32, 32), (64, 64), (128, 128), (96, 64)})
+#: (Dk, Dv) pairs the bf16 MLA kernel is instantiated for: MLA's absorbed
+#: form, (kv_lora + rope, kv_lora), of deepseek-v2-236b (512 + 64) and of
+#: its ``reduced()`` variant (32 + 16)
+MLA_HEAD_DIMS = frozenset({(576, 512), (48, 32)})
+#: the MLA kernel's rows per block and keys per split (``csrc`` MLA_BM,
+#: MLA_SPLIT_KEYS): a split is a fixed multiple of its 32-key tile, never
+#: derived from the number of keys, so trailing empty splits leave the bits
+MLA_ROWS = 64
+MLA_SPLIT_KEYS = 64
+#: the MLA kernel splits the keys when a call has fewer row tiles than this:
+#: the H100's 132 SMs, one block each
+MLA_SPLIT_BELOW = 132
 
 
 def flash_variant(dtype, Dk: int, Dv: int) -> str:
     """Which kernel ``flash_attention_cuda`` launches: ``"mma"`` (bf16 on
-    the tensor cores) for bfloat16 at a pair of ``MMA_HEAD_DIMS``, else
+    the tensor cores) for bfloat16 at a pair of ``MMA_HEAD_DIMS``,
+    ``"mla"`` (bf16 on the tensor cores, every q head of a kv head in one
+    tile, V read out of K) at a pair of ``MLA_HEAD_DIMS``, else
     ``"scalar"``.  float32 stays scalar: on the tensor cores it would run
     in TF32 (about 3 decimal digits), short of the 1e-5 float32 bar.  A
-    bf16 head dim outside the set (the reference's 80, 192 or 256) takes
-    the scalar kernel too; no port config has one.  ``dtype`` is a torch
+    bf16 head dim outside both sets (the reference's 80, 192 or 256, MLA's
+    expanded 192/128) takes the scalar kernel too.  ``dtype`` is a torch
     dtype or a config's dtype name."""
-    name = str(dtype).removeprefix("torch.")
-    return "mma" if name == "bfloat16" and (Dk, Dv) in MMA_HEAD_DIMS else "scalar"
+    if str(dtype).removeprefix("torch.") != "bfloat16":
+        return "scalar"
+    if (Dk, Dv) in MMA_HEAD_DIMS:
+        return "mma"
+    return "mla" if (Dk, Dv) in MLA_HEAD_DIMS else "scalar"
+
+
+def mla_splits(B: int, Sq: int, Hq: int, Hkv: int, Skv: int) -> int:
+    """The MLA kernel's key splits: 0 (one launch over every key) when the
+    call has at least ``MLA_SPLIT_BELOW`` row tiles of ``MLA_ROWS`` (query
+    position, q head) rows, else one split per ``MLA_SPLIT_KEYS`` keys and
+    a merge.  Whether to split depends on B, Sq and the heads alone, so
+    calls that differ only in trailing empty key slots (a paged view and a
+    ring) split alike."""
+    row_tiles = B * Hkv * -(-Sq * (Hq // Hkv) // MLA_ROWS)
+    return 0 if row_tiles >= MLA_SPLIT_BELOW else -(-Skv // MLA_SPLIT_KEYS)
 
 
 def softmax_block_step(carry, qf, kb, vb, qp, kp, *, causal: bool, window: int):
@@ -128,13 +160,34 @@ def attention_plain(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     return softmax_finish(carry, q.dtype)
 
 
+def is_k_prefix(v, k) -> bool:
+    """Whether ``v`` is the view ``k[..., :Dv]``: the values of MLA's
+    absorbed form, the latent c of k = cat(c, kr)."""
+    return (v.dim() == k.dim() == 4 and v.shape[:3] == k.shape[:3]
+            and v.shape[3] <= k.shape[3] and v.data_ptr() == k.data_ptr()
+            and v.stride() == k.stride() and v.dtype == k.dtype)
+
+
 def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, causal: bool = True,
                          window: int = 0, scale: float) -> torch.Tensor:
+    """The kernel of ``flash_variant``.  The MLA kernel reads V out of K's
+    tile: it takes v only as the view ``k[..., :Dv]`` and raises otherwise.
+    The other kernels read a dense v: a strided v (that view, in float32)
+    is copied first."""
     _build.no_autograd("flash_attention", q, k, v)
     B, Sq, Hq, Dk = q.shape
     Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
-    for x, name in ((q, "q"), (k, "k"), (v, "v")):
+    variant = flash_variant(q.dtype, Dk, Dv)
+    if variant == "mla":
+        if not is_k_prefix(v, k):
+            raise ValueError("flash_attention (mla): v must be the view "
+                             "k[..., :Dv]; the kernel reads V out of K's tile")
+    elif not v.is_contiguous():
+        v = v.contiguous()
+    for x, name in ((q, "q"), (k, "k")):
         _build.expect(x, q.dtype, 4, name)
+    if variant != "mla":
+        _build.expect(v, q.dtype, 4, "v")
     _build.expect(q_pos, torch.int32, 2, "q_pos")
     _build.expect(kv_pos, torch.int32, 2, "kv_pos")
     if (k.shape[0], k.shape[3]) != (B, Dk) or v.shape[:3] != k.shape[:3]:
@@ -142,9 +195,23 @@ def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, causal: bool = True,
                          f"v{tuple(v.shape)}")
     if Hq % Hkv or tuple(q_pos.shape) != (B, Sq) or tuple(kv_pos.shape) != (B, Skv):
         raise ValueError("flash_attention: bad heads or position shapes")
-    variant = flash_variant(q.dtype, Dk, Dv)
     lib = _build.load("flash_attention", _SIGNATURES)
     out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
+    if variant == "mla":
+        for x, name in ((q, "q"), (k, "k")):
+            if x.data_ptr() % 16:
+                raise ValueError(f"flash_attention (mla): {name} must be "
+                                 "16-byte aligned")
+        n_split = mla_splits(B, Sq, Hq, Hkv, Skv)
+        rows = n_split * B * Sq * Hq
+        part_ml = torch.empty((rows * 2,), dtype=torch.float32, device=q.device)
+        part_acc = torch.empty((rows * Dv,), dtype=torch.float32, device=q.device)
+        err = lib.flash_attention_mla(
+            _build.ptr(q), _build.ptr(k), _build.ptr(q_pos), _build.ptr(kv_pos),
+            _build.ptr(out), _build.ptr(part_ml), _build.ptr(part_acc), B, Sq,
+            Skv, Hq, Hkv, Dk, Dv, int(causal), int(window), float(scale),
+            n_split, _build.stream_ptr(q))
+        return _launched(err, variant, out)
     tensors = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(q_pos),
                _build.ptr(kv_pos), _build.ptr(out))
     dims = (B, Sq, Skv, Hq, Hkv, Dk, Dv, int(causal), int(window), float(scale),
@@ -158,6 +225,10 @@ def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, causal: bool = True,
         err = lib.flash_attention_mma(*tensors, *dims)
     else:
         err = lib.flash_attention(_build.dtype_code(q), *tensors, *dims)
+    return _launched(err, variant, out)
+
+
+def _launched(err: int, variant: str, out):
     _build.check(err, f"flash_attention ({variant})")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.variant_launches[variant] += 1
@@ -171,7 +242,7 @@ def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, causal: bool = True,
 flash_attention_cuda.launches = 0
 #: launches per kernel (``flash_variant``), counted as ``launches`` (eager
 #: calls and captures); they sum to ``launches``
-flash_attention_cuda.variant_launches = {"mma": 0, "scalar": 0}
+flash_attention_cuda.variant_launches = {"mma": 0, "mla": 0, "scalar": 0}
 
 
 def attention(q, k, v, q_pos, kv_pos, *, causal: bool = True, window: int = 0,

@@ -154,7 +154,9 @@ def mla_absorbed_attend(p, q_nope: torch.Tensor, q_rope: torch.Tensor,
     q_eff = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)           # (B, m, H, r)
     q_cat = torch.cat([q_eff, q_rope], dim=-1)                     # (B, m, H, r + rope)
     k_cat = torch.cat([cache_c, cache_kr], dim=-1)[:, :, None, :]  # one kv head
-    v_lat = cache_c[:, :, None, :]
+    # the values are the latent: k_cat's first r columns, the same values
+    # as cache_c, handed as that view (the MLA kernel reads V out of K)
+    v_lat = k_cat[..., :m.kv_lora_rank]
     o_lat = attention(q_cat, k_cat, v_lat, pos1d, kv_pos, causal=True,
                       window=window, scale=attn_scale(cfg), impl=attn_impl)
     w_uv = p["w_uv"].reshape(m.kv_lora_rank, cfg.n_heads, m.v_head_dim)
