@@ -162,6 +162,27 @@ DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
    profiled serve (``[profile mla]``, with flash's share of the device
    time), a ring serve bitwise the paged one, tokens/s, chunk ms and the
    phase's peak memory;
+6c. ``gemma-7b`` (arXiv:2403.08295: 28 layers, d 3072, 16 q / 16 kv heads
+   of 256, GeGLU, a tied 256,000-row table; the MLA model freed first):
+   the wide flash kernel (``flash_wide_kernel``, its ptxas line printed)
+   at gemma-7b's and gemma-2b's prefills (g 1 and 8), timed in turns with
+   SDPA, the scalar kernel forced at gemma-7b's as a yardstick;
+   codeqwen1.5-7b's flash (32/32 heads of 128, ``mma``); paged at D 256
+   (m 1 and 2, g 1 and 8) and codeqwen's; the entropy probe over the tied
+   3072 and 2048 x 256,000 tables and codeqwen's untied 4096 x 92,416 head
+   (``[kernels] gemma-7b|gemma-2b|codeqwen1.5-7b`` lines); kernel path vs
+   plain path of gemma-7b (float32 cut to 2 layers, 1e-5; bf16 at 28
+   layers, the logits within ``DENSE_BF16_TOL`` and the kernel path's EAT
+   within ``DENSE_EAT_TOL`` nats of the same weights' in float32, flash 28
+   ``wide`` on the kernel path); seeded random weights at full width and depth (8.54 B
+   parameters, 17.1 GB), served as phase 5b serves (``serve_cell``):
+   cold, warm and eager paged self-EAT serves of phase 4's traffic over
+   its 256,000 vocabulary, warm == eager bitwise, 0 captures, flash 28
+   ``wide`` per prefill and none ``scalar``, every entropy call mma, a
+   profiled serve (busy share, flash's share), a ring serve bitwise the
+   paged one, and the serves' peak memory against the weights; then
+   ``gemma-2b`` and ``codeqwen1.5-7b`` at full width and depth, kernel
+   path vs plain path only (the same bars; flash ``wide`` and ``mma``);
 7. the training path (``[train]`` lines, each with the card's name and
    power limit), the 8B model freed first: the training forward (plain
    attention, as the reference's trainer runs) against ``Model.prefill`` +
@@ -183,11 +204,14 @@ DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
    token budget alone: the forced answers' accuracy, reasoning tokens,
    every request finished, and flash, paged and entropy launched during
    the EAT serve;
-8. one JSON line per the contract: ``{"kernels": [...]}`` (five records;
-   flash, paged and entropy carry a ``moe`` record: phase 5b's warm-serve
-   launches and its kernel readings at the MoE's shapes; flash an ``mla``
-   record: phase 6b's), the card line,
-   and the last line ``{"ok": true, "device": {...}}``.
+8. the ``[phases]`` lines: every phase's readings, then each phase's wall
+   (host clock, 1 to 7) and their sum; one JSON line per the contract:
+   ``{"kernels": [...]}`` (five records; flash, paged and entropy carry a
+   ``moe`` record: phase 5b's warm-serve launches and its kernel readings
+   at the MoE's shapes, and a ``gemma`` record: phase 6c's, with gemma-2b's
+   and codeqwen1.5-7b's shapes beside; flash an ``mla`` record: phase
+   6b's), the card line, and the last line ``{"ok": true, "device":
+   {...}}``.
 
 Any failed check exits nonzero before the result lines are printed.
 """
@@ -206,6 +230,7 @@ import tempfile
 import time
 from pathlib import Path
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
@@ -1127,8 +1152,8 @@ def serve_workload(np, n_req=8, vocab=151_936, seed=0):
 
 #: the kernels one op call of each wrapper launches (a first kernel of each
 #: variant, and the kernels every call of it launches)
-PROFILED = {"flash_attention": (("flash_mma_kernel", "flash_mla_kernel", "flash_kernel"),
-                                ()),
+PROFILED = {"flash_attention": (("flash_mma_kernel", "flash_mla_kernel", "flash_wide_kernel",
+                                 "flash_kernel"), ()),
             "paged_attention": (("paged_max_kernel",),
                                 ("paged_fold_kernel", "paged_merge_kernel")),
             "entropy_probe": (("entropy_mma_kernel", "tile_stats_kernel"),
@@ -1454,6 +1479,148 @@ def mamba_phase(torch, np, kernels, phases, profile_dir=None) -> dict:
 MOE_BF16_TOL = 3e-2
 
 
+def flash_shape_check(torch, F, fa, tag: str, Hq: int, Hkv: int, D: int, bad: list,
+                      scalar: bool = False) -> dict:
+    """bf16 flash at a model's prefill (B 4, S 512, left-padded; ``Hq`` q
+    heads on ``Hkv`` kv heads of ``D``): one launch of the routed variant
+    and nothing else, against the plain version within phase 3's bar (one
+    ulp + 2^-7 x the attention of |v|), timed by graph replay in turns with
+    SDPA (bool mask, K/V repeated per q head outside the timed call), the
+    plain version by CUDA events, and the bound.  With ``scalar`` the
+    scalar kernel, forced through the wrapper at the same inputs, is timed
+    beside (a yardstick of what the routed kernel replaced).  Failures go
+    to ``bad``.  Returns the record, with ``variant``."""
+    dn, dtype = "bfloat16", torch.bfloat16
+    scale = 1.0 / math.sqrt(D)
+    want = fa.flash_variant(dtype, D, D)
+    c = flash_case(torch, dtype, Hq=Hq, Hkv=Hkv, D=D)
+    args = (c["q"], c["k"], c["v"], c["q_pos"], c["kv_pos"])
+    before = dict(fa.flash_attention_cuda.variant_launches)
+    out = fa.flash_attention_cuda(*args, scale=scale)
+    after = fa.flash_attention_cuda.variant_launches
+    launched = {x: after[x] - before[x] for x in after}
+    ref = fa.attention_plain(*args, scale=scale)
+    spread = fa.attention_plain(c["q"], c["k"], c["v"].abs(), c["q_pos"], c["kv_pos"],
+                                scale=scale)
+    err, ok, tol = agree(torch, "flash_attention", dn, out, ref, spread)
+    if launched != {x: int(x == want) for x in launched} or not ok:
+        bad.append(f"{tag} flash_attention Hq{Hq} Hkv{Hkv} D{D}: launched {launched}, "
+                   f"not one {want}; max abs err {err:.3e} ({tol})")
+    per_set = nbytes(*args) + nbytes(out)
+    sets = [c] + [flash_case(torch, dtype, seed=s, Hq=Hq, Hkv=Hkv, D=D)
+                  for s in range(1, n_sets(per_set))]
+    calls = [lambda s=s: fa.flash_attention_cuda(
+        s["q"], s["k"], s["v"], s["q_pos"], s["kv_pos"], scale=scale) for s in sets]
+    g = Hq // Hkv
+    mask = ((c["kv_pos"][:, None, None, :] >= 0)
+            & (c["kv_pos"][:, None, None, :] <= c["q_pos"][:, None, :, None]))
+    lib_sets = [(s["q"].transpose(1, 2), s["k"].transpose(1, 2).repeat_interleave(g, 1),
+                 s["v"].transpose(1, 2).repeat_interleave(g, 1)) for s in sets]
+    lib_calls = [lambda t=t: F.scaled_dot_product_attention(
+        t[0], t[1], t[2], attn_mask=mask, scale=scale) for t in lib_sets]
+    k_turns, l_turns = in_turns(torch, calls, lib_calls)
+    p_ms = time_ms(torch, [lambda s=s: fa.attention_plain(
+        s["q"], s["k"], s["v"], s["q_pos"], s["kv_pos"], scale=scale) for s in sets],
+        iters=6)
+    B, S = c["q"].shape[:2]
+    pairs = valid_pairs(torch, c["q_pos"], c["kv_pos"]) * Hq
+    b_ms, b_by = bound_ms(per_set, pairs * 4 * D, dn)
+    k_ms, l_ms = statistics.median(k_turns), statistics.median(l_turns)
+    rec = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=l_ms, variant=want)
+    extra = ""
+    if g > 1:   # one block per q head: each kv head's K/V tiles read g times
+        extra = (f"; K/V re-read by the {g} q heads of a kv head: "
+                 f"{(g - 1) * nbytes(c['k'], c['v']) / 1e6:.1f} MB past the bound's")
+    if scalar:
+        rec["scalar_ms"] = time_ms(torch, [lambda s=s: fa.flash_attention_cuda(
+            s["q"], s["k"], s["v"], s["q_pos"], s["kv_pos"], scale=scale, variant="scalar")
+            for s in sets], iters=3, warmup=1)
+        extra += f"; the scalar kernel forced at these inputs {rec['scalar_ms']:.4f} ms (eager)"
+    print(f"[kernels] {tag} flash_attention {dn} B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} variant "
+          f"{want}: max_abs_err {err:.3e} ({tol}); graph replay in turns, 5 rounds: kernel "
+          f"{turns_text(k_turns)}, sdpa {turns_text(l_turns)}; kernel / sdpa "
+          f"{k_ms / l_ms:.3f}; plain {p_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
+          f"{per_set / 1e6:.1f} MB, {pairs * 4 * D / 1e9:.2f} GFLOP), kernel at "
+          f"{b_ms / k_ms:.3f} of it{extra}")
+    return rec
+
+
+def paged_shape_check(torch, pa, tag: str, m: int, Hq: int, Hkv: int, D: int,
+                      bad: list) -> dict:
+    """bf16 paged reads at a model's heads (``m`` query positions over ~40
+    pages per row, two whole splits unmapped): against the plain version
+    within one bf16 ulp, paged == ring bitwise, timed by graph replay, the
+    plain version by CUDA events, and the bound.  Returns the record."""
+    dn, dtype = "bfloat16", torch.bfloat16
+    scale = 1.0 / math.sqrt(D)
+    c, (k_ring, v_ring, kv_pos) = paged_case(torch, pa, dtype, m, Hq=Hq, Hkv=Hkv, D=D)
+    pargs = (c["q"], c["k_pool"], c["v_pool"], c["pages"], c["counts"], c["bpos"],
+             c["q_pos"])
+    split = dict(logical=c["logical"], num_blocks=c["num_blocks"])
+    out = pa.paged_attention_cuda(*pargs, scale=scale, **split)
+    ref = pa.paged_attention_plain(*pargs, scale=scale)
+    ring = pa.ring_decode_attention(c["q"], k_ring, v_ring, c["q_pos"], kv_pos,
+                                    page_size=16, scale=scale, impl="cuda")
+    err, ok, tol = agree(torch, "paged_attention", dn, out, ref)
+    if not ok or not torch.equal(out, ring):
+        bad.append(f"{tag} paged_attention Hq{Hq} Hkv{Hkv} D{D} m={m}: max abs err "
+                   f"{err:.3e} ({tol}), paged == ring {torch.equal(out, ring)}")
+    mapped = int(c["counts"].sum())
+    B, ps = c["q"].shape[0], c["k_pool"].shape[1]
+    per_set = (2 * mapped * ps * Hkv * D * c["k_pool"].element_size()
+               + nbytes(c["q"], c["pages"], c["logical"], c["counts"], c["bpos"],
+                        c["q_pos"]) + nbytes(out))
+    sets = [c] + [paged_case(torch, pa, dtype, m, seed=i, Hq=Hq, Hkv=Hkv, D=D)[0]
+                  for i in range(1, n_sets(nbytes(c["k_pool"], c["v_pool"])))]
+    k_ms = graph_ms(torch, [lambda s=s: pa.paged_attention_cuda(
+        s["q"], s["k_pool"], s["v_pool"], s["pages"], s["counts"], s["bpos"],
+        s["q_pos"], scale=scale, logical=s["logical"], num_blocks=s["num_blocks"])
+        for s in sets])
+    p_ms = time_ms(torch, [lambda s=s: pa.paged_attention_plain(
+        s["q"], s["k_pool"], s["v_pool"], s["pages"], s["counts"], s["bpos"],
+        s["q_pos"], scale=scale) for s in sets], iters=6)
+    flat_pos = c["bpos"].reshape(c["bpos"].shape[0], -1)
+    b_ms, b_by = bound_ms(per_set, valid_pairs(torch, c["q_pos"], flat_pos) * Hq * 4 * D,
+                          dn)
+    K, n_split = pa.split_plan(ps, c["num_blocks"])
+    print(f"[kernels] {tag} paged_attention {dn} B{B} m{m} Hq{Hq} Hkv{Hkv} D{D} ps{ps} "
+          f"pages {mapped}: n_split {n_split}, grid ({B * Hkv}, {n_split}); "
+          f"max_abs_err {err:.3e} ({tol}); paged==ring bitwise; kernel {k_ms:.4f} ms "
+          f"(graph replay) plain {p_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}: "
+          f"{per_set / 1e6:.1f} MB), kernel at {b_ms / k_ms:.3f} of it")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def entropy_shape_check(torch, ep, tag: str, d: int, Vp: int, vocab: int, tied: bool,
+                        bad: list) -> dict:
+    """The bf16 entropy probe over a model's unembedding at B 4: the
+    tensor-core variant (checked) against the plain version within 1e-5,
+    timed by graph replay, the plain version by CUDA events, and the bound.
+    Returns the record."""
+    dn, dtype = "bfloat16", torch.bfloat16
+    c = entropy_case(torch, dtype, 4, d, Vp, vocab, tied)
+    h, w = c["h"], c["w"]
+    variant = ep.entropy_variant(h, w)
+    out = ep.entropy_probe_cuda(h, w, vocab)
+    ref = ep.next_token_entropy_plain(h, w, vocab)
+    err, ok, tol = agree(torch, "entropy_probe", dn, out, ref)
+    if variant != "mma" or not ok or not bool(torch.isfinite(out).all()):
+        bad.append(f"{tag} entropy_probe {d} x {Vp}: variant {variant}, max abs err "
+                   f"{err:.3e} ({tol})")
+    k_ms = graph_ms(torch, [lambda: ep.entropy_probe_cuda(h, w, vocab)])
+    p_ms = time_ms(torch, [lambda: ep.next_token_entropy_plain(h, w, vocab)], iters=6)
+    b_ms, b_by = bound_ms(nbytes(h, w) + 4 * 4, 2 * 4 * d * Vp, dn)
+    print(f"[kernels] {tag} entropy_probe {dn} B4 d{d} Vp{Vp} vocab {vocab} "
+          f"{'tied (Vp, d) table, transposed view' if tied else 'untied (d, Vp)'}: "
+          f"variant {variant}; max_abs_err {err:.3e} ({tol}); kernel {k_ms:.4f} ms (graph "
+          f"replay) plain {p_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}: "
+          f"{nbytes(h, w) / 1e6:.1f} MB), kernel at {b_ms / k_ms:.3f} of it")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
 def moe_kernel_checks(torch, F, fa, pa, ep) -> dict:
     """Phase 5b's kernel checks at ``deepseek-moe-16b``'s shapes, bf16:
     flash at B 4, S 512 with 16 q and 16 kv heads of 128 (g = 1: MHA),
@@ -1462,116 +1629,13 @@ def moe_kernel_checks(torch, F, fa, pa, ep) -> dict:
     against its plain version within phase 3's bars and timed as there
     (flash and SDPA by graph replay in turns, paged and entropy by graph
     replay).  Returns {kernel: {max_abs_err, ms, plain_ms, bound_ms}}."""
-    dn, dtype = "bfloat16", torch.bfloat16
-    scale = 1.0 / math.sqrt(128)
     bad, rec = [], {}
-    Hq = Hkv = 16
-
-    # flash (the prefill)
-    c = flash_case(torch, dtype, Hq=Hq, Hkv=Hkv)
-    args = (c["q"], c["k"], c["v"], c["q_pos"], c["kv_pos"])
-    before = dict(fa.flash_attention_cuda.variant_launches)
-    out = fa.flash_attention_cuda(*args, scale=scale)
-    after = fa.flash_attention_cuda.variant_launches
-    if {x: after[x] - before[x] for x in after} != {"mma": 1, "mla": 0, "scalar": 0}:
-        bad.append(f"flash_attention g=1: launched {after} (before {before}), not one mma")
-    ref = fa.attention_plain(*args, scale=scale)
-    spread = fa.attention_plain(c["q"], c["k"], c["v"].abs(), c["q_pos"], c["kv_pos"],
-                                scale=scale)
-    err, ok, tol = agree(torch, "flash_attention", dn, out, ref, spread)
-    if not ok:
-        bad.append(f"flash_attention g=1: max abs err {err:.3e} ({tol})")
-    per_set = nbytes(*args) + nbytes(out)
-    sets = [flash_case(torch, dtype, seed=s, Hq=Hq, Hkv=Hkv)
-            for s in range(n_sets(per_set))]
-    calls = [lambda s=s: fa.flash_attention_cuda(
-        s["q"], s["k"], s["v"], s["q_pos"], s["kv_pos"], scale=scale) for s in sets]
-    mask = ((c["kv_pos"][:, None, None, :] >= 0)
-            & (c["kv_pos"][:, None, None, :] <= c["q_pos"][:, None, :, None]))
-    lib_sets = [tuple(s[n].transpose(1, 2) for n in ("q", "k", "v")) for s in sets]
-    lib_calls = [lambda t=t: F.scaled_dot_product_attention(
-        t[0], t[1], t[2], attn_mask=mask, scale=scale) for t in lib_sets]
-    k_turns, l_turns = in_turns(torch, calls, lib_calls)
-    p_ms = time_ms(torch, [lambda s=s: fa.attention_plain(
-        s["q"], s["k"], s["v"], s["q_pos"], s["kv_pos"], scale=scale) for s in sets],
-        iters=6)
-    B, S, _, D = c["q"].shape
-    b_ms, b_by = bound_ms(per_set, valid_pairs(torch, c["q_pos"], c["kv_pos"]) * Hq * 4 * D,
-                          dn)
-    rec["flash_attention"] = dict(max_abs_err=err, ms=statistics.median(k_turns),
-                                  plain_ms=p_ms, bound_ms=b_ms,
-                                  library_ms=statistics.median(l_turns))
-    print(f"[kernels] moe flash_attention {dn} B{B} S{S} Hq{Hq} Hkv{Hkv} D{D} variant mma: "
-          f"max_abs_err {err:.3e} ({tol}); graph replay in turns, 5 rounds: kernel "
-          f"{turns_text(k_turns)}, sdpa {turns_text(l_turns)}; kernel / sdpa "
-          f"{statistics.median(k_turns) / statistics.median(l_turns):.3f}; plain "
-          f"{p_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
-    del c, sets, lib_sets, calls, lib_calls, out, ref, spread
-
-    # paged (the decode m=1 and probe m=2 reads)
-    for m in (1, 2):
-        c, (k_ring, v_ring, kv_pos) = paged_case(torch, pa, dtype, m, Hq=Hq, Hkv=Hkv)
-        pargs = (c["q"], c["k_pool"], c["v_pool"], c["pages"], c["counts"], c["bpos"],
-                 c["q_pos"])
-        split = dict(logical=c["logical"], num_blocks=c["num_blocks"])
-        out = pa.paged_attention_cuda(*pargs, scale=scale, **split)
-        ref = pa.paged_attention_plain(*pargs, scale=scale)
-        ring = pa.ring_decode_attention(c["q"], k_ring, v_ring, c["q_pos"], kv_pos,
-                                        page_size=16, scale=scale, impl="cuda")
-        err, ok, tol = agree(torch, "paged_attention", dn, out, ref)
-        if not ok or not torch.equal(out, ring):
-            bad.append(f"paged_attention g=1 m={m}: max abs err {err:.3e} ({tol}), "
-                       f"paged == ring {torch.equal(out, ring)}")
-        mapped = int(c["counts"].sum())
-        ps = c["k_pool"].shape[1]
-        per_set = (2 * mapped * ps * Hkv * D * c["k_pool"].element_size()
-                   + nbytes(c["q"], c["pages"], c["logical"], c["counts"], c["bpos"],
-                            c["q_pos"]) + nbytes(out))
-        sets = [paged_case(torch, pa, dtype, m, seed=i, Hq=Hq, Hkv=Hkv)[0]
-                for i in range(n_sets(nbytes(c["k_pool"], c["v_pool"])))]
-        k_ms = graph_ms(torch, [lambda s=s: pa.paged_attention_cuda(
-            s["q"], s["k_pool"], s["v_pool"], s["pages"], s["counts"], s["bpos"],
-            s["q_pos"], scale=scale, logical=s["logical"], num_blocks=s["num_blocks"])
-            for s in sets])
-        p_ms = time_ms(torch, [lambda s=s: pa.paged_attention_plain(
-            s["q"], s["k_pool"], s["v_pool"], s["pages"], s["counts"], s["bpos"],
-            s["q_pos"], scale=scale) for s in sets], iters=6)
-        flat_pos = c["bpos"].reshape(c["bpos"].shape[0], -1)
-        b_ms, b_by = bound_ms(per_set, valid_pairs(torch, c["q_pos"], flat_pos) * Hq * 4 * D,
-                              dn)
-        K, n_split = pa.split_plan(ps, c["num_blocks"])
-        print(f"[kernels] moe paged_attention {dn} B{B} m{m} Hq{Hq} Hkv{Hkv} D{D} ps{ps} "
-              f"pages {mapped}: n_split {n_split}, grid ({B * Hkv}, {n_split}); "
-              f"max_abs_err {err:.3e} ({tol}); paged==ring bitwise; kernel {k_ms:.4f} ms "
-              f"(graph replay) plain {p_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
-        if m == 1:
-            rec["paged_attention"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                                          bound_ms=b_ms, library_ms=None)
-        else:
-            rec["paged_attention"]["max_abs_err"] = max(
-                rec["paged_attention"]["max_abs_err"], err)
-        del c, sets, k_ring, v_ring, out, ref, ring
-
-    # entropy (the EAT probe over the untied head)
-    c = entropy_case(torch, dtype, 4, 2048, 102_400, 102_400, False)
-    h, w = c["h"], c["w"]
-    variant = ep.entropy_variant(h, w)
-    out = ep.entropy_probe_cuda(h, w, 102_400)
-    ref = ep.next_token_entropy_plain(h, w, 102_400)
-    err, ok, tol = agree(torch, "entropy_probe", dn, out, ref)
-    if variant != "mma" or not ok or not bool(torch.isfinite(out).all()):
-        bad.append(f"entropy_probe 2048 x 102,400: variant {variant}, max abs err "
-                   f"{err:.3e} ({tol})")
-    k_ms = graph_ms(torch, [lambda: ep.entropy_probe_cuda(h, w, 102_400)])
-    p_ms = time_ms(torch, [lambda: ep.next_token_entropy_plain(h, w, 102_400)], iters=6)
-    b_ms, b_by = bound_ms(nbytes(h, w) + 4 * 4, 2 * 4 * 2048 * 102_400, dn)
-    rec["entropy_probe"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                library_ms=None)
-    print(f"[kernels] moe entropy_probe {dn} B4 d2048 Vp102400 untied (d, Vp): variant "
-          f"{variant}; max_abs_err {err:.3e} ({tol}); kernel {k_ms:.4f} ms (graph "
-          f"replay) plain {p_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}), kernel at "
-          f"{b_ms / k_ms:.3f} of it")
-    del c, h, w, out, ref
+    rec["flash_attention"] = flash_shape_check(torch, F, fa, "moe", 16, 16, 128, bad)
+    paged = [paged_shape_check(torch, pa, "moe", m, 16, 16, 128, bad) for m in (1, 2)]
+    rec["paged_attention"] = dict(paged[0], max_abs_err=max(r["max_abs_err"]
+                                                            for r in paged))
+    rec["entropy_probe"] = entropy_shape_check(torch, ep, "moe", 2048, 102_400, 102_400,
+                                               False, bad)
     torch.cuda.empty_cache()
     check(not bad, "moe kernel vs plain: " + "; ".join(bad))
     return rec
@@ -1632,9 +1696,12 @@ def f32_kernel_vs_plain(torch, cfg32, prompts, probe) -> None:
               f"{cfg32.name} {what}: kernel vs plain relative L2 {rel}")
         print(f"[model] {cfg32.name} {what}: kernel vs plain relative L2 {rel:.3e} "
               f"(tol 1e-5)")
-    d_eat = (outs["cuda"][2] - outs["plain"][2]).abs().max().item()
-    check(d_eat < 1e-5, f"{cfg32.name} EAT: kernel vs plain differ by {d_eat}")
-    print(f"[model] {cfg32.name} EAT kernel vs plain max diff {d_eat:.3e} (tol 1e-5)")
+    eat_k, eat_p = outs["cuda"][2], outs["plain"][2]
+    d_eat = (eat_k - eat_p).abs().max().item()
+    check(d_eat < 1e-5, f"{cfg32.name} EAT: kernel {eat_k.tolist()} vs plain "
+          f"{eat_p.tolist()} differ by {d_eat}")
+    print(f"[model] {cfg32.name} EAT kernel vs plain max diff {d_eat:.3e} (tol 1e-5); "
+          f"kernel {eat_k.tolist()} plain {eat_p.tolist()}")
     del model32, outs
     gc.collect()
     torch.cuda.empty_cache()
@@ -1731,7 +1798,8 @@ def moe_phase(torch, np, F, kernels: dict, phases: dict, card: str,
     L = cfg.n_layers
     profiled = serve_cell(
         torch, np, model, probe, prompts, lens, kernels, phases, card, key="moe",
-        flash_want=lambda forwards, prefills: {"mma": L * prefills, "mla": 0, "scalar": 0},
+        flash_want=lambda forwards, prefills: {"mma": L * prefills, "mla": 0, "wide": 0,
+                                               "scalar": 0},
         flash_text=f"{L} mma per prefill", paged_want=None,
         profile_path=Path(profile_dir) / "profile_moe.txt" if profile_dir else None)
     del model
@@ -1740,17 +1808,19 @@ def moe_phase(torch, np, F, kernels: dict, phases: dict, card: str,
 
 
 def phase_end(torch, phases: dict, key: str, name: str, base: int, t_phase: float,
-              card: str) -> None:
+              card: str, weights: int = 0, over: str = "the phase") -> None:
     """A serving phase's closing line: its engines' graph pools, its peak
-    allocation above the ``base`` it started with, its wall; then frees
-    what it left."""
+    allocation ``over`` a stretch since the peak was reset, above the
+    ``base`` it started with (against the model's ``weights`` bytes, if
+    given), its wall; then frees what it left."""
     peak = torch.cuda.max_memory_allocated() - base
     phases[f"{key}_peak_gb"] = peak / 1e9
     phases[f"{key}_phase_s"] = time.perf_counter() - t_phase
+    against = f", against {weights / 1e9:.2f} GB of weights" if weights else ""
     print(f"[graphs] {name}: graph pool {phases[f'{key}_pool_mib']:.1f} MiB added by "
-          f"the engines' captures; {peak / 1e9:.2f} GB peak allocated over the "
-          f"phase (max_memory_allocated above the {base / 1e9:.2f} GB held before it); "
-          f"phase {phases[f'{key}_phase_s']:.1f} s ({card})")
+          f"the engines' captures; {peak / 1e9:.2f} GB peak allocated over {over} "
+          f"(max_memory_allocated above the {base / 1e9:.2f} GB held before the "
+          f"phase{against}); phase {phases[f'{key}_phase_s']:.1f} s ({card})")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2268,12 +2338,223 @@ def mla_phase(torch, np, F, kernels: dict, phases: dict, card: str,
     L = cfg.n_layers
     profiled = serve_cell(
         torch, np, model, probe, prompts, lens, kernels, phases, card, key="mla",
-        flash_want=lambda forwards, prefills: {"mma": 0, "mla": L * forwards, "scalar": 0},
+        flash_want=lambda forwards, prefills: {"mma": 0, "mla": L * forwards, "wide": 0,
+                                               "scalar": 0},
         flash_text=f"{L} mla per forward", paged_want=0, turns=3,
         profile_path=Path(profile_dir) / "profile_mla.txt" if profile_dir else None)
     del model
     phase_end(torch, phases, "mla", cfg.name, base, t_phase, card)
     return {"launches": profiled, "flash": rec}
+
+
+# ----------------------------------------------------------------- phase 6c
+
+#: the dense configs of phase 6c beside gemma-7b, each at full width and
+#: depth, checked kernel path against plain path without a serve, with the
+#: flash variant its bf16 prefills must take
+DENSE_CHECKS = (("gemma-2b", "wide"), ("codeqwen1.5-7b", "mma"))
+
+
+def wide_kernel_checks(torch, F, fa, pa, ep, ptxas: list[str]) -> dict:
+    """Phase 6c's kernel checks, bf16: the wide flash kernel at gemma-7b's
+    (16 q and 16 kv heads of 256) and gemma-2b's (8 q heads on 1 kv head)
+    prefills, with the scalar kernel forced at gemma-7b's as a yardstick;
+    codeqwen1.5-7b's flash (32/32 heads of 128, ``mma``); paged at D 256
+    (m 1 and 2, g 1 and 8) and codeqwen's (m 1, 32/32 of 128); the entropy
+    probe over gemma's tied 3072 and 2048 x 256,000 tables and codeqwen's
+    untied 4096 x 92,416 head.  ``ptxas``: the wide kernel's ptxas lines,
+    printed first.  Returns {kernel: the gemma-7b record, with the other
+    shapes beside it}."""
+    bad = []
+    for line in ptxas:
+        print(f"[kernels] gemma flash_attention ptxas {line}")
+    flash = flash_shape_check(torch, F, fa, "gemma-7b", 16, 16, 256, bad, scalar=True)
+    flash["gemma-2b"] = flash_shape_check(torch, F, fa, "gemma-2b", 8, 1, 256, bad)
+    flash["codeqwen1.5-7b"] = flash_shape_check(torch, F, fa, "codeqwen1.5-7b", 32, 32,
+                                                128, bad)
+    paged = {(m, what): paged_shape_check(torch, pa, what, m, Hq, Hkv, D, bad)
+             for what, Hq, Hkv, D in (("gemma-7b", 16, 16, 256), ("gemma-2b", 8, 1, 256))
+             for m in (1, 2)}
+    paged[1, "codeqwen1.5-7b"] = paged_shape_check(torch, pa, "codeqwen1.5-7b", 1, 32, 32,
+                                                   128, bad)
+    rec_paged = dict(paged[1, "gemma-7b"],
+                     max_abs_err=max(r["max_abs_err"] for r in paged.values()))
+    rec_paged.update({f"{what} m{m}": r for (m, what), r in paged.items()
+                      if (m, what) != (1, "gemma-7b")})
+    entropy = entropy_shape_check(torch, ep, "gemma-7b", 3072, 256_000, 256_000, True, bad)
+    entropy["gemma-2b"] = entropy_shape_check(torch, ep, "gemma-2b", 2048, 256_000, 256_000,
+                                              True, bad)
+    entropy["codeqwen1.5-7b"] = entropy_shape_check(torch, ep, "codeqwen1.5-7b", 4096,
+                                                    92_416, 92_416, False, bad)
+    torch.cuda.empty_cache()
+    check(not bad, "gemma kernel vs plain: " + "; ".join(bad))
+    for rec in (flash, entropy):
+        rec["max_abs_err"] = max([rec["max_abs_err"]] + [
+            r["max_abs_err"] for r in rec.values() if isinstance(r, dict)])
+    return {"flash_attention": flash, "paged_attention": rec_paged,
+            "entropy_probe": entropy}
+
+
+#: a bf16 dense model at full depth against its plain path: the logits'
+#: relative L2 and their largest difference over max |logits| (phases 5b
+#: and 6b's bar)
+DENSE_BF16_TOL = 3e-2
+#: the kernel path's EAT of a bf16 dense model at full depth against the
+#: EAT of the same weights in float32 on the plain path, in nats.  Read on
+#: an H100 (gemma-7b, whose peaked random-weight distributions give EATs of
+#: 1.5-3.7 nats): the kernel path 4.16e-2 from float32, the bf16 plain path
+#: 7.70e-2, the kernel path 3.54e-2 from the bf16 plain path.  The bar lies
+#: between the kernel path's reading and what bf16 rounding moves the plain
+#: path by
+DENSE_EAT_TOL = 6e-2
+
+
+def dense_bf16_kernel_vs_plain(torch, model, prompts, probe, flash_want: str) -> None:
+    """``kernel_vs_plain`` on a bf16 dense model at full depth: the logits
+    within ``DENSE_BF16_TOL``, and the kernel path's launches: one flash
+    call per layer (the prefill), every one ``flash_want``, and one entropy
+    call on the tensor cores.  Then the same weights cast to float32
+    (exactly: each bf16 value is a float32 one) through the plain path: the
+    kernel path's EAT within ``DENSE_EAT_TOL`` nats of it.  Printed beside:
+    both bf16 paths' logits' distance from it, the plain bf16 path's EAT
+    distance from it (what bf16 rounding alone moves), and how far apart
+    the float32 EATs of the two requests lie (what a probe of the wrong
+    row would move).  The model is cast back to bf16 after, bitwise its
+    weights before."""
+    from repro_torch.kernels.entropy_probe import ops as ep
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    cfg = model.cfg
+    f0 = dict(fa.flash_attention_cuda.variant_launches)
+    e0 = dict(ep.entropy_probe_cuda.variant_launches)
+    outs = kernel_vs_plain(torch, model, prompts, probe)
+    flash = {x: n - f0[x] for x, n in fa.flash_attention_cuda.variant_launches.items()}
+    ent = {x: n - e0[x] for x, n in ep.entropy_probe_cuda.variant_launches.items()}
+    check(flash == {x: cfg.n_layers * (x == flash_want) for x in flash}
+          and ent == {"mma": 1, "scalar": 0},
+          f"{cfg.name}: kernel path launched flash {flash}, entropy {ent}; expected "
+          f"{cfg.n_layers} {flash_want} and one mma")
+    check(all(p.dtype == torch.bfloat16 for p in model.parameters()),
+          f"{cfg.name}: a weight is not bf16, so the float32 twin would not cast back")
+    model.float()
+    model.cfg = dataclasses.replace(cfg, dtype="float32")
+    f32 = kernel_vs_plain(torch, model, prompts, probe)["plain"]
+    model.bfloat16()
+    model.cfg = cfg
+    for i, what in enumerate(("prefill logits", "decode logits")):
+        k, p = outs["cuda"][i], outs["plain"][i]
+        rel = rel_l2(k, p)
+        top = ((k - p).abs().max() / p.abs().max()).item()
+        check(bool(torch.isfinite(k).all()) and rel < DENSE_BF16_TOL
+              and top < DENSE_BF16_TOL,
+              f"{cfg.name} {what}: kernel vs plain relative L2 {rel}, max |diff| / "
+              f"max |logits| {top}")
+        print(f"[model] {cfg.name} {what}: kernel vs plain relative L2 {rel:.3e}, max "
+              f"|diff| / max |logits| {top:.3e} (tol {DENSE_BF16_TOL:g} each); against "
+              f"the float32 path of the same weights, relative L2: kernel "
+              f"{rel_l2(k, f32[i]):.3e}, plain {rel_l2(p, f32[i]):.3e}")
+    eat_k, eat_p, eat_f = outs["cuda"][2], outs["plain"][2], f32[2]
+    d_eat = (eat_k - eat_f).abs().max().item()
+    check(bool(torch.isfinite(eat_k).all()) and d_eat < DENSE_EAT_TOL,
+          f"{cfg.name} EAT: kernel path {eat_k.tolist()} vs float32 {eat_f.tolist()} "
+          f"(tol {DENSE_EAT_TOL:g} nats)")
+    print(f"[model] {cfg.name} EAT kernel {[round(x, 4) for x in eat_k.tolist()]} plain "
+          f"{[round(x, 4) for x in eat_p.tolist()]} float32 "
+          f"{[round(x, 4) for x in eat_f.tolist()]}: kernel from float32 max diff "
+          f"{d_eat:.3e} (tol {DENSE_EAT_TOL:g} nats); plain from float32 "
+          f"{(eat_p - eat_f).abs().max().item():.3e}, kernel from plain "
+          f"{(eat_k - eat_p).abs().max().item():.3e}, the two requests' float32 EATs "
+          f"{(eat_f - eat_f.flip(0)).abs().max().item():.3e} apart; kernel path "
+          f"launches: flash {json.dumps(flash)}, entropy {json.dumps(ent)}")
+    del outs, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dense_model(torch, cfg, phases: dict, key: str, card: str):
+    """``cfg`` with seeded random weights on the card, its init timed and
+    its shape printed.  Returns (model, weight bytes)."""
+    from repro_torch.models.model import Model, init_params
+
+    t0 = time.perf_counter()
+    model = Model(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                   device="cuda"))
+    torch.cuda.synchronize()
+    phases[f"{key}_init_s"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"[model] {cfg.name}: {cfg.n_layers} layers d{cfg.d_model} Hq{cfg.n_heads}/"
+          f"Hkv{cfg.n_kv_heads} hd{cfg.resolved_head_dim} ff{cfg.d_ff} ({cfg.activation}) "
+          f"Vp{cfg.padded_vocab} {'tied' if cfg.tie_embeddings else 'untied'} "
+          f"{cfg.dtype}: {n_params / 1e9:.3f} B params, {weights / 1e9:.2f} GB, init "
+          f"{phases[f'{key}_init_s']:.1f} s ({card})")
+    return model, weights
+
+
+def gemma_phase(torch, np, F, kernels: dict, phases: dict, card: str,
+                profile_dir=None) -> dict:
+    """Phase 6c: ``gemma-7b`` (arXiv:2403.08295) at full width and depth,
+    the MLA model freed first.  The kernels at its shapes and at gemma-2b's
+    and codeqwen1.5-7b's (``wide_kernel_checks``); kernel path vs plain path
+    of gemma-7b (float32 cut to 2 layers, 1e-5; bf16 at the full 28: the
+    logits within ``DENSE_BF16_TOL``, the EAT within ``DENSE_EAT_TOL`` of
+    float32); then ``serve_cell``: the paged self-EAT serve of phase 4's
+    traffic (prompts over its 256,000 vocabulary), every flash
+    call the wide kernel (28 per prefill) and none scalar, every entropy
+    call mma, a profiled serve and a ring serve bitwise the paged one.
+    Then gemma-2b and codeqwen1.5-7b at full width and depth, each freed
+    before the next: kernel path vs plain path (float32 at 2 layers; bf16
+    at full depth, flash ``wide`` and ``mma`` respectively).  Returns
+    {"launches": the profiled serve's counts, "kernels": the records}."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.eat import make_probe
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.entropy_probe import ops as ep
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_attention import ops as pa
+
+    t_phase = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ptxas = ptxas_report(_build.BUILD_LOG.get("flash_attention", ""), "flash_wide_kernel")
+    recs = wide_kernel_checks(torch, F, fa, pa, ep, ptxas)
+    probe = make_probe(1, (6,))
+
+    cfg = get_config("gemma-7b")
+    prompts, lens = serve_workload(np, vocab=cfg.vocab)
+    check(int(prompts.max()) < cfg.vocab, "prompt ids past the vocab")
+    f32_kernel_vs_plain(torch, dataclasses.replace(cfg, name=cfg.name + "-2L-f32",
+                                                   n_layers=2, dtype="float32"),
+                        prompts, probe)
+    model, weights = dense_model(torch, cfg, phases, "gemma", card)
+    dense_bf16_kernel_vs_plain(torch, model, prompts, probe, "wide")
+    # the serves' peak, not the float32 twin's of the check above
+    torch.cuda.reset_peak_memory_stats()
+    L = cfg.n_layers
+    profiled = serve_cell(
+        torch, np, model, probe, prompts, lens, kernels, phases, card, key="gemma",
+        flash_want=lambda forwards, prefills: {"mma": 0, "mla": 0, "wide": L * prefills,
+                                               "scalar": 0},
+        flash_text=f"{L} wide per prefill", paged_want=None,
+        profile_path=Path(profile_dir) / "profile_gemma.txt" if profile_dir else None)
+    del model
+    phase_end(torch, phases, "gemma", cfg.name, base, t_phase, card, weights=weights,
+              over="its serves")
+
+    for name, variant in DENSE_CHECKS:
+        t0 = time.perf_counter()
+        full = get_config(name)
+        ps, _ = serve_workload(np, vocab=full.vocab)
+        f32_kernel_vs_plain(torch, dataclasses.replace(full, name=name + "-2L-f32",
+                                                       n_layers=2, dtype="float32"),
+                            ps, probe)
+        model, _ = dense_model(torch, full, phases, name, card)
+        dense_bf16_kernel_vs_plain(torch, model, ps, probe, variant)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        phases[f"{name}_s"] = time.perf_counter() - t0
+    return {"launches": profiled, "kernels": recs}
 
 
 # ------------------------------------------------------------------ phase 7
@@ -2546,6 +2827,17 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False   # numbers are compared below
     torch.backends.cudnn.allow_tf32 = False
     phases = {}
+    walls, t_last = {}, [T_START]
+
+    def lap(name: str) -> None:
+        """The wall of the phase that ends here (host clock), printed at
+        once (a run that fails later still shows where its time went) and
+        kept for the closing ``[phases]`` lines."""
+        now = time.perf_counter()
+        walls[name] = now - t_last[0]
+        t_last[0] = now
+        print(f"[phases] phase {name}: {walls[name]:.1f} s wall, {now - T_START:.1f} s "
+              f"since the start")
 
     # ---- 1. the card
     card = card_line()
@@ -2559,6 +2851,7 @@ def main() -> None:
           + (f"missing {', '.join(missing)}" if missing else "present")
           + "; decode and shadow chunks run as CUDA graphs of the fixed-length "
           "masked chunk (a probe every step, no if-node)")
+    lap("1")
 
     # ---- 2. build
     from repro_torch.kernels import _build
@@ -2577,10 +2870,13 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.paged_attention import ops as pa
 
+    lap("2")
+
     # ---- 3. kernels vs plain at main-path shapes
     t0 = time.perf_counter()
     flash_ptxas = [line for kernel in ("flash_mma_kernel", "flash_mla_kernel",
-                                       "flash_mla_merge_kernel", "flash_kernel")
+                                       "flash_mla_merge_kernel", "flash_wide_kernel",
+                                       "flash_kernel")
                    for line in ptxas_report(_build.BUILD_LOG.get("flash_attention", ""),
                                             kernel)]
     paged_ptxas = [line for kernel in ("paged_max_kernel", "paged_fold_kernel",
@@ -2611,6 +2907,8 @@ def main() -> None:
                  for line in ptxas_report(_build.BUILD_LOG.get("ssd_scan", ""), kernel)]
     rec["ssd_scan"] = ssd_check(torch, ss, ssd_ptxas)
     phases["kernel_checks_s"] = time.perf_counter() - t0
+
+    lap("3")
 
     # ---- 4. eat-paper-8b, full width and depth, random weights on the card
     from repro_torch.configs.base import get_config
@@ -2826,7 +3124,7 @@ def main() -> None:
     def check_flash_variants(what, counts, per_prefill):
         """Every flash launch of a bf16 serve is the tensor-core kernel:
         one per layer per prefill of each model, none scalar."""
-        want = {"mma": per_prefill * prefills, "mla": 0, "scalar": 0}
+        want = {"mma": per_prefill * prefills, "mla": 0, "wide": 0, "scalar": 0}
         check(counts == want, f"{what}: flash launches per variant {counts}, "
               f"expected {want} ({per_prefill} per prefill x {prefills} prefills)")
 
@@ -2846,6 +3144,8 @@ def main() -> None:
           f"their captured calls once per replay); flash per variant "
           f"{json.dumps(flash_variants)} ({cfg.n_layers} mma per prefill x "
           f"{prefills}); entropy per variant {json.dumps(entropy_variants)}")
+
+    lap("4")
 
     # ---- 4b. the same workload served black-box: the generator decodes
     # unmonitored and a proxy model's EAT supplies the exits
@@ -2920,6 +3220,8 @@ def main() -> None:
           f"of the paged, ring and qwen3-1.7b proxy engines; "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak allocated")
 
+    lap("4b")
+
     # ---- 4c. the overlapped serve loop (serving/pipeline.py) on the paged
     # self-EAT engine and the qwen3-1.7b proxy engine: cold, then warm
     # (== the warm sync serve bitwise, 0 captures, the whole serve under
@@ -2985,6 +3287,8 @@ def main() -> None:
                       kernels)
     del qmodel, eng_q, watch_q, eng_paged, watch_paged, eng_ring
 
+    lap("4c")
+
     # ---- 5. mamba2-2.7b, the 8B engines freed first (the model stays)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2993,6 +3297,8 @@ def main() -> None:
     m_launches = mamba_phase(torch, np, kernels, phases, args.profile)
     launches["ssd_scan"] = m_launches["ssd_scan"]
     phases["mamba_s"] = time.perf_counter() - t0
+
+    lap("5")
 
     # ---- 5b. deepseek-moe-16b, full width and depth (the 8B model stays
     # for phase 6; its engines and mamba2's are freed)
@@ -3003,11 +3309,15 @@ def main() -> None:
                                     "entropy_probe")}, phases, card,
                     profile_dir=args.profile)
 
+    lap("5b")
+
     # ---- 6. the evaluation path on eat-paper-8b
     trace_phase(torch, np, model, probe, prompts, lens, kernels, phases)
     del model
     gc.collect()
     torch.cuda.empty_cache()
+
+    lap("6")
 
     # ---- 6b. deepseek-v2-236b (MLA) at full width, 8 of 60 layers, the 8B
     # model freed first
@@ -3016,14 +3326,28 @@ def main() -> None:
                                     "entropy_probe")}, phases, card,
                     profile_dir=args.profile)
 
+    lap("6b")
+
+    # ---- 6c. gemma-7b at full width and depth, the MLA model freed first;
+    # then gemma-2b and codeqwen1.5-7b without a serve
+    gemma = gemma_phase(torch, np, F, {name: kernels[name] for name in
+                                       ("flash_attention", "paged_attention",
+                                        "entropy_probe")}, phases, card,
+                        profile_dir=args.profile)
+    lap("6c")
+
     # ---- 7. the training path, the 8B model freed first
     train_phase(torch, np, card, {name: kernels[name] for name in
                                   ("flash_attention", "paged_attention",
                                    "entropy_probe")}, phases,
                 profile_dir=args.profile)
-
+    lap("7")
+    phases["walls_s"] = walls
     print("[phases] " + json.dumps({k: (round(v, 3) if isinstance(v, float) else v)
                                     for k, v in phases.items()}))
+    print(f"[phases] walls per phase (s): "
+          + json.dumps({k: round(v, 1) for k, v in walls.items()})
+          + f"; {sum(walls.values()):.1f} s in all ({card})")
 
     # ---- 8. result lines: launches from the path each kernel serves (the
     # profiled 8B paged self-EAT serve; ssd_scan from the profiled mamba2
@@ -3056,6 +3380,9 @@ def main() -> None:
                               "variant": m["variant"],
                               "decode": m["decode"], "expanded": m["expanded"],
                               "float32_ms": m["float32_ms"]}
+        if name in gemma["launches"]:
+            g = dict(gemma["kernels"][name])
+            out[-1]["gemma"] = {"launches": gemma["launches"][name], **g}
         if name in moe["launches"]:
             m = moe["kernels"][name]
             out[-1]["moe"] = {"launches": moe["launches"][name],

@@ -4,9 +4,14 @@
 // (entropy_probe_pallas).  Computes H(softmax(h W)[:vocab]) per row without
 // writing the (B, Vp) logits to device memory: per vocab tile the running
 // statistics m = max logit, Z = sum exp(logit - m), T = sum exp(logit - m) *
-// logit, merged across tiles by rescaling, and H = m + log Z - T / Z.
-// Columns >= vocab (the padded vocabulary) are masked: -1e30 in the max, 0
-// in Z and T.
+// (logit - m), merged across tiles by rescaling (T moves to a new max m' as
+// exp(m - m') (T + (m - m') Z)), and H = log Z - T / Z.  The reference's T
+// is taken about 0 and its H = m + log Z - T / Z cancels: where one token
+// takes nearly all the mass, m + log Z and T / Z both near m, and the
+// rounding of each sum that adds a small term to them (one ulp of m, 1.9e-6
+// at a logit of 27) lands in H whole; about the max, the small terms stay
+// small.  Columns >= vocab (the padded vocabulary) are masked: -1e30 in the
+// max, 0 in Z and T.
 //
 // On the TPU the vocab tiles ran in order on one core and carried (m, Z, T)
 // in scratch.  Blocks on Hopper run in parallel, so a call is two launches:
@@ -142,7 +147,7 @@ __global__ void __launch_bounds__(TV) tile_stats_kernel(
     const float m = block_reduce<true>(x, red);
     const float e = valid ? expf(x - m) : 0.f;
     const float z = block_reduce<false>(e, red);
-    const float t = block_reduce<false>(valid ? e * x : 0.f, red);
+    const float t = block_reduce<false>(valid ? e * (x - m) : 0.f, red);
     if (tid == 0) {
       float* o = part + ((size_t)tile * B + b0 + b) * 3;
       o[0] = m;
@@ -155,8 +160,8 @@ __global__ void __launch_bounds__(TV) tile_stats_kernel(
 // ------------------------------------------------------------------ merge
 
 // Fold the n_part partials of row blockIdx.x: weights exp(m_p - M) against
-// the largest partial max M.  A partial that saw no valid column (m =
-// -1e30, Z = T = 0) adds exact zeros.
+// the largest partial max M, each T_p moved to M by (m_p - M) Z_p.  A
+// partial that saw no valid column (m = -1e30, Z = T = 0) adds exact zeros.
 __global__ void __launch_bounds__(TV) merge_kernel(
     const float* __restrict__ part, float* __restrict__ out, int B, int n_part) {
   __shared__ float red[TV / 32];
@@ -169,11 +174,11 @@ __global__ void __launch_bounds__(TV) merge_kernel(
     const float* p = part + ((size_t)t * B + b) * 3;
     const float s = expf(p[0] - m);
     z += p[1] * s;
-    tt += p[2] * s;
+    tt += (p[2] + (p[0] - m) * p[1]) * s;
   }
   z = block_reduce<false>(z, red);
   tt = block_reduce<false>(tt, red);
-  if (tid == 0) out[b] = m + logf(z) - tt / z;
+  if (tid == 0) out[b] = logf(z) - tt / z;
 }
 
 // ------------------------------------------------------------------ mma
@@ -403,14 +408,14 @@ __global__ void __launch_bounds__(MMA_THREADS) entropy_mma_kernel(
           const float e0 = ok_lo ? expf(x0 - m_new) : 0.f;
           const float e1 = ok_hi ? expf(x1 - m_new) : 0.f;
           float zs = e0 + e1;
-          float ts = (ok_lo ? e0 * x0 : 0.f) + (ok_hi ? e1 * x1 : 0.f);
+          float ts = (ok_lo ? e0 * (x0 - m_new) : 0.f) + (ok_hi ? e1 * (x1 - m_new) : 0.f);
 #pragma unroll
           for (int o = 4; o < 32; o <<= 1) {
             zs += __shfl_xor_sync(FULL, zs, o);
             ts += __shfl_xor_sync(FULL, ts, o);
           }
+          t_run[nt][j] = (t_run[nt][j] + (m_run[nt][j] - m_new) * z_run[nt][j]) * alpha + ts;
           z_run[nt][j] = z_run[nt][j] * alpha + zs;
-          t_run[nt][j] = t_run[nt][j] * alpha + ts;
           m_run[nt][j] = m_new;
         }
 #pragma unroll
@@ -448,7 +453,7 @@ __global__ void __launch_bounds__(MMA_THREADS) entropy_mma_kernel(
       const float* p = st + (wi * R + r) * 3;
       const float sc = expf(p[0] - M);
       Z += p[1] * sc;
-      T += p[2] * sc;
+      T += (p[2] + (p[0] - M) * p[1]) * sc;
     }
     float* o = part + ((size_t)blockIdx.x * B + row) * 3;
     o[0] = M;

@@ -7,7 +7,7 @@
 // and (window > 0) less than `window` positions behind it.  q head h reads
 // kv head h / g.  Dv may differ from Dk.  Rows with no valid key give 0.
 //
-// Three kernels, chosen by the wrapper's rule (ops.flash_variant):
+// Four kernels, chosen by the wrapper's rule (ops.flash_variant):
 //
 // * flash_mma_kernel: bfloat16 at the head dims instantiated below, on the
 //   tensor cores (mma.sync.m16n8k16, bf16 in, float32 accumulate).  One
@@ -24,10 +24,36 @@
 //   MLA's absorbed pairs (Dk, Dv) = (kv_lora + rope, kv_lora) instantiated
 //   below: 128 q heads against ONE kv head of 576, V the first 512 columns
 //   of K (the latent c of cat(c, kr)).  Described below.
+// * flash_wide_kernel: bfloat16 at head dims above 128 instantiated below
+//   (Gemma's (256, 256)), on the tensor cores.  Described below.
 // * flash_kernel: the first, scalar kernel: float32 FMAs from shared
 //   memory.  It serves float32 (the tensor cores would compute in TF32,
 //   about 3 decimal digits, short of the 1e-5 float32 bar) and bf16 head
 //   dims outside the instantiated sets (MLA's expanded 192/128 among them).
+//
+// The wide kernel.  flash_mma_kernel keeps a warp's 16 rows of q as
+// register A-fragments and a 16 x Dv float32 accumulator: at 256 that is
+// 64 + 128 registers a thread before S, P and the addresses, past what a
+// thread holds without spilling.  Two layouts were open: (i) that kernel's
+// 4 warps of 16 query rows, each warp the whole Dv, with the q tile staged
+// in shared memory and read by ldmatrix at every k-step (flash_mla_kernel
+// reads its q so), or (ii) flash_mla_kernel's 8 warps as 4 row groups x 2
+// column halves, which must either compute S twice (at Dk = Dv that is
+// 1.5x the products) or trade probabilities and row statistics through
+// shared memory behind a barrier per tile.  This is (i): one S per row, no
+// exchange, 128 accumulator registers a thread as flash_mla_kernel holds
+// them.  The 64 x 256 q tile is 33,792 B with 16-byte row padding; K and V
+// come in separate 32-key tiles (16,896 B each, padded), double-buffered
+// by 16-byte cp.async, 101.6 KB in all: two blocks (8 warps) per SM.  A
+// block is 64 queries of one q head, so at g > 1 (gemma-2b: 8 q heads on
+// one kv head) each kv head's tiles are read g times, from L2 after the
+// first.  What bounds it on the H100, at gemma-7b's prefill (B 4, S 512,
+// 16 q and 16 kv heads of 256, left-padded): bytes.  q/k/v/out are 67.1 MB
+// (0.020 ms at 3.35 TB/s) against 357k valid causal pairs per head x 16 x
+// 4 x 256 = 5.85 GFLOP (0.006 ms at 989 TFLOP/s); mma.sync with q re-read
+// from shared memory at every k-step runs well below that peak, so the
+// products, not the bytes, are what a faster (wgmma/TMA) version would
+// have to move.
 //
 // The MLA kernel.  flash_mma_kernel's block is 64 queries of one q head:
 // at MLA's shape each block would read every key tile of the one shared kv
@@ -64,7 +90,7 @@
 // the latent cache and out, 0.0013 ms, where launch latency and the split
 // count decide.
 //
-// Both round where the plain version rounds: q times the bf16-rounded
+// Each kernel rounds where the plain version rounds: q times the bf16-rounded
 // scale, rounded to the storage type; float32 scores, masked to -1e30
 // before the row max; p = exp(s - m) in float32 (exactly 0 where masked),
 // summed unrounded into l; p rounded to the storage type for P V; float32
@@ -243,6 +269,7 @@ constexpr int MMA_THREADS = 128;  // 4 warps x 16 query rows
 constexpr int MMA_BQ = 64;
 constexpr int MMA_BKV = 64;
 constexpr int PAD = 8;            // bf16 of padding per shared row: 16 bytes
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -296,6 +323,59 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// One key tile of the online softmax on the S accumulators of a warp's 16
+// rows (this thread's rows g and g + 8, columns 2t, 2t + 1 of each n8
+// tile): scores of invalid pairs masked to -1e30 before the row max (taken
+// across the quad), p = exp(s - m_new) in float32, exactly 0 where masked,
+// left in s; l and the accumulator o rescaled by exp(m_prev - m_new).  A
+// tile without a valid pair leaves m, l and o as they were, bit for bit.
+template <int NS, int NO>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS][4], float (&o)[NO][4],
+                                             float (&m_run)[2], float (&l_run)[2],
+                                             const int (&qp)[2], const int* kp, int t,
+                                             int causal, int window) {
+  uint32_t valid = 0;
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (is_valid(qp[e >> 1], kp[n * 8 + 2 * t + (e & 1)], causal, window))
+        valid |= 1u << (n * 4 + e);
+      else
+        s[n][e] = NEG_INF;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    }
+  }
+  float alpha[2], m_new[2], lsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL_MASK, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL_MASK, mx[i], 2));
+    m_new[i] = fmaxf(m_run[i], mx[i]);
+    alpha[i] = expf(m_run[i] - m_new[i]);
+    m_run[i] = m_new[i];
+  }
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = (valid >> (n * 4 + e)) & 1u ? expf(s[n][e] - m_new[e >> 1]) : 0.f;
+      lsum[e >> 1] += p;
+      s[n][e] = p;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + lsum[i];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    o[n][0] *= alpha[0];
+    o[n][1] *= alpha[0];
+    o[n][2] *= alpha[1];
+    o[n][3] *= alpha[1];
+  }
 }
 
 template <int DK, int DV>
@@ -360,8 +440,8 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_mma_kernel(
   {
     int lo = INT_MAX, hi = INT_MIN;
     if (tid < MMA_BQ && q0 + tid < Sq) lo = hi = q_pos[(size_t)b * Sq + q0 + tid];
-    lo = __reduce_min_sync(0xffffffffu, lo);
-    hi = __reduce_max_sync(0xffffffffu, hi);
+    lo = __reduce_min_sync(FULL_MASK, lo);
+    hi = __reduce_max_sync(FULL_MASK, hi);
     if (lane == 0 && warp < MMA_BQ / 32) {
       red[2 * warp] = lo;
       red[2 * warp + 1] = hi;
@@ -488,48 +568,7 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_mma_kernel(
         }
       }
 
-      // mask, row max across the quad, p, alpha, l
-      uint32_t valid = 0;
-      float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (is_valid(qp[e >> 1], kp[n * 8 + 2 * t + (e & 1)], causal, window))
-            valid |= 1u << (n * 4 + e);
-          else
-            s[n][e] = NEG_INF;
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-        }
-      }
-      float alpha[2], m_new[2], lsum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        m_new[i] = fmaxf(m_run[i], mx[i]);
-        alpha[i] = expf(m_run[i] - m_new[i]);
-        m_run[i] = m_new[i];
-      }
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p =
-              (valid >> (n * 4 + e)) & 1u ? expf(s[n][e] - m_new[e >> 1]) : 0.f;
-          lsum[e >> 1] += p;
-          s[n][e] = p;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + lsum[i];
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        o[n][0] *= alpha[0];
-        o[n][1] *= alpha[0];
-        o[n][2] *= alpha[1];
-        o[n][3] *= alpha[1];
-      }
+      softmax_tile(s, o, m_run, l_run, qp, kp, t, causal, window);
 
       // O += P V: the S accumulators of n8 tiles 2j and 2j + 1, rounded to
       // bf16, are the A-fragment of k-step j; one ldmatrix.x4.trans gives
@@ -563,8 +602,8 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_mma_kernel(
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float l = l_run[i];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l += __shfl_xor_sync(FULL_MASK, l, 1);
+    l += __shfl_xor_sync(FULL_MASK, l, 2);
     l_row[i] = l;
   }
   __nv_bfloat16* stage = qs + warp * 16 * L::QLD;
@@ -620,7 +659,6 @@ constexpr int MLA_BM = 64;           // rows per block
 constexpr int MLA_BN = 32;           // keys per K tile
 constexpr int MLA_SPLIT_KEYS = 64;   // keys per split (ops.MLA_SPLIT_KEYS)
 constexpr int MLA_MERGE_WARPS = 8;   // merge: one row per warp
-constexpr unsigned FULL_MASK = 0xffffffffu;
 
 template <int DK>
 struct MlaSmem {
@@ -807,48 +845,7 @@ __global__ void __launch_bounds__(MLA_THREADS, 1) flash_mla_kernel(
         }
       }
 
-      // mask, row max across the quad, p, alpha, l
-      uint32_t valid = 0;
-      float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (is_valid(qp[e >> 1], kp[n * 8 + 2 * t + (e & 1)], causal, window))
-            valid |= 1u << (n * 4 + e);
-          else
-            s[n][e] = NEG_INF;
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-        }
-      }
-      float alpha[2], m_new[2], lsum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL_MASK, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL_MASK, mx[i], 2));
-        m_new[i] = fmaxf(m_run[i], mx[i]);
-        alpha[i] = expf(m_run[i] - m_new[i]);
-        m_run[i] = m_new[i];
-      }
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p =
-              (valid >> (n * 4 + e)) & 1u ? expf(s[n][e] - m_new[e >> 1]) : 0.f;
-          lsum[e >> 1] += p;
-          s[n][e] = p;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * alpha[i] + lsum[i];
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        o[n][0] *= alpha[0];
-        o[n][1] *= alpha[0];
-        o[n][2] *= alpha[1];
-        o[n][3] *= alpha[1];
-      }
+      softmax_tile(s, o, m_run, l_run, qp, kp, t, causal, window);
 
       // O += P V over this warp's column half: the S accumulators of n8
       // tiles 2j and 2j + 1, rounded to bf16, are the A-fragment of k-step
@@ -989,6 +986,281 @@ cudaError_t launch_mla(const void* q, const void* k, const void* q_pos,
   return cudaGetLastError();
 }
 
+// ----------------------------------------------------------------- wide
+// The bf16 tensor-core kernel for head dims of 256 (see the header): the
+// block and warp rows of flash_mma_kernel (64 queries of one q head, 16 rows
+// a warp, the whole Dv a warp), q read from shared memory at every k-step
+// as flash_mla_kernel reads it, K and V in separate 32-key tiles.
+
+constexpr int WIDE_THREADS = 128;  // 4 warps x 16 query rows
+constexpr int WIDE_BQ = 64;
+constexpr int WIDE_BKV = 32;
+
+template <int DK, int DV>
+struct WideSmem {
+  static constexpr int QLD = (DK > DV ? DK : DV) + PAD;  // q tile, then output
+  static constexpr int KLD = DK + PAD;
+  static constexpr int VLD = DV + PAD;
+  static constexpr size_t Q_BYTES = (size_t)WIDE_BQ * QLD * 2;
+  static constexpr size_t K_BYTES = (size_t)WIDE_BKV * KLD * 2;  // per buffer
+  static constexpr size_t V_BYTES = (size_t)WIDE_BKV * VLD * 2;
+  // q | K[2] | V[2] | key positions [2][32] | qmin, qmax x 2, count | tiles
+  static size_t bytes(int n_tiles) {
+    return Q_BYTES + 2 * K_BYTES + 2 * V_BYTES +
+           (2 * WIDE_BKV + 5 + (size_t)n_tiles) * sizeof(int);
+  }
+};
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(WIDE_THREADS, 2) flash_wide_kernel(
+    const __nv_bfloat16* __restrict__ q,  // (B, Sq, Hq, DK)
+    const __nv_bfloat16* __restrict__ k,  // (B, Skv, Hkv, DK)
+    const __nv_bfloat16* __restrict__ v,  // (B, Skv, Hkv, DV)
+    const int* __restrict__ q_pos,        // (B, Sq)
+    const int* __restrict__ kv_pos,       // (B, Skv)
+    __nv_bfloat16* __restrict__ out,      // (B, Sq, Hq, DV)
+    int Sq, int Skv, int Hq, int Hkv, int causal, int window, float scale) {
+  static_assert(DK % 16 == 0 && DV % 16 == 0 && DK > 128 && DV > 128,
+                "head dims are multiples of 16 above flash_mma_kernel's 128");
+  using L = WideSmem<DK, DV>;
+  constexpr int KS = DK / 16;        // k-steps of S = Q K^T
+  constexpr int NS = WIDE_BKV / 8;   // n8 tiles of S
+  constexpr int NO = DV / 8;         // n8 tiles of the output
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * WIDE_BQ;  // longest rows first
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_tiles = (Skv + WIDE_BKV - 1) / WIDE_BKV;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::Q_BYTES);
+  __nv_bfloat16* vs =
+      reinterpret_cast<__nv_bfloat16*>(smem_raw + L::Q_BYTES + 2 * L::K_BYTES);
+  int* kp_s = reinterpret_cast<int*>(smem_raw + L::Q_BYTES + 2 * L::K_BYTES +
+                                     2 * L::V_BYTES);  // [2][WIDE_BKV]
+  int* red = kp_s + 2 * WIDE_BKV;  // qmin, qmax of warps 0 and 1, tile count
+  int* tiles = red + 5;            // [n_tiles]
+
+  // ---- the raw q tile, in flight while the block lists its kv tiles
+  // (rows past Sq are zero)
+  for (int c = tid; c < WIDE_BQ * DK / 8; c += WIDE_THREADS) {
+    const int r = c / (DK / 8), d = (c % (DK / 8)) * 8, qi = q0 + r;
+    cp_async16(smem_u32(qs + r * L::QLD + d),
+               q + (((size_t)b * Sq + min(qi, Sq - 1)) * Hq + h) * DK + d,
+               qi < Sq ? 16 : 0);
+  }
+  cp_async_commit();
+
+  // ---- the block's smallest and largest query position (rows below Sq)
+  {
+    int lo = INT_MAX, hi = INT_MIN;
+    if (tid < WIDE_BQ && q0 + tid < Sq) lo = hi = q_pos[(size_t)b * Sq + q0 + tid];
+    lo = __reduce_min_sync(FULL_MASK, lo);
+    hi = __reduce_max_sync(FULL_MASK, hi);
+    if (lane == 0 && warp < WIDE_BQ / 32) {
+      red[2 * warp] = lo;
+      red[2 * warp + 1] = hi;
+    }
+  }
+  for (int i = tid; i < n_tiles; i += WIDE_THREADS) tiles[i] = 0;
+  __syncthreads();
+
+  // ---- the kv tiles this block visits (conservative, by the block's
+  // smallest and largest position: a visited tile without a valid pair is
+  // an exact identity step)
+  {
+    const int qmin = min(red[0], red[2]), qmax = max(red[1], red[3]);
+    for (int i = tid; i < Skv; i += WIDE_THREADS) {
+      const int kp = kv_pos[(size_t)b * Skv + i];
+      if (kp >= 0 && (!causal || kp <= qmax) && (window == 0 || qmin - kp < window))
+        tiles[i / WIDE_BKV] = 1;
+    }
+  }
+  cp_async_wait<0>();  // the q tile
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int i = 0; i < n_tiles; ++i)
+      if (tiles[i]) tiles[n++] = i;
+    red[4] = n;
+  }
+  // q times the bf16-rounded scale, rounded to bf16, in place, as the plain
+  // version scales it
+  {
+    const float scale_t = round_t<__nv_bfloat16>(scale);
+    for (int c = tid; c < WIDE_BQ * DK / 2; c += WIDE_THREADS) {
+      const int r = c / (DK / 2), d = (c % (DK / 2)) * 2;
+      auto* p = reinterpret_cast<__nv_bfloat162*>(qs + r * L::QLD + d);
+      const float2 x = __bfloat1622float2(*p);
+      *p = __floats2bfloat162_rn(x.x * scale_t, x.y * scale_t);
+    }
+  }
+  __syncthreads();
+  const int n_visit = red[4];
+
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  int qp[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    qp[i] = row0 + 8 * i < Sq ? q_pos[(size_t)b * Sq + row0 + 8 * i] : -1;
+  const bool active = q0 + warp * 16 < Sq;  // the warp has a row below Sq
+
+  // one kv tile into buffer `buf`: K, V and the key positions (keys past
+  // Skv are zero with position -1)
+  auto issue = [&](int tile, int buf) {
+    const int k0 = tile * WIDE_BKV;
+    const uint32_t kdst = smem_u32(ks + buf * (L::K_BYTES / 2));
+    const uint32_t vdst = smem_u32(vs + buf * (L::V_BYTES / 2));
+#pragma unroll
+    for (int c = tid; c < WIDE_BKV * DK / 8; c += WIDE_THREADS) {
+      const int r = c / (DK / 8), d = (c % (DK / 8)) * 8, ki = k0 + r;
+      const __nv_bfloat16* src =
+          k + (((size_t)b * Skv + min(ki, Skv - 1)) * Hkv + hk) * DK + d;
+      cp_async16(kdst + (r * L::KLD + d) * 2, src, ki < Skv ? 16 : 0);
+    }
+#pragma unroll
+    for (int c = tid; c < WIDE_BKV * DV / 8; c += WIDE_THREADS) {
+      const int r = c / (DV / 8), d = (c % (DV / 8)) * 8, ki = k0 + r;
+      const __nv_bfloat16* src =
+          v + (((size_t)b * Skv + min(ki, Skv - 1)) * Hkv + hk) * DV + d;
+      cp_async16(vdst + (r * L::VLD + d) * 2, src, ki < Skv ? 16 : 0);
+    }
+    if (tid < WIDE_BKV) {
+      int* dst = kp_s + buf * WIDE_BKV + tid;
+      if (k0 + tid < Skv)
+        cp_async4(smem_u32(dst), kv_pos + (size_t)b * Skv + k0 + tid);
+      else
+        *dst = -1;
+    }
+    cp_async_commit();
+  };
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+
+  if (n_visit > 0) issue(tiles[0], 0);
+  for (int it = 0; it < n_visit; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_visit) {  // the next tile's copies overlap this tile
+      issue(tiles[it + 1], buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    if (active) {
+      const __nv_bfloat16* kb = ks + buf * (L::K_BYTES / 2);
+      const __nv_bfloat16* vb = vs + buf * (L::V_BYTES / 2);
+      const int* kp = kp_s + buf * WIDE_BKV;
+
+      // S = Q K^T: Q's A-fragments from shared memory at every k-step; one
+      // ldmatrix.x4 gives the B-fragments of two n8 tiles of keys.  The
+      // k-steps unroll by 4: unrolled whole, ptxas spills (255 registers,
+      // 104 bytes of spill stores); by 4 it holds 235 and spills nothing
+      float s[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      {
+        const int ar = warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+        const int ad = (lane >> 4) * 8;
+        const int key = (lane >> 4) * 8 + (lane & 7);
+        const int d = ((lane >> 3) & 1) * 8;
+#pragma unroll 4
+        for (int st = 0; st < KS; ++st) {
+          uint32_t qa[4];
+          ldmatrix_x4(qa, smem_u32(qs + ar * L::QLD + st * 16 + ad));
+#pragma unroll
+          for (int np = 0; np < NS / 2; ++np) {
+            uint32_t bf[4];
+            ldmatrix_x4(bf, smem_u32(kb + (np * 16 + key) * L::KLD + st * 16 + d));
+            mma_bf16(s[2 * np], qa, bf[0], bf[1]);
+            mma_bf16(s[2 * np + 1], qa, bf[2], bf[3]);
+          }
+        }
+      }
+
+      softmax_tile(s, o, m_run, l_run, qp, kp, t, causal, window);
+
+      // O += P V: the S accumulators of n8 tiles 2j and 2j + 1, rounded to
+      // bf16, are the A-fragment of k-step j; one ldmatrix.x4.trans gives
+      // V's B-fragments of two n8 tiles of the output
+      {
+        const int key = ((lane >> 3) & 1) * 8 + (lane & 7);
+        const int d = (lane >> 4) * 8;
+#pragma unroll
+        for (int j = 0; j < NS / 2; ++j) {
+          const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                                  pack_bf16(s[2 * j][2], s[2 * j][3]),
+                                  pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                                  pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+#pragma unroll
+          for (int np = 0; np < NO / 2; ++np) {
+            uint32_t bf[4];
+            ldmatrix_x4_trans(bf, smem_u32(vb + (j * 16 + key) * L::VLD + np * 16 + d));
+            mma_bf16(o[2 * np], pa, bf[0], bf[1]);
+            mma_bf16(o[2 * np + 1], pa, bf[2], bf[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next iteration's copies refill this buffer
+  }
+
+  // ---- acc / l, 0 where no key was valid, staged through this warp's own
+  // rows of the q tile for 16-byte stores
+  if (!active) return;
+  float l_row[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(FULL_MASK, l, 1);
+    l += __shfl_xor_sync(FULL_MASK, l, 2);
+    l_row[i] = l;
+  }
+  __nv_bfloat16* stage = qs + warp * 16 * L::QLD;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float den = fmaxf(l_row[i], 1e-30f);
+      const float x0 = l_row[i] > 0.f ? o[n][2 * i] / den : 0.f;
+      const float x1 = l_row[i] > 0.f ? o[n][2 * i + 1] / den : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8 * i) * L::QLD + n * 8 + 2 * t) =
+          __floats2bfloat162_rn(x0, x1);
+    }
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * DV / 8; c += 32) {
+    const int r = c / (DV / 8), d = (c % (DV / 8)) * 8, qi = q0 + warp * 16 + r;
+    if (qi < Sq)
+      *reinterpret_cast<uint4*>(out + (((size_t)b * Sq + qi) * Hq + h) * DV + d) =
+          *reinterpret_cast<const uint4*>(stage + r * L::QLD + d);
+  }
+}
+
+template <int DK, int DV>
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        const void* q_pos, const void* kv_pos, void* out, int B,
+                        int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+                        float scale, cudaStream_t stream) {
+  const size_t smem = WideSmem<DK, DV>::bytes((Skv + WIDE_BKV - 1) / WIDE_BKV);
+  cudaError_t err = repro::allow_smem(flash_wide_kernel<DK, DV>, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(Hq, B, (Sq + WIDE_BQ - 1) / WIDE_BQ);
+  flash_wide_kernel<DK, DV><<<grid, WIDE_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(q_pos),
+      static_cast<const int*>(kv_pos), static_cast<__nv_bfloat16*>(out), Sq, Skv,
+      Hq, Hkv, causal, window, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The bf16 tensor-core kernel at the instantiated (Dk, Dv) pairs: those of
@@ -1031,6 +1303,23 @@ extern "C" int flash_attention_mla(const void* q, const void* k, const void* q_p
   REPRO_MLA_CASE(576, 512)
   REPRO_MLA_CASE(48, 32)
 #undef REPRO_MLA_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 wide kernel at the instantiated (Dk, Dv) pairs: those of
+// ops.WIDE_HEAD_DIMS; any other pair is refused, never re-routed.
+extern "C" int flash_attention_wide(const void* q, const void* k, const void* v,
+                                    const void* q_pos, const void* kv_pos,
+                                    void* out, int B, int Sq, int Skv, int Hq,
+                                    int Hkv, int Dk, int Dv, int causal,
+                                    int window, float scale, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+#define REPRO_WIDE_CASE(DK, DV)                                                  \
+  if (Dk == DK && Dv == DV)                                                      \
+    return launch_wide<DK, DV>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, Hq, Hkv, \
+                               causal, window, scale, s);
+  REPRO_WIDE_CASE(256, 256)
+#undef REPRO_WIDE_CASE
   return (int)cudaErrorInvalidValue;
 }
 

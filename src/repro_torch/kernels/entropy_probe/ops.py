@@ -3,7 +3,12 @@ and ``kernel.py``): the Shannon entropy (nats) of softmax(h @ w)[:, :vocab]
 per row, without materialising the (B, Vp) logits.
 
 * ``next_token_entropy_plain`` — the plain PyTorch version (the
-  reference's ``_xla_entropy``: running (m, Z, T) over vocab chunks).
+  reference's ``_xla_entropy``: running (m, Z, T) over vocab chunks), with
+  T taken about the running max, T = sum exp(x - m) (x - m), and H = log Z
+  - T / Z.  The reference's T is taken about 0 and its H = m + log Z - T / Z
+  cancels where one token takes nearly all the mass: both terms near m, each
+  rounded to an ulp of m (1.9e-6 at a logit of 27).  The kernels do the
+  same (``csrc/entropy_probe.cu``).
 * ``entropy_probe_cuda`` — the hand-written kernels
   (``csrc/entropy_probe.cu``, replacing ``entropy_probe_pallas``), two
   launches a call: a statistics kernel chosen by ``entropy_variant``, then
@@ -118,10 +123,11 @@ def next_token_entropy_plain(h, w, vocab: int) -> torch.Tensor:
         m_new = torch.maximum(m, logits.amax(dim=-1))
         alpha = torch.exp(m - m_new)
         e = torch.where(valid, torch.exp(logits - m_new[:, None]), 0.0)
+        t = (t + (m - m_new) * z) * alpha + (
+            e * torch.where(valid, logits - m_new[:, None], 0.0)).sum(dim=-1)
         z = z * alpha + e.sum(dim=-1)
-        t = t * alpha + (e * torch.where(valid, logits, 0.0)).sum(dim=-1)
         m = m_new
-    return m + torch.log(z) - t / z
+    return torch.log(z) - t / z
 
 
 def entropy_probe_cuda(h, w, vocab: int, *, variant=None) -> torch.Tensor:

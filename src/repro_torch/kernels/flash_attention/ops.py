@@ -8,8 +8,8 @@
   in the storage dtype before the two products, float32 statistics).
 * ``flash_attention_cuda`` — the hand-written kernels
   (``csrc/flash_attention.cu``, replacing ``flash_attention_pallas``):
-  the bf16 tensor-core kernel, the bf16 MLA kernel or the scalar kernel,
-  by ``flash_variant``.
+  the bf16 tensor-core kernel, the bf16 MLA kernel, the bf16 wide kernel
+  (head dim 256) or the scalar kernel, by ``flash_variant``.
 * ``attention`` — the dispatcher: ``impl="auto"`` picks the kernel for
   CUDA tensors and the plain version for CPU tensors.
 """
@@ -32,6 +32,8 @@ _SIGNATURES = {"flash_attention": [_I, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
                "flash_attention_mma": [_P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+               "flash_attention_wide": [_P, _P, _P, _P, _P, _P,
+                                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
                "flash_attention_mla": [_P, _P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                        _P]}
@@ -42,6 +44,9 @@ MMA_HEAD_DIMS = frozenset({(16, 16), (32, 32), (64, 64), (128, 128), (96, 64)})
 #: form, (kv_lora + rope, kv_lora), of deepseek-v2-236b (512 + 64) and of
 #: its ``reduced()`` variant (32 + 16)
 MLA_HEAD_DIMS = frozenset({(576, 512), (48, 32)})
+#: (Dk, Dv) pairs the bf16 wide kernel is instantiated for: head dims past
+#: the tensor-core kernel's 128, Gemma's 256 (gemma-2b, gemma-7b)
+WIDE_HEAD_DIMS = frozenset({(256, 256)})
 #: the MLA kernel's rows per block and keys per split (``csrc`` MLA_BM,
 #: MLA_SPLIT_KEYS): a split is a fixed multiple of its 32-key tile, never
 #: derived from the number of keys, so trailing empty splits leave the bits
@@ -56,17 +61,20 @@ def flash_variant(dtype, Dk: int, Dv: int) -> str:
     """Which kernel ``flash_attention_cuda`` launches: ``"mma"`` (bf16 on
     the tensor cores) for bfloat16 at a pair of ``MMA_HEAD_DIMS``,
     ``"mla"`` (bf16 on the tensor cores, every q head of a kv head in one
-    tile, V read out of K) at a pair of ``MLA_HEAD_DIMS``, else
-    ``"scalar"``.  float32 stays scalar: on the tensor cores it would run
-    in TF32 (about 3 decimal digits), short of the 1e-5 float32 bar.  A
-    bf16 head dim outside both sets (the reference's 80, 192 or 256, MLA's
-    expanded 192/128) takes the scalar kernel too.  ``dtype`` is a torch
-    dtype or a config's dtype name."""
+    tile, V read out of K) at a pair of ``MLA_HEAD_DIMS``, ``"wide"``
+    (bf16 on the tensor cores, q staged in shared memory) at a pair of
+    ``WIDE_HEAD_DIMS``, else ``"scalar"``.  float32 stays scalar: on the
+    tensor cores it would run in TF32 (about 3 decimal digits), short of
+    the 1e-5 float32 bar.  A bf16 head dim outside the three sets (the
+    reference's 80 or 192, MLA's expanded 192/128) takes the scalar kernel
+    too.  ``dtype`` is a torch dtype or a config's dtype name."""
     if str(dtype).removeprefix("torch.") != "bfloat16":
         return "scalar"
-    if (Dk, Dv) in MMA_HEAD_DIMS:
-        return "mma"
-    return "mla" if (Dk, Dv) in MLA_HEAD_DIMS else "scalar"
+    for variant, pairs in (("mma", MMA_HEAD_DIMS), ("mla", MLA_HEAD_DIMS),
+                           ("wide", WIDE_HEAD_DIMS)):
+        if (Dk, Dv) in pairs:
+            return variant
+    return "scalar"
 
 
 def mla_splits(B: int, Sq: int, Hq: int, Hkv: int, Skv: int) -> int:
@@ -169,15 +177,21 @@ def is_k_prefix(v, k) -> bool:
 
 
 def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, causal: bool = True,
-                         window: int = 0, scale: float) -> torch.Tensor:
-    """The kernel of ``flash_variant``.  The MLA kernel reads V out of K's
-    tile: it takes v only as the view ``k[..., :Dv]`` and raises otherwise.
-    The other kernels read a dense v: a strided v (that view, in float32)
-    is copied first."""
+                         window: int = 0, scale: float,
+                         variant: str | None = None) -> torch.Tensor:
+    """The kernel of ``flash_variant``, or with ``variant="scalar"`` the
+    scalar kernel, which takes any pair (``chip_smoke.py`` times it beside
+    the tensor-core kernels).  The MLA kernel reads V out of K's tile: it
+    takes v only as the view ``k[..., :Dv]`` and raises otherwise.  The
+    other kernels read a dense v: a strided v (that view, in float32) is
+    copied first."""
     _build.no_autograd("flash_attention", q, k, v)
     B, Sq, Hq, Dk = q.shape
     Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
-    variant = flash_variant(q.dtype, Dk, Dv)
+    if variant not in (None, "scalar"):
+        raise ValueError(f"flash_attention: only the scalar kernel may be forced, "
+                         f"not {variant!r}")
+    variant = variant or flash_variant(q.dtype, Dk, Dv)
     if variant == "mla":
         if not is_k_prefix(v, k):
             raise ValueError("flash_attention (mla): v must be the view "
@@ -216,13 +230,13 @@ def flash_attention_cuda(q, k, v, q_pos, kv_pos, *, causal: bool = True,
                _build.ptr(kv_pos), _build.ptr(out))
     dims = (B, Sq, Skv, Hq, Hkv, Dk, Dv, int(causal), int(window), float(scale),
             _build.stream_ptr(q))
-    if variant == "mma":
-        # its copies move 16 bytes at a time
+    if variant in ("mma", "wide"):
+        # their copies move 16 bytes at a time
         for x, name in ((q, "q"), (k, "k"), (v, "v")):
             if x.data_ptr() % 16:
-                raise ValueError(f"flash_attention (mma): {name} must be "
+                raise ValueError(f"flash_attention ({variant}): {name} must be "
                                  "16-byte aligned")
-        err = lib.flash_attention_mma(*tensors, *dims)
+        err = getattr(lib, f"flash_attention_{variant}")(*tensors, *dims)
     else:
         err = lib.flash_attention(_build.dtype_code(q), *tensors, *dims)
     return _launched(err, variant, out)
@@ -242,7 +256,7 @@ def _launched(err: int, variant: str, out):
 flash_attention_cuda.launches = 0
 #: launches per kernel (``flash_variant``), counted as ``launches`` (eager
 #: calls and captures); they sum to ``launches``
-flash_attention_cuda.variant_launches = {"mma": 0, "mla": 0, "scalar": 0}
+flash_attention_cuda.variant_launches = {"mma": 0, "mla": 0, "wide": 0, "scalar": 0}
 
 
 def attention(q, k, v, q_pos, kv_pos, *, causal: bool = True, window: int = 0,

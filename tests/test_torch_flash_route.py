@@ -2,8 +2,11 @@
 
 bf16 at an instantiated (Dk, Dv) pair takes the tensor-core kernel
 (``"mma"``); bf16 at MLA's absorbed pairs (kv_lora + rope, kv_lora) takes
-the MLA kernel (``"mla"``); float32, whose tensor-core products would be
-TF32, and bf16 head dims outside both sets take the scalar kernel.  The
+the MLA kernel (``"mla"``); bf16 at Gemma's (256, 256) the wide kernel
+(``"wide"``); float32, whose tensor-core products would be TF32, and bf16
+head dims outside the three sets take the scalar kernel.  The wide
+kernel's instantiated pairs and an emulation of its 32-key tiles (held to
+the plain version at the bf16 bar, blind to trailing masked slots).  The
 MLA kernel's key splits (``mla_splits``), the constants shared with its
 source, and an emulation of its tiles, splits and merge in float32 (held
 to the plain version at the bf16 bar, and unchanged bit for bit by
@@ -11,7 +14,7 @@ trailing empty splits).  ``mla_absorbed_attend`` hands v as the view of
 k's first r columns: on the plain path that equals handing the latent
 itself, bit for bit.  The kernels themselves run only on the card
 (``tests/test_torch_cuda.py``, ``tests/test_torch_mla_cuda.py``, marker
-``gpu``).
+``gpu``; ``tests/test_torch_flash_wide_cuda.py`` for the wide kernel).
 """
 import dataclasses
 import math
@@ -34,16 +37,19 @@ ATTENTION_CONFIGS = sorted(n for n, c in REGISTRY.items() if c.arch_type != "ssm
 def test_every_attention_config_routes_by_its_dtype(name):
     cfg = REGISTRY[name]
     hd = cfg.resolved_head_dim
-    want = "mma" if cfg.dtype == "bfloat16" else "scalar"
+    want = ("scalar" if cfg.dtype != "bfloat16" else "wide" if hd == 256
+            else "mma")
     assert fa.flash_variant(cfg.dtype, hd, hd) == want
 
 
 def test_the_served_bf16_configs_take_the_tensor_cores():
-    for name in ("eat-paper-8b", "qwen3-1.7b"):
+    for name, want in (("eat-paper-8b", "mma"), ("qwen3-1.7b", "mma"),
+                       ("codeqwen1.5-7b", "mma"), ("gemma-2b", "wide"),
+                       ("gemma-7b", "wide")):
         cfg = get_config(name)
         assert cfg.dtype == "bfloat16"
         hd = cfg.resolved_head_dim
-        assert fa.flash_variant(cfg.dtype, hd, hd) == "mma"
+        assert fa.flash_variant(cfg.dtype, hd, hd) == want
     for name in ("tiny", "tiny-proxy", "tiny-reasoner"):
         cfg = get_config(name)
         assert fa.flash_variant(cfg.dtype, cfg.resolved_head_dim,
@@ -52,7 +58,13 @@ def test_the_served_bf16_configs_take_the_tensor_cores():
 
 @pytest.mark.parametrize("dtype,dk,dv,want", [
     (torch.bfloat16, 80, 80, "scalar"),       # outside the instantiated set
-    (torch.bfloat16, 256, 256, "scalar"),
+    (torch.bfloat16, 256, 256, "wide"),       # gemma-2b, gemma-7b
+    ("bfloat16", 256, 256, "wide"),
+    (torch.float32, 256, 256, "scalar"),      # TF32 would miss the f32 bar
+    (torch.float16, 256, 256, "scalar"),
+    (torch.bfloat16, 256, 128, "scalar"),
+    (torch.bfloat16, 128, 256, "scalar"),
+    (torch.bfloat16, 512, 512, "scalar"),
     (torch.bfloat16, 64, 96, "scalar"),       # (96, 64) is, (64, 96) is not
     (torch.float32, 128, 128, "scalar"),      # TF32 would miss the f32 bar
     (torch.float16, 128, 128, "scalar"),
@@ -283,3 +295,114 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
             fa.flash_attention_cuda.variant_launches) == before
     with pytest.raises(ValueError, match="CUDA"):
         fa.attention(q, k, k, pos, pos, impl="cuda")
+
+
+@pytest.mark.parametrize("variant", ["mma", "wide", "mla", "tensor"])
+def test_only_the_scalar_kernel_may_be_forced(variant):
+    """A forced tensor-core variant is refused before any launch: a pair
+    reaches a tensor-core kernel only through ``flash_variant``."""
+    q = torch.zeros((1, 8, 2, 256), dtype=torch.bfloat16)
+    pos = torch.arange(8, dtype=torch.int32)[None]
+    before = dict(fa.flash_attention_cuda.variant_launches)
+    with pytest.raises(ValueError, match="only the scalar kernel"):
+        fa.flash_attention_cuda(q, q, q, pos, pos, scale=0.1, variant=variant)
+    assert fa.flash_attention_cuda.variant_launches == before
+
+
+def test_wide_instantiated_pairs_and_constants_match_the_source():
+    """The wide entry point instantiates exactly ``WIDE_HEAD_DIMS``, pairs
+    past the tensor-core kernel's 128 that no other set holds; its key tile
+    is the emulation's."""
+    src = CU.read_text()
+    pairs = {(int(a), int(b)) for a, b in
+             re.findall(r"^\s*REPRO_WIDE_CASE\((\d+), (\d+)\)", src, re.M)}
+    assert pairs == set(fa.WIDE_HEAD_DIMS) == {(256, 256)}
+    assert not pairs & (set(fa.MMA_HEAD_DIMS) | set(fa.MLA_HEAD_DIMS))
+    assert all(d % 16 == 0 and d > 128 for pair in pairs for d in pair)
+    consts = dict(re.findall(r"constexpr int (WIDE_\w+) = (\d+);", src))
+    assert (int(consts["WIDE_BQ"]), int(consts["WIDE_BKV"])) == (64, WIDE_TILE)
+
+
+#: the wide kernel's keys per tile (csrc WIDE_BKV)
+WIDE_TILE = 32
+
+
+def _emulate_wide(q, k, v, q_pos, kv_pos, *, scale, window=0):
+    """The wide kernel's arithmetic in float32 on the CPU: per q head, 32-key
+    tiles aligned at key 0, an online softmax with p rounded to bf16 for
+    P V (as the kernel rounds it), tiles with no valid pair skipped."""
+    B, Sq, Hq, Dk = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    qs = (q * torch.full((), scale, dtype=q.dtype)).float()
+    qp = q_pos[:, :, None, None]
+    m = torch.full((B, Sq, Hq, 1), -1e30)
+    l = torch.zeros((B, Sq, Hq, 1))
+    acc = torch.zeros((B, Sq, Hq, v.shape[-1]))
+    for t0 in range(0, Skv, WIDE_TILE):
+        kb = k[:, t0:t0 + WIDE_TILE].float().repeat_interleave(g, 2)
+        vb = v[:, t0:t0 + WIDE_TILE].float().repeat_interleave(g, 2)
+        kp = kv_pos[:, None, None, t0:t0 + WIDE_TILE]
+        valid = (kp >= 0) & (kp <= qp)
+        if window:
+            valid = valid & (qp - kp < window)
+        if not bool(valid.any()):
+            continue
+        s = torch.where(valid, torch.einsum("bqhd,bkhd->bqhk", qs, kb), -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(valid, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bqhk,bkhd->bqhd", p.bfloat16().float(), vb)
+        m = m_new
+    out = torch.where(l > 0, acc / l.clamp_min(1e-30), 0.0)
+    return out.bfloat16()
+
+
+def _wide_inputs(B, Sq, Skv, Hq, Hkv, extra=0, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def rnd(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32).bfloat16()
+
+    q, k, v = rnd(B, Sq, Hq, 256), rnd(B, Skv, Hkv, 256), rnd(B, Skv, Hkv, 256)
+    k = torch.cat([k, rnd(B, extra, Hkv, 256)], 1)
+    v = torch.cat([v, rnd(B, extra, Hkv, 256)], 1)
+    ar = torch.arange(Skv, dtype=torch.int32)[None]
+    if Sq == Skv:                  # a left-padded prefill: 7 b pad slots
+        kv_pos = torch.where(ar >= 7 * torch.arange(B)[:, None],
+                             ar - 7 * torch.arange(B)[:, None], -1)
+        q_pos = kv_pos
+    else:
+        n = Skv - 5 * torch.arange(B, dtype=torch.int32)[:, None]
+        kv_pos = torch.where(ar < n, ar, -1)
+        q_pos = n - Sq + ar[:, :Sq]
+    kv_pos = torch.cat([kv_pos, torch.full((B, extra), -1)], 1)
+    return q, k, v, q_pos.to(torch.int32), kv_pos.to(torch.int32)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,window", [(2, 40, 40, 2, 2, 0),
+                                                    (2, 40, 40, 4, 1, 9),
+                                                    (2, 1, 75, 4, 1, 0),
+                                                    (3, 17, 70, 2, 2, 20)])
+def test_wide_emulation_within_the_bar_and_blind_to_masked_slots(B, Sq, Skv, Hq,
+                                                                 Hkv, window):
+    """The wide kernel's tiling, emulated at head dim 256 with g 1 and 4:
+    within chip_smoke.py's bf16 bar of the plain version (one ulp + 2^-7 x
+    the attention of |v|; rows with no valid key exactly 0), and bitwise the
+    same with trailing slots at position -1 appended."""
+    scale = 1.0 / math.sqrt(256)
+    q, k, v, q_pos, kv_pos = _wide_inputs(B, Sq, Skv, Hq, Hkv)
+    ref = fa.attention_plain(q, k, v, q_pos, kv_pos, window=window, scale=scale)
+    spread = fa.attention_plain(q, k, v.abs(), q_pos, kv_pos, window=window,
+                                scale=scale).float()
+    out = _emulate_wide(q, k, v, q_pos, kv_pos, scale=scale, window=window)
+    big = torch.maximum(out.float().abs(), ref.float().abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    assert ((out.float() - ref.float()).abs() <= ulp + 2.0 ** -7 * spread).all()
+    if Sq == Skv:                  # row 1's pad queries see no key
+        assert not bool(out[1, :7].any()) and not bool(ref[1, :7].any())
+    for extra in (1, 2 * WIDE_TILE + 3):
+        longer = _emulate_wide(*_wide_inputs(B, Sq, Skv, Hq, Hkv, extra=extra),
+                               scale=scale, window=window)
+        assert torch.equal(out, longer)
