@@ -9,6 +9,7 @@ from repro_torch.configs import (  # noqa: F401
     paper_native,
     qwen3_1p7b,
     tiny,
+    zamba2_2p7b,
 )
 from repro_torch.configs.base import (  # noqa: F401
     REGISTRY,

@@ -1,12 +1,13 @@
 """Model configuration: the dense-decoder, Mamba2 (``arch_type="ssm"``),
-mixture-of-experts (``arch_type="moe"``) and multi-head latent attention
-(``mla``) parts of the JAX package's ``ModelConfig``, ``SSMConfig``,
+mixture-of-experts (``arch_type="moe"``), multi-head latent attention
+(``mla``) and Zamba2-style hybrid (``arch_type="hybrid"``) parts of the JAX package's ``ModelConfig``, ``SSMConfig``,
 ``MoEConfig`` and ``MLAConfig`` (``repro/configs/base.py``), copied so the
 port imports nothing of ``repro``.  Field names and defaults are the reference's, so a config built
 here describes the same model as its JAX twin.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 from typing import Literal
 
@@ -82,6 +83,10 @@ class ModelConfig:
     ssm: SSMConfig | None = None
     mla: MLAConfig | None = None
 
+    # hybrid: the block kinds of one group, tiled over the depth ("ssm" or
+    # "shared_attn": one attention+MLP block whose weights every group shares)
+    hybrid_pattern: tuple[str, ...] = ()
+
     dtype: str = "bfloat16"
 
     @property
@@ -98,6 +103,10 @@ class ModelConfig:
         """Per-layer block kind sequence."""
         if self.arch_type == "ssm":
             return ("ssm",) * self.n_layers
+        if self.arch_type == "hybrid":
+            pat = self.hybrid_pattern or ("ssm", "ssm", "ssm", "ssm", "ssm", "shared_attn")
+            reps = math.ceil(self.n_layers / len(pat))
+            return (pat * reps)[: self.n_layers]
         return ("attn",) * self.n_layers
 
     def moe_layer_mask(self) -> tuple[bool, ...]:
@@ -110,8 +119,8 @@ class ModelConfig:
     def reduced(self) -> "ModelConfig":
         """The reference's CPU-test variant of this config: 2 layers, width
         at most 128, vocab at most 512, heads of 32, at most 4 experts,
-        float32 (the dense, MoE, SSM and MLA fields of
-        ``ModelConfig.reduced``)."""
+        float32, a hybrid one group deep (the dense, MoE, SSM, MLA and
+        hybrid fields of ``ModelConfig.reduced``)."""
         n_heads = max(2, min(self.n_heads, 4))
         kw: dict = dict(
             name=self.name + "-reduced",
@@ -141,6 +150,8 @@ class ModelConfig:
                 kv_lora_rank=32, q_lora_rank=48, qk_nope_head_dim=32,
                 qk_rope_head_dim=16, v_head_dim=32,
             )
+        if self.hybrid_pattern:
+            kw["n_layers"] = max(2, len(self.hybrid_pattern))
         return replace(self, **kw)
 
 

@@ -57,10 +57,14 @@
 // kernel: q cast to float32 and then scaled, K and V converted to float32
 // in shared memory, scalar FMAs register-blocked over query rows,
 // probabilities in float32.  In float32 the tensor cores would compute in
-// TF32, short of the 1e-5 float32 bar.
+// TF32, short of the 1e-5 float32 bar.  Head dims run to 256 (Gemma's):
+// past 128, K and V of a tile share one shared-memory buffer (V is loaded
+// over K once the scores are taken, while the softmax step runs), so 64
+// query rows at 256 fit in 210 KB (separate tiles would need 274 KB).
 
 #include <limits.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
@@ -76,6 +80,10 @@ constexpr int WARPS = THREADS / 32;
 constexpr int MERGE_THREADS = 128;
 constexpr int TILE = 64;  // keys per shared-memory tile: two per lane
 static_assert(TILE == 64, "the softmax step gives each lane keys lane, lane+32");
+// head dims above which the scalar kernel's K and V tiles share a buffer
+constexpr int KV_SEPARATE_MAX = 128;
+// rows of a P.V register block at most (tile_pv); more rows take turns
+constexpr int PV_ROWS = 32;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ bool key_valid(int kp, int qp, int window) {
@@ -177,11 +185,13 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
   const int lane = tid & 31, warp = tid >> 5;
   const int rows = m * g;
   const int ldk = Dk + 1;  // padded row: no bank conflicts on K reads
+  const bool kv_shared = Dk > KV_SEPARATE_MAX || Dv > KV_SEPARATE_MAX;
   extern __shared__ float smem[];
   float* qs = smem;                  // rows * Dk
   float* ks = qs + rows * Dk;        // TILE * ldk
-  float* vs = ks + TILE * ldk;       // TILE * Dv
-  float* sc = vs + TILE * Dv;        // rows * TILE: scores, then probabilities
+  float* vs = kv_shared ? ks : ks + TILE * ldk;  // TILE * Dv
+  // rows * TILE: scores, then probabilities
+  float* sc = kv_shared ? ks + TILE * max(ldk, Dv) : vs + TILE * Dv;
   float* acc = sc + rows * TILE;     // rows * Dv
   float* m_s = acc + rows * Dv;      // rows
   float* l_s = m_s + rows;           // rows
@@ -216,14 +226,17 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     if (!__syncthreads_or(any)) continue;
 
     const size_t key0 = (size_t)b * C + t0;
+    const auto load_v = [&]() {
+      for (int i = tid; i < TILE * Dv; i += THREADS) {
+        const int t = i / Dv, d = i - t * Dv;
+        vs[i] = t < n ? to_f(v[((key0 + t) * Hkv + h) * Dv + d]) : 0.f;
+      }
+    };
     for (int i = tid; i < TILE * Dk; i += THREADS) {
       const int t = i / Dk, d = i - t * Dk;
       ks[t * ldk + d] = t < n ? to_f(k[((key0 + t) * Hkv + h) * Dk + d]) : 0.f;
     }
-    for (int i = tid; i < TILE * Dv; i += THREADS) {
-      const int t = i / Dv, d = i - t * Dv;
-      vs[i] = t < n ? to_f(v[((key0 + t) * Hkv + h) * Dv + d]) : 0.f;
-    }
+    if (!kv_shared) load_v();
     __syncthreads();
 
     {  // thread (key t, row group) over rows rg, rg + SCORE_GROUPS, ...
@@ -240,6 +253,8 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
       else f(Rows<16>{});
     }
     __syncthreads();
+    // the scores are taken: V may overwrite K (the step below reads sc only)
+    if (kv_shared) load_v();
 
     // one warp per query row: running max, probabilities, sum
     for (int r = warp; r < rows; r += WARPS) {
@@ -263,20 +278,22 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
     }
     __syncthreads();
 
-    {  // thread (d, row group) over rows rg, rg + groups, ...
+    {  // thread (d, row group) over rows rg, rg + groups, ..., PV_ROWS of
+       // them at a time (more than PV_ROWS only at Dv > 128: one group)
       const int groups = THREADS / Dv, d = tid % Dv, rg = tid / Dv;
-      const int nr = rg < groups ? (rows - rg + groups - 1) / groups : 0;
-      const auto f = [&](auto nrc) {
-        tile_pv<decltype(nrc)::value>(sc, vs + d, acc + d, alpha_s, rows, Dv, rg,
-                                      groups);
-      };
-      if (nr <= 0) {
-      } else if (nr <= 1) f(Rows<1>{});
-      else if (nr <= 2) f(Rows<2>{});
-      else if (nr <= 4) f(Rows<4>{});
-      else if (nr <= 8) f(Rows<8>{});
-      else if (nr <= 16) f(Rows<16>{});
-      else f(Rows<32>{});
+      for (int rb = rg; rg < groups && rb < rows; rb += groups * PV_ROWS) {
+        const int nr = min(PV_ROWS, (rows - rb + groups - 1) / groups);
+        const auto f = [&](auto nrc) {
+          tile_pv<decltype(nrc)::value>(sc, vs + d, acc + d, alpha_s, rows, Dv, rb,
+                                        groups);
+        };
+        if (nr <= 1) f(Rows<1>{});
+        else if (nr <= 2) f(Rows<2>{});
+        else if (nr <= 4) f(Rows<4>{});
+        else if (nr <= 8) f(Rows<8>{});
+        else if (nr <= 16) f(Rows<16>{});
+        else f(Rows<PV_ROWS>{});
+      }
     }
     __syncthreads();
   }
@@ -291,8 +308,10 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
 }
 
 size_t scalar_smem(int rows, int Dk, int Dv) {
-  const size_t floats = (size_t)rows * Dk + (size_t)TILE * (Dk + 1) +
-                        (size_t)TILE * Dv + (size_t)rows * TILE +
+  const size_t kv = Dk > KV_SEPARATE_MAX || Dv > KV_SEPARATE_MAX
+                        ? (size_t)TILE * std::max(Dk + 1, Dv)
+                        : (size_t)TILE * (Dk + 1) + (size_t)TILE * Dv;
+  const size_t floats = (size_t)rows * Dk + kv + (size_t)rows * TILE +
                         (size_t)rows * Dv + 3 * (size_t)rows;
   return floats * sizeof(float) + (size_t)(TILE + rows) * sizeof(int);
 }

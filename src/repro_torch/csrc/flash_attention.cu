@@ -1280,6 +1280,7 @@ extern "C" int flash_attention_mma(const void* q, const void* k, const void* v,
   REPRO_MMA_CASE(64, 64)
   REPRO_MMA_CASE(128, 128)
   REPRO_MMA_CASE(96, 64)
+  REPRO_MMA_CASE(80, 80)
 #undef REPRO_MMA_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -39,8 +39,9 @@ from repro_torch.kernels.flash_attention.ops import (
 
 # keys per step of the plain version: the TPU kernel's default kv tile
 _BLOCK_KV = 512
-# the kernel's limits: head dims, and query rows (m * g) per kv head
-MAX_HEAD_DIM = 128
+# the kernel's limits: head dims (Gemma's 256: past 128 the scalar kernel's
+# K and V tiles share a buffer), and query rows (m * g) per kv head
+MAX_HEAD_DIM = 256
 MAX_ROWS = 64
 # keys per shared-memory tile of the kernels (csrc/decode_attention.cu TILE)
 _TILE = 64

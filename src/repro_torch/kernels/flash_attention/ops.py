@@ -38,8 +38,10 @@ _SIGNATURES = {"flash_attention": [_I, _P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                        _P]}
 #: (Dk, Dv) pairs the bf16 tensor-core kernel is instantiated for: the
-#: port's configs (eat-paper-8b and qwen3-1.7b at 128) and its tests
-MMA_HEAD_DIMS = frozenset({(16, 16), (32, 32), (64, 64), (128, 128), (96, 64)})
+#: port's configs (eat-paper-8b and qwen3-1.7b at 128, zamba2-2.7b's shared
+#: block at 80: five k-steps, five pairs of output tiles) and its tests
+MMA_HEAD_DIMS = frozenset({(16, 16), (32, 32), (64, 64), (80, 80), (128, 128),
+                           (96, 64)})
 #: (Dk, Dv) pairs the bf16 MLA kernel is instantiated for: MLA's absorbed
 #: form, (kv_lora + rope, kv_lora), of deepseek-v2-236b (512 + 64) and of
 #: its ``reduced()`` variant (32 + 16)
@@ -66,8 +68,7 @@ def flash_variant(dtype, Dk: int, Dv: int) -> str:
     ``WIDE_HEAD_DIMS``, else ``"scalar"``.  float32 stays scalar: on the
     tensor cores it would run in TF32 (about 3 decimal digits), short of
     the 1e-5 float32 bar.  A bf16 head dim outside the three sets (the
-    reference's 80 or 192, MLA's expanded 192/128) takes the scalar kernel
-    too.  ``dtype`` is a torch dtype or a config's dtype name."""
+    reference's 192, MLA's expanded 192/128) takes the scalar kernel too.  ``dtype`` is a torch dtype or a config's dtype name."""
     if str(dtype).removeprefix("torch.") != "bfloat16":
         return "scalar"
     for variant, pairs in (("mma", MMA_HEAD_DIMS), ("mla", MLA_HEAD_DIMS),

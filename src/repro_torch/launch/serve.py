@@ -22,7 +22,9 @@ mechanics — token counts, exits, slot recycling — not accuracy.
 logical view; ``auto``/``cuda``/``plain`` read K/V off the page pools
 (``auto`` = the CUDA kernels on the GPU, the plain versions on the CPU).
 An SSM model (``mamba2-2.7b``, ``tiny-ssm``) has no KV cache to page and
-serves with ``--cache ring`` only.  Its prefill runs the chunked scan only
+serves with ``--cache ring`` only; the hybrid ``zamba2-2.7b`` pages the K/V
+of its shared attention block and keeps its SSM states per row, so it
+serves with either cache (and never as a proxy tier's generator).  Its prefill runs the chunked scan only
 for a prompt batch wider than 16 tokens; the task's prompts are shorter, so
 here, as in the JAX launcher, they take the recurrent step.
 ``--monitor proxy`` serves black-box: a second model (``--proxy-config``,

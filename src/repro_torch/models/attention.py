@@ -22,13 +22,16 @@ from repro_torch.kernels.flash_attention.ops import attention, attention_plain
 from repro_torch.models.common import apply_rope, dense_init, rmsnorm
 
 
-def gqa_init(gen, cfg: ModelConfig, dtype, device) -> dict:
-    d, hd = cfg.d_model, cfg.resolved_head_dim
+def gqa_init(gen, cfg: ModelConfig, dtype, device, d_in: int | None = None) -> dict:
+    """GQA's projections from a ``d_in``-wide input (``d_model`` unless
+    given: the hybrid's shared block reads ``concat(x, emb0)``, 2 d wide)
+    back to ``d_model``."""
+    d, hd = d_in or cfg.d_model, cfg.resolved_head_dim
     p = {
         "wq": dense_init(gen, d, cfg.n_heads * hd, dtype, device),
         "wk": dense_init(gen, d, cfg.n_kv_heads * hd, dtype, device),
         "wv": dense_init(gen, d, cfg.n_kv_heads * hd, dtype, device),
-        "wo": dense_init(gen, cfg.n_heads * hd, d, dtype, device),
+        "wo": dense_init(gen, cfg.n_heads * hd, cfg.d_model, dtype, device),
     }
     if cfg.attn_bias:
         for name, n in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),

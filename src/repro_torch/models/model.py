@@ -34,6 +34,10 @@ Parameter tree (the JAX layout with the layer axis unstacked)::
                 # arch "ssm": [{"norm", "ssm": {w_z, w_x, w_b, w_c, w_dt,
                 #   conv_x_w, conv_x_b, conv_bc_w, conv_bc_b, dt_bias, A_log,
                 #   D, norm_w, out_proj}}, ...]
+                # arch "hybrid": the SSM blocks only, in block order (the
+                #   reference's (G, n_per) groups, flattened), and beside
+     ["shared_attn": {"norm1": (2 d,), "attn": {wq, wk, wv: (2 d, .), wo},
+                      "norm2", "ffn"}]   # the one shared attention block
 """
 from __future__ import annotations
 
@@ -62,28 +66,37 @@ def build_params(cfg: ModelConfig, generator, dev: torch.device) -> dict:
     no generator) it gives every leaf's shape and dtype without memory."""
     dtype = torch_dtype(cfg.dtype)
     dense_ff = (cfg.moe.dense_d_ff or cfg.d_ff) if cfg.moe is not None else cfg.d_ff
-    layers = []
-    for kind, use_moe in zip(cfg.block_kinds(), cfg.moe_layer_mask()):
-        norm = common.rmsnorm_init(cfg.d_model, dtype, dev, cfg.rmsnorm_one_plus)
-        if kind == "ssm":
-            layers.append({"norm": norm, "ssm": ssm_init(generator, cfg, dtype, dev)})
-            continue
+    def norm(d: int) -> torch.Tensor:
+        return common.rmsnorm_init(d, dtype, dev, cfg.rmsnorm_one_plus)
+
+    def attn_block(use_moe: bool, d_in: int) -> dict:
         layer = {
-            "norm1": norm,
-            "attn": (mla_init if cfg.mla is not None else gqa_init)(
-                generator, cfg, dtype, dev),
-            "norm2": common.rmsnorm_init(cfg.d_model, dtype, dev, cfg.rmsnorm_one_plus),
+            "norm1": norm(d_in),
+            "attn": (mla_init(generator, cfg, dtype, dev) if cfg.mla is not None
+                     else gqa_init(generator, cfg, dtype, dev, d_in=d_in)),
+            "norm2": norm(cfg.d_model),
         }
         if use_moe:
             layer["moe"] = moe_init(generator, cfg, dtype, dev)
         else:
             layer["ffn"] = common.mlp_init(generator, cfg, dense_ff, dtype, dev)
-        layers.append(layer)
-    return {
+        return layer
+
+    layers = []
+    for kind, use_moe in zip(cfg.block_kinds(), cfg.moe_layer_mask()):
+        if kind == "ssm":
+            layers.append({"norm": norm(cfg.d_model),
+                           "ssm": ssm_init(generator, cfg, dtype, dev)})
+        elif kind == "attn":
+            layers.append(attn_block(use_moe, cfg.d_model))
+    params = {
         "embed": common.embed_init(generator, cfg, dtype, dev),
-        "final_norm": common.rmsnorm_init(cfg.d_model, dtype, dev, cfg.rmsnorm_one_plus),
+        "final_norm": norm(cfg.d_model),
         "layers": layers,
     }
+    if "shared_attn" in cfg.block_kinds():
+        params["shared_attn"] = attn_block(False, 2 * cfg.d_model)
+    return params
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -119,8 +132,10 @@ class Block(nn.Module):
 
 class Model(nn.Module):
     """A dense GQA decoder, a mixture-of-experts decoder (``arch_type=
-    "moe"``), either with multi-head latent attention (``cfg.mla``), or a
-    Mamba2 stack (``arch_type="ssm"``) for serving.
+    "moe"``), either with multi-head latent attention (``cfg.mla``), a
+    Mamba2 stack (``arch_type="ssm"``) or a Zamba2-style hybrid
+    (``arch_type="hybrid"``: Mamba2 blocks and one shared attention block,
+    ``shared_attn``) for serving.
 
     ``attn_impl`` selects the prefill attention and ``scan_impl`` the SSM
     prefill scan (``auto``: the CUDA kernel for CUDA tensors, the plain
@@ -145,6 +160,8 @@ class Model(nn.Module):
         self.embed = _param_dict(params["embed"])
         self.final_norm = _frozen(params["final_norm"])
         self.layers = nn.ModuleList(Block(p) for p in params["layers"])
+        self.shared_attn = (Block(params["shared_attn"]) if "shared_attn" in params
+                            else None)
 
     @property
     def device(self) -> torch.device:
@@ -168,7 +185,7 @@ class Model(nn.Module):
             self.layers, self.final_norm, x, positions, pos1d, slots, cache,
             cfg, commit=commit, attn_impl=self.attn_impl, window=window,
             paged_impl=self.paged_attn_impl, page_block=self.paged_attn_page,
-            scan_impl=self.scan_impl, live=live)
+            scan_impl=self.scan_impl, live=live, shared=self.shared_attn)
         if commit:
             return run()
         with tfm.preserved_slots(cache, slots):
@@ -215,7 +232,8 @@ def train_logits(params: dict, cfg: ModelConfig, tokens, positions, pos1d, *,
     x = common.embed_apply(params["embed"], tokens, cfg)
     hidden, aux = tfm.forward_train(params["layers"], params["final_norm"], x,
                                     positions, pos1d, cfg, valid=pos1d >= 0,
-                                    remat=remat, window=window)
+                                    remat=remat, window=window,
+                                    shared=params.get("shared_attn"))
     return common.lm_head_apply(params["embed"], hidden, cfg), aux
 
 

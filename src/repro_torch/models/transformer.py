@@ -1,16 +1,23 @@
 """The cached forward of a dense GQA decoder, a mixture-of-experts decoder
-(either with multi-head latent attention, ``cfg.mla``) and a Mamba2 stack,
-and their training forward (port of the dense, MoE, MLA and SSM branches
-of ``repro/models/transformer.py``: ``write_slots``, the paged-cache
-helpers, ``page_native_ok``, ``attn_block_cached``, ``attn_block_full``,
-``ssm_block_full`` / ``ssm_block_step``, ``forward_cached`` and
-``forward_train``).  An MoE layer (one holding ``moe``) runs
-``models/moe.py``'s ``moe_apply`` where a dense layer runs its MLP; the
-reference's ``dense_seg`` and ``moe_seg`` are one flat list of layers and
-cache entries here.  An MLA layer caches its latent ``c`` and rope key
-``kr`` and reads them in the absorbed form for every query width; a paged
-cache's pools are gathered into the logical view for it (never the
-page-native read, as in the reference).
+(either with multi-head latent attention, ``cfg.mla``), a Mamba2 stack and
+a Zamba2-style hybrid, and their training forward (port of the dense, MoE,
+MLA, SSM and hybrid branches of ``repro/models/transformer.py``:
+``write_slots``, the paged-cache helpers, ``page_native_ok``,
+``attn_block_cached``, ``attn_block_full``, ``ssm_block_full`` /
+``ssm_block_step``, ``forward_cached`` and ``forward_train``).  An MoE
+layer (one holding ``moe``) runs ``models/moe.py``'s ``moe_apply`` where a
+dense layer runs its MLP; the reference's ``dense_seg`` and ``moe_seg`` are
+one flat list of layers and cache entries here.  An MLA layer caches its
+latent ``c`` and rope key ``kr`` and reads them in the absorbed form for
+every query width; a paged cache's pools are gathered into the logical
+view for it (never the page-native read, as in the reference).
+
+Every stack is walked block by block in ``cfg.block_kinds()`` order, one
+cache entry per block.  A hybrid's ``layers`` are its SSM blocks alone
+(the reference's ``(G, n_per)`` groups, flattened); each ``shared_attn``
+block runs the one ``shared`` weight set on ``concat(x, emb0)`` (``emb0``
+the embedded stream, 2 d wide into ``norm1`` and the q/k/v projections;
+the residual adds onto ``x`` alone) against its own K/V entry.
 
 ``forward_train`` runs the plain attention and the plain SSD scan, as the
 reference's trainer does (its ``Model(cfg, attn_impl="xla")`` and
@@ -23,6 +30,7 @@ Cache layout (built in ``serving/cache.py``)::
               | [ {"c", "kr"} per layer ], # MLA: (B, C, kv_lora), (B, C,
                                            # rope_d); paged: (P, ps, ...)
               | [ {"ssm", "conv": {"x", "bc"}} per layer ],   # arch "ssm"
+              | both, in block order                          # arch "hybrid"
      "pos": (B, C) int32 slot positions (-1 = empty),
      "cur": 0-dim int64 committed length (the shared ring pointer),
      ["page_table": (B, NB) int32, "blocks": {"pages","logical","count"}]}
@@ -155,18 +163,25 @@ def preserved_slots(cache, slots):
 # ===================================================================== blocks
 
 
+def _norm1(p, x, x_extra, cfg: ModelConfig):
+    """``norm1`` of the block's input: ``x``, or ``concat(x, x_extra)``."""
+    h_in = x if x_extra is None else torch.cat([x, x_extra], dim=-1)
+    return rmsnorm(h_in, p["norm1"], cfg.norm_eps, cfg.rmsnorm_one_plus)
+
+
 def attn_block_cached(p, x, positions, pos1d, cfg: ModelConfig, entry: dict,
                       kv_pos, slots, *, window: int, attn_impl: str,
                       paged: tuple | None, native: bool, paged_impl: str,
-                      page_block: int, live=None):
+                      page_block: int, live=None, x_extra=None):
     """One cached decoder block.  New K/V are written into ``entry`` at
     ``slots`` (masked by ``live``) before the attention read.  ``paged =
     (table, ps, blocks, bpos)`` when the entry holds page pools; ``native``
     selects the page-native read (pools + compacted page list for paged
     caches, the same block algorithm over the dense ring otherwise).  An
     MLA layer writes its latents instead and reads them in the absorbed
-    form (``_mla_cached``)."""
-    h = rmsnorm(x, p["norm1"], cfg.norm_eps, cfg.rmsnorm_one_plus)
+    form (``_mla_cached``).  ``x_extra`` (the hybrid's shared block: the
+    embedded stream) is concatenated to ``x`` before ``norm1``."""
+    h = _norm1(p, x, x_extra, cfg)
     if cfg.mla is not None:
         x = x + _mla_cached(p["attn"], h, positions, pos1d, cfg, entry, kv_pos,
                             slots, window=window, attn_impl=attn_impl,
@@ -240,11 +255,12 @@ def ffn_residual(p, x, cfg: ModelConfig):
 
 
 def attn_block_full(p, x, positions, pos1d, cfg: ModelConfig, *,
-                    window: int = 0):
+                    window: int = 0, x_extra=None):
     """One full-sequence decoder block (training): causal self-attention
     over the block's own keys by the plain attention (MLA in its expanded
-    form), then the MLP or the MoE.  Returns (x, aux loss or None)."""
-    h = rmsnorm(x, p["norm1"], cfg.norm_eps, cfg.rmsnorm_one_plus)
+    form), then the MLP or the MoE; ``x_extra`` as in
+    ``attn_block_cached``.  Returns (x, aux loss or None)."""
+    h = _norm1(p, x, x_extra, cfg)
     if cfg.mla is not None:
         y, _ = att.mla_self_attention(p["attn"], h, positions, pos1d, cfg,
                                       window=window)
@@ -272,46 +288,31 @@ def ssm_block_step(p, x, cfg: ModelConfig, state):
     return x + y, new_state
 
 
-def _ssm_layers(layers, x, pos1d, cache, cfg: ModelConfig, *, commit: bool,
-                scan_impl: str):
-    """The SSM stack: prefill-sized calls (m > 16) run the chunked scan
-    with invalid (pos -1) steps masked; decode and probe calls recur step
-    by step, unmasked, as in the reference.  A committing call replaces
-    each layer's state entry with the new state."""
-    use_full = x.shape[1] > 16
-    valid = pos1d >= 0
-    states = cache["layers"]
-    for i, p in enumerate(layers):
-        if use_full:
-            x, new = ssm_block_full(p, x, cfg, valid=valid, state=states[i],
-                                    scan_impl=scan_impl)
-        else:
-            x, new = ssm_block_step(p, x, cfg, states[i])
-        if commit:
-            states[i] = new
-    return x
-
-
 def forward_train(layers, final_norm, x, positions, pos1d, cfg: ModelConfig, *,
-                  valid=None, remat: bool = True, window: int = 0):
+                  valid=None, remat: bool = True, window: int = 0, shared=None):
     """Full-sequence forward over the stack, no cache (training).  Returns
     (the final-normed hidden states, the MoE layers' aux losses summed in
     layer order, 0-dim float32: 0 without MoE layers).  ``remat``
-    recomputes each layer in the backward pass (``torch.utils.checkpoint``,
+    recomputes each block in the backward pass (``torch.utils.checkpoint``,
     the reference's ``jax.checkpoint`` around its scan body): only the
-    layers' inputs are kept."""
-    if cfg.arch_type in ("dense", "moe"):
-        def body(p, xx):
-            return attn_block_full(p, xx, positions, pos1d, cfg, window=window)
-    elif cfg.arch_type == "ssm":
-        def body(p, xx):
+    blocks' inputs are kept.  ``shared``: a hybrid's shared block."""
+    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
+        raise ValueError(f"the port trains dense, moe, ssm and hybrid models, "
+                         f"not {cfg.arch_type!r}")
+
+    def body(kind, p, xx, extra):
+        if kind == "ssm":
             return ssm_block_full(p, xx, cfg, valid=valid, scan_impl="plain")[0], None
-    else:
-        raise ValueError(f"the port trains dense, moe and ssm models, not "
-                         f"{cfg.arch_type!r}")
+        return attn_block_full(p, xx, positions, pos1d, cfg, window=window,
+                               x_extra=extra)
+
+    emb0 = x
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in layers:
-        x, aux = checkpoint(body, p, x, use_reentrant=False) if remat else body(p, x)
+    own = iter(layers)
+    for kind in cfg.block_kinds():
+        p, extra = (shared, emb0) if kind == "shared_attn" else (next(own), None)
+        x, aux = (checkpoint(body, kind, p, x, extra, use_reentrant=False) if remat
+                  else body(kind, p, x, extra))
         if aux is not None:
             aux_total = aux_total + aux
     return rmsnorm(x, final_norm, cfg.norm_eps, cfg.rmsnorm_one_plus), aux_total
@@ -321,7 +322,7 @@ def forward_cached(layers, final_norm, x, positions, pos1d, slots, cache,
                    cfg: ModelConfig, *, commit: bool = True,
                    attn_impl: str = "auto", window: int = 0,
                    paged_impl: str = "gather", page_block: int = 16,
-                   scan_impl: str = "auto", live=None):
+                   scan_impl: str = "auto", live=None, shared=None):
     """Unified prefill (m = S) / decode / probe forward against a cache.
 
     Returns the final-normed hidden states (B, m, d).  With ``commit`` the
@@ -329,18 +330,18 @@ def forward_cached(layers, final_norm, x, positions, pos1d, slots, cache,
     are left as they were (the K/V writes still land in ``slots`` — wrap
     them in ``preserved_slots``; SSM states are not written at all).  A
     committing forward masked by ``live`` (0-dim bool) writes its slots and
-    advances ``cur`` only where ``live`` is true; an SSM layer's new state
+    advances ``cur`` only where ``live`` is true; an SSM block's new state
     is still committed (the caller's ``freeze_inactive_rows`` takes it
-    back)."""
+    back).  SSM blocks run the chunked scan for prefill-sized calls (m >
+    16, invalid (pos -1) steps masked) and recur step by step, unmasked,
+    for decode and probe calls, as in the reference; a committing call
+    replaces the block's state entry with the new state.  ``shared``: a
+    hybrid's shared block, run at every ``shared_attn`` position on
+    ``concat(x, emb0)``."""
     m = x.shape[1]
+    kinds = cfg.block_kinds()
     kv_pos = cache["pos"] if commit else cache["pos"].clone()
     write_ring(kv_pos, slots, pos1d, live)
-    if cfg.arch_type == "ssm":
-        x = _ssm_layers(layers, x, pos1d, cache, cfg, commit=commit,
-                        scan_impl=scan_impl)
-        if commit:
-            _advance_cur(cache, m, live)
-        return rmsnorm(x, final_norm, cfg.norm_eps, cfg.rmsnorm_one_plus)
     native = paged_impl != "gather" and page_native_ok(cfg, m)
     paged = None
     if "page_table" in cache:
@@ -360,11 +361,28 @@ def forward_cached(layers, final_norm, x, positions, pos1d, slots, cache,
             bpos = paged_ops.block_positions(kv_pos, blocks["pages"],
                                              blocks["logical"], ps)
         paged = (table, ps, blocks, bpos)
-    for p, entry in zip(layers, cache["layers"]):
+    use_full = m > 16
+    valid = pos1d >= 0
+    emb0 = x
+    entries = cache["layers"]
+    own = iter(layers)
+    for i, kind in enumerate(kinds):
+        if kind == "ssm":
+            p = next(own)
+            if use_full:
+                x, new = ssm_block_full(p, x, cfg, valid=valid, state=entries[i],
+                                        scan_impl=scan_impl)
+            else:
+                x, new = ssm_block_step(p, x, cfg, entries[i])
+            if commit:
+                entries[i] = new
+            continue
+        p, extra = (shared, emb0) if kind == "shared_attn" else (next(own), None)
         x = attn_block_cached(
-            p, x, positions, pos1d, cfg, entry, kv_pos, slots, window=window,
+            p, x, positions, pos1d, cfg, entries[i], kv_pos, slots, window=window,
             attn_impl=attn_impl, paged=paged, native=native,
-            paged_impl=paged_impl, page_block=page_block, live=live)
+            paged_impl=paged_impl, page_block=page_block, live=live,
+            x_extra=extra)
     if commit:
         _advance_cur(cache, m, live)
     return rmsnorm(x, final_norm, cfg.norm_eps, cfg.rmsnorm_one_plus)

@@ -6,8 +6,12 @@ stacks every layer leaf along a leading ``(L, ...)`` axis
 "final_norm"}}``; an MoE config stacks its first ``first_k_dense`` layers
 under ``stack/dense_layers`` and the rest under ``stack/moe_layers`` (no
 ``dense_layers`` when there are none), which the port keeps as one flat
-list, dense layers first.  Expert leaves keep their ``(E, d_in, d_out)``
-layout under the layer axis; an MLA layer's ``attn`` holds the reference's
+list, dense layers first.  A hybrid stacks its SSM blocks under
+``stack/groups`` with two leading axes ``(G, n_per, ...)`` (G groups of
+``n_per`` SSM blocks, flattened in block order into the port's list) and
+keeps its one shared attention block, unstacked, under
+``stack/shared_attn`` (the port's ``shared_attn``).  Expert leaves keep
+their ``(E, d_in, d_out)`` layout under the layer axis; an MLA layer's ``attn`` holds the reference's
 nine leaves (``w_dq``, ``q_norm``, ``w_uq``, ``w_dkv``, ``kv_norm``,
 ``w_kr``, ``w_uk``, ``w_uv``, ``wo``), carried like any other.
 Weights keep JAX's ``(d_in, d_out)`` layout on both
@@ -27,12 +31,14 @@ Each leaf keeps its own dtype: a bfloat16 model's SSM ``dt_bias``,
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.utils.treeutil import tree_flatten_with_paths
+from repro_torch.utils.treeutil import tree_flatten_with_paths, tree_map
 
 #: the dtypes a parameter file may hold: numpy's names, the storage numpy
 #: reads the bytes as, and the torch dtype
@@ -65,19 +71,23 @@ def leaf_from_bytes(data: bytes, dtype: str, shape) -> torch.Tensor:
 
 
 def _check_arch(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "moe", "ssm"):
+    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
         raise ValueError(f"the port has no {cfg.arch_type!r} model "
-                         f"(dense, moe and ssm only)")
+                         f"(dense, moe, ssm and hybrid only)")
 
 
-def _segments(cfg: ModelConfig) -> list[tuple[str, int, int]]:
+def _segments(cfg: ModelConfig) -> list[tuple[str, int, tuple[int, ...]]]:
     """The reference's stacked layer groups: (key under ``stack``, first
-    layer, layer count)."""
+    entry of the port's ``layers``, the leaves' leading axes)."""
+    if cfg.arch_type == "hybrid":
+        pat = cfg.hybrid_pattern
+        n_per = sum(1 for k in pat if k == "ssm")
+        return [("groups", 0, (cfg.n_layers // len(pat), n_per))]
     if cfg.arch_type != "moe":
-        return [("layers", 0, cfg.n_layers)]
+        return [("layers", 0, (cfg.n_layers,))]
     fk = cfg.moe.first_k_dense
-    segs = [("dense_layers", 0, fk)] if fk else []
-    return segs + [("moe_layers", fk, cfg.n_layers - fk)]
+    segs = [("dense_layers", 0, (fk,))] if fk else []
+    return segs + [("moe_layers", fk, (cfg.n_layers - fk,))]
 
 
 def unstack(stacked: dict, cfg: ModelConfig, device) -> dict:
@@ -89,19 +99,23 @@ def unstack(stacked: dict, cfg: ModelConfig, device) -> dict:
     def own(t: torch.Tensor) -> torch.Tensor:     # never the input's storage
         return t.to(dev, copy=True)
 
-    def tree(d: dict, i: int) -> dict:
-        return {k: tree(v, i) if isinstance(v, dict) else own(v[i])
-                for k, v in d.items()}
+    def tree(d: dict, n_lead: int, i: int) -> dict:
+        return {k: tree(v, n_lead, i) if isinstance(v, dict)
+                else own(v.flatten(0, n_lead - 1)[i]) for k, v in d.items()}
 
     emb = stacked["embed"]
     embed = {"embedding": own(emb["embedding"])}
     if not cfg.tie_embeddings:
         embed["lm_head"] = own(emb["lm_head"])
     stack = stacked["stack"]
-    layers = [tree(stack[key], i) for key, _, n in _segments(cfg)
-              for i in range(n)]
-    return {"embed": embed, "final_norm": own(stack["final_norm"]),
-            "layers": layers}
+    layers = [tree(stack[key], len(lead), i) for key, _, lead in _segments(cfg)
+              for i in range(math.prod(lead))]
+    out = {"embed": embed, "final_norm": own(stack["final_norm"]),
+           "layers": layers}
+    if cfg.arch_type == "hybrid":
+        out["shared_attn"] = tree_map(own, stack["shared_attn"])
+    return out
+
 
 
 def from_jax(np_tree: dict, cfg: ModelConfig, device="cuda") -> dict:
@@ -122,18 +136,22 @@ def to_jax(params: dict, cfg: ModelConfig) -> dict:
     leaf's dtype (layer leaves stacked along a new leading axis)."""
     _check_arch(cfg)
     layers = params["layers"]
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"{cfg.name} has {cfg.n_layers} layers, the tree "
+    want = sum(math.prod(lead) for _, _, lead in _segments(cfg))
+    if len(layers) != want:
+        raise ValueError(f"{cfg.name} has {want} stacked layers, the tree "
                          f"{len(layers)}")
     host = lambda t: t.detach().cpu()  # noqa: E731
 
-    def stack(ds: list) -> dict:
-        return {k: stack([d[k] for d in ds]) if isinstance(ds[0][k], dict)
-                else torch.stack([host(d[k]) for d in ds]) for k in ds[0]}
+    def stack(ds: list, lead: tuple[int, ...]) -> dict:
+        return {k: stack([d[k] for d in ds], lead) if isinstance(ds[0][k], dict)
+                else torch.stack([host(d[k]) for d in ds]).reshape(
+                    lead + tuple(ds[0][k].shape)) for k in ds[0]}
 
     out = {"final_norm": host(params["final_norm"])}
-    for key, i0, n in _segments(cfg):
-        out[key] = stack(list(layers[i0:i0 + n]))
+    for key, i0, lead in _segments(cfg):
+        out[key] = stack(list(layers[i0:i0 + math.prod(lead)]), lead)
+    if cfg.arch_type == "hybrid":
+        out["shared_attn"] = tree_map(host, params["shared_attn"])
     return {"embed": {k: host(v) for k, v in params["embed"].items()},
             "stack": out}
 
@@ -147,7 +165,9 @@ def param_specs(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], str]]:
     spec = lambda t, lead=(): ((*lead, *t.shape), dtype_name(t))  # noqa: E731
     specs = {f"embed/{k}": spec(t) for k, t in meta["embed"].items()}
     specs["stack/final_norm"] = spec(meta["final_norm"])
-    for key, i0, n in _segments(cfg):
+    for key, i0, lead in _segments(cfg):
         for path, t in tree_flatten_with_paths(meta["layers"][i0]):
-            specs[f"stack/{key}/{path}"] = spec(t, (n,))
+            specs[f"stack/{key}/{path}"] = spec(t, lead)
+    for path, t in tree_flatten_with_paths(meta.get("shared_attn", {})):
+        specs[f"stack/shared_attn/{path}"] = spec(t)
     return specs

@@ -1,12 +1,15 @@
 """Decode-state allocation: the ring KV cache and the block-paged variant
-for the GQA and MLA decoders, and the recurrent state of a Mamba2 stack
-(port of ``repro/serving/cache.py``).
+for the GQA and MLA decoders, the recurrent state of a Mamba2 stack, and
+both for a Zamba2-style hybrid (port of ``repro/serving/cache.py``).
 
 Layout (consumed by ``models.transformer.forward_cached``)::
 
     cache = {"layers": [{"k", "v"} per layer]
                      | [{"c", "kr"} per layer],                     # cfg.mla
                      | [{"ssm", "conv": {"x", "bc"}} per layer],   # arch "ssm"
+                     | one of the two per block, in block order,   # arch
+                       an SSM state per SSM block and K/V per      # "hybrid"
+                       application of the shared block
              "pos": (B, C) int32 — absolute position held in each slot, -1 = empty,
              "cur": 0-dim int64 on the cache's device — committed length
                     (the shared ring pointer; the host keeps a mirror of it
@@ -14,7 +17,8 @@ Layout (consumed by ``models.transformer.forward_cached``)::
 
 SSM: ``ssm`` is the (B, nh, N, hp) float32 scan state, ``conv`` the
 (B, w-1, ·) causal-conv tails; there is no capacity axis, so no paged
-variant.  Ring: each layer's ``k``/``v`` is (B, C, Hkv, hd); an MLA
+variant of an SSM stack; a hybrid's paged cache pools its attention
+entries and keeps its SSM states per row.  Ring: each layer's ``k``/``v`` is (B, C, Hkv, hd); an MLA
 layer's latent ``c`` (B, C, kv_lora) and rope key ``kr`` (B, C, rope_d).
 Paged: the same logical addressing, but each slot tensor is a page POOL
 (num_pages, page_size, ...) shared by all rows, plus a ``page_table`` (B,
@@ -99,21 +103,27 @@ def _cur(device) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int64, device=device)
 
 
+def _entries(cfg: ModelConfig, batch: int, lead: tuple, dtype, device) -> list:
+    """One entry per block: a zero recurrent state (B rows) for an SSM
+    block, an attention entry of slot tensors ``lead + ...`` otherwise."""
+    return [ssm_state_init(cfg, batch, dtype, device) if kind == "ssm"
+            else _attn_entry(cfg, lead, dtype, device) for kind in cfg.block_kinds()]
+
+
+def is_recurrent(entry: dict) -> bool:
+    """An SSM block's entry: per-row state, no slots."""
+    return "ssm" in entry
+
+
 def alloc_cache(cfg: ModelConfig, batch: int, capacity: int, *, device,
                 dtype=None) -> dict:
     """An empty ring cache with ``capacity`` kv slots per sequence (a zero
-    recurrent state per layer for arch ``ssm``)."""
+    recurrent state for each SSM block)."""
     dtype = dtype or torch_dtype(cfg.dtype)
-    if cfg.arch_type == "ssm":
-        layers = [ssm_state_init(cfg, batch, dtype, device)
-                  for _ in range(cfg.n_layers)]
-    else:
-        layers = [_attn_entry(cfg, (batch, capacity), dtype, device)
-                  for _ in range(cfg.n_layers)]
     return {
         "pos": torch.full((batch, capacity), -1, dtype=torch.int32, device=device),
         "cur": _cur(device),
-        "layers": layers,
+        "layers": _entries(cfg, batch, (batch, capacity), dtype, device),
     }
 
 
@@ -131,8 +141,9 @@ def alloc_paged_cache(cfg: ModelConfig, batch: int, capacity: int,
                       dtype=None) -> dict:
     """An empty block-paged cache: ``capacity`` LOGICAL slots per row (a
     page multiple), ``num_pages`` physical pages shared by all rows, the
-    page table all-trash.  The page-native read also needs ``blocks``
-    (``blocks_arrays``; the serving executor puts them in)."""
+    page table all-trash; a hybrid's SSM states stay per row.  The
+    page-native read also needs ``blocks`` (``blocks_arrays``; the serving
+    executor puts them in)."""
     dtype = dtype or torch_dtype(cfg.dtype)
     if cfg.arch_type == "ssm":
         raise ValueError("arch 'ssm' has no KV capacity axis to page — use "
@@ -148,8 +159,7 @@ def alloc_paged_cache(cfg: ModelConfig, batch: int, capacity: int,
         "cur": _cur(device),
         "page_table": torch.full((batch, NB), PAGE_TRASH, dtype=torch.int32,
                                  device=device),
-        "layers": [_attn_entry(cfg, (num_pages, page_size), dtype, device)
-                   for _ in range(cfg.n_layers)],
+        "layers": _entries(cfg, batch, (num_pages, page_size), dtype, device),
     }
     return cache
 
@@ -158,7 +168,8 @@ def pack_paged_cache(paged: dict, dense: dict, table) -> dict:
     """Scatter a freshly prefilled DENSE cache (capacity C_pre, a page
     multiple) into the empty paged cache ``paged`` through ``table`` (the
     allocator's (B, NB) table with the prompt blocks mapped).  Blocks of
-    ``dense`` past a row's mapped prompt land in the trash page."""
+    ``dense`` past a row's mapped prompt land in the trash page; SSM states
+    copy whole."""
     dev = paged["pos"].device
     table = upload(np.asarray(table, np.int32), dev)
     NB = table.shape[1]
@@ -170,6 +181,10 @@ def pack_paged_cache(paged: dict, dense: dict, table) -> dict:
     paged["cur"].copy_(dense["cur"])
     idx = table[:, :nbp].long()
     for pe, de in zip(paged["layers"], dense["layers"]):
+        if is_recurrent(de):
+            for p, d in zip(_leaves(pe), _leaves(de)):
+                p.copy_(d)
+            continue
         for name, src in de.items():
             B = src.shape[0]
             pe[name][idx] = src.reshape((B, nbp, ps) + tuple(src.shape[2:])).to(
@@ -181,8 +196,9 @@ def merge_paged_row(cache: dict, one: dict, row: int, row_table) -> dict:
     """Paged slot admission: write the single-sequence DENSE cache ``one``
     (batch 1, prefill capacity C_pre) into batch row ``row`` through
     ``row_table`` (the allocator's fresh mapping for the row).  The row's
-    ``pos`` is replaced (tail -1) and ``cur`` becomes ``max(cur, one_cur)``
-    — the ring's semantics, so the admitted stream matches the ring's."""
+    ``pos`` is replaced (tail -1), its SSM states too, and ``cur`` becomes
+    ``max(cur, one_cur)`` — the ring's semantics, so the admitted stream
+    matches the ring's."""
     dev = cache["pos"].device
     row_table = upload(np.asarray(row_table, np.int32), dev)
     C = cache["pos"].shape[1]
@@ -196,6 +212,10 @@ def merge_paged_row(cache: dict, one: dict, row: int, row_table) -> dict:
     torch.maximum(cache["cur"], one["cur"], out=cache["cur"])
     idx = row_table[:nbp].long()
     for pe, oe in zip(cache["layers"], one["layers"]):
+        if is_recurrent(oe):
+            for c, o in zip(_leaves(pe), _leaves(oe)):
+                c[row] = o[0]
+            continue
         for name, t in oe.items():
             src = t[0]
             pe[name][idx] = src.reshape((nbp, ps) + tuple(src.shape[1:])).to(
@@ -230,18 +250,21 @@ def reset_cache(cache: dict) -> dict:
     if "page_table" in cache:
         cache["page_table"].fill_(PAGE_TRASH)
     for e in cache["layers"]:
-        if "ssm" in e:
+        if is_recurrent(e):
             for t in _leaves(e):
                 t.zero_()
     return cache
 
 
 def commit_layers(cache: dict, kept: list) -> dict:
-    """Copy the layer entries of ``cache`` (new state tensors, which a
-    commit or ``freeze_inactive_rows`` put there) into the entries
-    ``kept`` (those it held before), and put those back: the recurrent
-    state is then the same tensors as before, updated in place."""
+    """Copy the SSM entries of ``cache`` (new state tensors, which a commit
+    or ``freeze_inactive_rows`` put there) into the entries ``kept`` (those
+    it held before), and put those back: the recurrent state is then the
+    same tensors as before, updated in place.  Attention entries are
+    written in place and never replaced: nothing of them is copied."""
     for new, old in zip(cache["layers"], kept):
+        if not is_recurrent(old):
+            continue
         for n, o in zip(_leaves(new), _leaves(old)):
             if n is not o:
                 o.copy_(n)
@@ -276,9 +299,10 @@ def freeze_inactive_rows(cache: dict, old_layers: list, active) -> dict:
     K/V are slot-addressed and masked by position, so an inactive row's
     write is made invisible by ``pos = -1``; an SSM state is cumulative, and
     stepping it with a PAD token would pollute the row for a later forced
-    answer.  Every entry of an SSM cache is recurrent state.  The new state
-    tensors are replaced, not written, so ``old_layers`` may hold tensors
-    the caller still reads."""
-    cache["layers"] = [_freeze(n, o, active)
+    answer.  Only SSM entries are frozen (the reference's leaves ``ssm``,
+    ``x`` and ``bc``): a hybrid's attention entries, whose page pools have
+    no row axis, pass through.  The new state tensors are replaced, not
+    written, so ``old_layers`` may hold tensors the caller still reads."""
+    cache["layers"] = [_freeze(n, o, active) if is_recurrent(n) else n
                        for n, o in zip(cache["layers"], old_layers)]
     return cache

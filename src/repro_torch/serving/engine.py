@@ -120,11 +120,11 @@ class ReasoningEngine:
         self.proxy_executor = None
         self._ptier = None       # the last serve's tier, for its pool stats
         if proxy is not None:
-            if model.cfg.arch_type == "ssm":
+            if model.cfg.arch_type in ("ssm", "hybrid"):
                 raise ValueError(
                     "monitor='proxy' needs a slot-addressed generator cache "
-                    "to retract overshoot tokens; an SSM recurrence cannot "
-                    "be rewound to the proxy's exit step.")
+                    "to retract overshoot tokens; SSM/hybrid recurrences "
+                    "cannot be rewound to the proxy's exit step.")
             self.proxy_executor = ProxyExecutor(
                 _view(proxy.model, proxy.cache or ecfg.cache), ecfg, monitor)
 

@@ -76,6 +76,7 @@ from repro_torch.serving.cache import (
     cache_leaves,
     commit_layers,
     freeze_inactive_rows,
+    is_recurrent,
     merge_cache_row,
     merge_paged_row,
     pack_paged_cache,
@@ -88,6 +89,12 @@ from repro_torch.serving.device_loop import (
     lane_stream,
 )
 from repro_torch.serving.sampler import SamplerConfig, logprob_of, sample
+
+
+#: the archs whose caches hold recurrent (SSM) state: a step's new state is
+#: rolled back for inactive rows (``freeze_inactive_rows``) and copied back
+#: into the cache's own tensors after a prefill or a chunk (``commit_layers``)
+RECURRENT_ARCHS = ("ssm", "hybrid")
 
 
 class ServeState(NamedTuple):
@@ -248,7 +255,7 @@ def make_shadow_step(model, monitor: ReasoningMonitor, *,
     proxy running the generator's own weights reproduces the self-EAT EMA
     trajectory bit for bit.  The committed forward skips the unembedding:
     the proxy's logits at the stream token are never read."""
-    recurrent = model.cfg.arch_type == "ssm"
+    recurrent = model.cfg.arch_type in RECURRENT_ARCHS
 
     def step(cache, tok_in, tok_out, next_pos, mon: MonitorState, valid,
              live=None):
@@ -317,7 +324,7 @@ class Executor:
         self.ecfg = ecfg
         self.monitor = monitor
         self.cfg = model.cfg
-        self._recurrent = model.cfg.arch_type == "ssm"
+        self._recurrent = model.cfg.arch_type in RECURRENT_ARCHS
         self._step_mon = make_eat_step(model, monitor, ecfg.sampler)
         self._step_every = make_eat_step(model, monitor, ecfg.sampler,
                                          probe_cond=False)
@@ -348,7 +355,8 @@ class Executor:
         return reset_cache(cache)
 
     def cache_for(self, batch: int, capacity: int) -> dict:
-        """The empty ring cache (a recurrent one for arch ``ssm``) of
+        """The empty ring cache (with recurrent states for arch ``ssm`` and
+        ``hybrid``) of
         ``batch`` rows × ``capacity`` slots: the same tensors at every call,
         so the chunk graphs captured over them replay.  The cache of an
         earlier call is emptied: its state is consumed."""
@@ -798,7 +806,10 @@ def _graph_key(tag, cache) -> tuple:
     page-list bucket width."""
     blocks = cache.get("blocks")
     paged = "page_table" in cache
-    pool = tuple(next(iter(cache["layers"][0].values())).shape[:2]) if paged else ()
+    pool = ()
+    if paged:
+        slotted = next(e for e in cache["layers"] if not is_recurrent(e))
+        pool = tuple(next(iter(slotted.values())).shape[:2])
     return (tag, tuple(cache["pos"].shape), paged, pool,
             0 if blocks is None else blocks["pages"].shape[1])
 

@@ -30,6 +30,12 @@ def tree_flatten_with_paths(tree) -> list[tuple[str, object]]:
     return out
 
 
+def tree_map(fn, tree: dict) -> dict:
+    """``fn`` on every leaf of nested dicts, the structure kept."""
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
 def tree_leaves(tree) -> list:
     return [leaf for _, leaf in tree_flatten_with_paths(tree)]
 

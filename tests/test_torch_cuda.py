@@ -748,8 +748,8 @@ def test_decode_wrapper_refuses_bad_inputs(cuda):
         da.decode_attention(*(a.cpu() for a in inputs()), impl="cuda")
     with pytest.raises(TypeError):
         da.decode_attention_cuda(*inputs(dtype=torch.float16), **kw)
-    with pytest.raises(ValueError):                        # head dim above 128
-        da.decode_attention_cuda(*inputs(D=256), **kw)
+    with pytest.raises(ValueError):                        # head dim above 256
+        da.decode_attention_cuda(*inputs(D=288), **kw)
     with pytest.raises(ValueError):                        # 9 * 8 = 72 rows
         da.decode_attention_cuda(*inputs(m=9, Hq=16, Hkv=2), **kw)
     with pytest.raises(ValueError):                        # Hq % Hkv

@@ -45,7 +45,7 @@ def test_every_attention_config_routes_by_its_dtype(name):
 def test_the_served_bf16_configs_take_the_tensor_cores():
     for name, want in (("eat-paper-8b", "mma"), ("qwen3-1.7b", "mma"),
                        ("codeqwen1.5-7b", "mma"), ("gemma-2b", "wide"),
-                       ("gemma-7b", "wide")):
+                       ("gemma-7b", "wide"), ("zamba2-2.7b", "mma")):
         cfg = get_config(name)
         assert cfg.dtype == "bfloat16"
         hd = cfg.resolved_head_dim
@@ -57,7 +57,8 @@ def test_the_served_bf16_configs_take_the_tensor_cores():
 
 
 @pytest.mark.parametrize("dtype,dk,dv,want", [
-    (torch.bfloat16, 80, 80, "scalar"),       # outside the instantiated set
+    (torch.bfloat16, 80, 80, "mma"),          # zamba2-2.7b's shared block
+    (torch.bfloat16, 80, 64, "scalar"),       # outside the instantiated set
     (torch.bfloat16, 256, 256, "wide"),       # gemma-2b, gemma-7b
     ("bfloat16", 256, 256, "wide"),
     (torch.float32, 256, 256, "scalar"),      # TF32 would miss the f32 bar
