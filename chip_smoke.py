@@ -205,6 +205,31 @@ DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
    paged calls per decode and probe forward, every entropy call mma, a
    profiled serve, a ring serve bitwise the paged one, and the serves'
    peak memory against the weights;
+6e. ``seamless-m4t-large-v2`` (arXiv:2308.11596: the encoder-decoder, 24
+   encoder layers over 1024 stub frames and 24 decoder layers that
+   cross-attend to them, d 1024, 16 / 16 heads of 64, GELU d_ff 8192, an
+   untied 256,206 vocabulary; zamba2 freed first): the ``(64, 64)``
+   instance's ptxas line (its spills), flash with ``causal=False`` at the
+   encoder's self-attention (B 4, 1024 frames) and at cross-attention (m 1
+   against 1024 frames, every query at position 0), each timed in turns
+   with SDPA; paged at D 64 (m 1 and 2, g 1); the entropy probe over the
+   untied 1024 x 256,256 head beside ``torch.matmul`` + ``logsumexp``
+   (``[kernels] seamless-m4t-large-v2`` lines); kernel path vs plain path
+   on frames (float32 cut to 2 + 2 layers, 1e-5; bf16 at the full 24 + 24,
+   the logits within ``DENSE_BF16_TOL`` and the kernel path's EAT within
+   ``DENSE_EAT_TOL`` nats of float32, flash 120 ``mma`` on the kernel
+   path); seeded random weights at full width and depth (1.63 B
+   parameters, 3.3 GB), reasoned as the reference serves this family
+   (``encdec_reason_cell``: ``start(frames=)``, ``reason()``,
+   ``force_answer(4)``; 4 rows of prompts of 128-512 tokens, a ring cache,
+   budget 64, chunk 16, greedy, a probe every 8 tokens, exit at the 2nd
+   evaluation): cold, warm and eager on one engine, then a second start
+   with other prompts and frames through the same graphs, warm == eager
+   bitwise (tokens, exits, EAT traces, answers), 0 captures and one
+   snapshot per chunk warm, flash 72 ``mma`` per prefill and none
+   ``scalar``, 24 flash and 24 paged calls per decode and probe forward,
+   every entropy call mma, at least one EAT exit, a profiled warm reason
+   and the reasons' peak memory against the weights;
 7. the training path (``[train]`` lines, each with the card's name and
    power limit), the 8B model freed first: the training forward (plain
    attention, as the reference's trainer runs) against ``Model.prefill`` +
@@ -232,7 +257,8 @@ DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
    ``moe`` record: phase 5b's warm-serve launches and its kernel readings
    at the MoE's shapes, and a ``gemma`` record: phase 6c's, with gemma-2b's
    and codeqwen1.5-7b's shapes beside; flash, paged, entropy and ssd_scan a
-   ``zamba2`` record: phase 6d's; flash an ``mla`` record: phase 6b's;
+   ``zamba2`` record: phase 6d's; flash, paged and entropy a ``seamless``
+   record: phase 6e's; flash an ``mla`` record: phase 6b's;
    decode_attention its head-dim-256 cases under ``d256``), the card line,
    and the last line ``{"ok": true, "device": {...}}``.
 
@@ -548,16 +574,18 @@ class Watch:
                               g.pool_bytes))
         self.if0 = self.device_loop.device_if.calls
 
-    def end(self, what: str) -> dict:
-        """Checks one snapshot per chunk (plus the setup's) in every tier;
-        returns the serve's counts, with ``line`` the host-read text."""
+    def end(self, what: str, setup_reads: int = 1) -> dict:
+        """Checks one snapshot per chunk (plus the setup's, ``setup_reads``:
+        a serve's one; a bare ``start()`` + ``reason()`` has none) in every
+        tier; returns the serve's counts, with ``line`` the host-read
+        text."""
         self.torch.cuda.synchronize()
         out, parts = {"tiers": {}}, []
         for name, t in self.tiers.items():
             g, (c0, s0, r0, p0) = t["ex"].graphs, t["graphs0"]
             reads = t["ex"].snapshot_reads - t["reads0"]
             chunks = len(t["chunks"])
-            check(chunks > 0 and reads == chunks + 1,
+            check(chunks > 0 and reads == chunks + setup_reads,
                   f"{what} {name}: {reads} snapshot reads for {chunks} chunks")
             ms = [a.elapsed_time(b) for a, b in t["chunks"]]
             rollouts = len(t["rollouts"])
@@ -573,8 +601,8 @@ class Watch:
                 f"{name} {chunks} chunks ({statistics.median(ms):.2f} ms each, "
                 f"median on the card; range {min(ms):.2f}-{max(ms):.2f}), "
                 f"{rollouts} rollouts, "
-                f"{reads} snapshot reads ({(reads - 1) / chunks:.1f} per chunk "
-                f"after the setup's), {g.replays - r0} graph replays, "
+                f"{reads} snapshot reads ({(reads - setup_reads) / chunks:.1f} per "
+                f"chunk after the setup's), {g.replays - r0} graph replays, "
                 f"{g.captures - c0} captures")
         out["device_if"] = self.device_loop.device_if.calls - self.if0
         n = sum(v["chunks"] for v in out["tiers"].values())
@@ -1347,11 +1375,13 @@ def rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
-def kernel_vs_plain(torch, model, prompts, probe):
+def kernel_vs_plain(torch, model, prompts, probe, frames=None):
     """Prefill the last 64 tokens of two prompts, decode one, probe: kernel
     path and plain path on the same weights (a ring cache; its decode and
     probe reads through the paged kernel's ring comparator; a hybrid's
-    prefill through the SSD scan kernel or its plain version).  Returns
+    prefill through the SSD scan kernel or its plain version; an
+    encoder-decoder's on ``frames`` (2, T, d), its encoder and every
+    cross-attention through flash or the plain attention).  Returns
     {impl: (prefill logits, decode logits, EAT)}."""
     from repro_torch.serving.cache import alloc_cache
 
@@ -1365,7 +1395,7 @@ def kernel_vs_plain(torch, model, prompts, probe):
     for impl in ("cuda", "plain"):
         model.attn_impl = model.paged_attn_impl = model.scan_impl = impl
         cache = alloc_cache(model.cfg, 2, 96, device="cuda")
-        hidden = model.prefill(toks, pos, pos, cache)
+        hidden = model.prefill(toks, pos, pos, cache, frames=frames)
         logits = model.logits(hidden[:, -1]).float()
         dlog = model.decode_step(nxt, p1, p1, cache)[:, -1].float()
         eat = model.probe_entropy(ptoks, pp, pp, cache, entropy_impl=impl)
@@ -1828,15 +1858,16 @@ def moe_kernel_vs_plain(torch, model, prompts, probe):
     return free, shared, differ, routes
 
 
-def f32_kernel_vs_plain(torch, cfg32, prompts, probe) -> None:
+def f32_kernel_vs_plain(torch, cfg32, prompts, probe, frames=None) -> None:
     """A float32 model of ``cfg32`` (seeded random weights, depth cut by the
-    caller) through ``kernel_vs_plain``: the logits' relative L2 and the
-    EAT within 1e-5.  Frees the model."""
+    caller) through ``kernel_vs_plain`` (on ``frames`` for an
+    encoder-decoder): the logits' relative L2 and the EAT within 1e-5.
+    Frees the model."""
     from repro_torch.models.model import Model, init_params
 
     model32 = Model(cfg32, init_params(cfg32, torch.Generator(device="cuda").manual_seed(1),
                                        device="cuda"))
-    outs = kernel_vs_plain(torch, model32, prompts, probe)
+    outs = kernel_vs_plain(torch, model32, prompts, probe, frames)
     for i, what in enumerate(("prefill logits", "decode logits")):
         rel = rel_l2(outs["cuda"][i], outs["plain"][i])
         check(bool(torch.isfinite(outs["cuda"][i]).all()) and rel < 1e-5,
@@ -2583,10 +2614,12 @@ HYBRID_SEEDS = (1, 2)
 
 
 def dense_bf16_kernel_vs_plain(torch, model, prompts, probe, flash_want: str,
-                               tol: float = DENSE_BF16_TOL) -> None:
-    """``kernel_vs_plain`` on a bf16 dense (or hybrid) model at full depth:
-    the logits within ``tol``, and the kernel path's launches:
-    one flash call per attention block (the prefill), every one
+                               tol: float = DENSE_BF16_TOL, frames=None,
+                               flash_calls: int | None = None) -> None:
+    """``kernel_vs_plain`` on a bf16 dense (or hybrid, or encoder-decoder on
+    ``frames``) model at full depth: the logits within ``tol``, and the
+    kernel path's launches: ``flash_calls`` flash calls (by default one per
+    attention block: the prefill), every one
     ``flash_want``, one scan call per SSM block on the tensor cores, and
     one entropy call on the tensor cores.  Then the same weights cast to float32
     (exactly: each bf16 value is a float32 one) through the plain path: the
@@ -2603,17 +2636,18 @@ def dense_bf16_kernel_vs_plain(torch, model, prompts, probe, flash_want: str,
     cfg = model.cfg
     n_attn = sum(kind != "ssm" for kind in cfg.block_kinds())
     n_ssm = cfg.n_layers - n_attn
+    n_flash = n_attn if flash_calls is None else flash_calls
     f0 = dict(fa.flash_attention_cuda.variant_launches)
     e0 = dict(ep.entropy_probe_cuda.variant_launches)
     s0 = dict(ss.ssd_scan_cuda.variant_launches)
-    outs = kernel_vs_plain(torch, model, prompts, probe)
+    outs = kernel_vs_plain(torch, model, prompts, probe, frames)
     flash = {x: n - f0[x] for x, n in fa.flash_attention_cuda.variant_launches.items()}
     ent = {x: n - e0[x] for x, n in ep.entropy_probe_cuda.variant_launches.items()}
     scan = {x: n - s0[x] for x, n in ss.ssd_scan_cuda.variant_launches.items()}
-    check(flash == {x: n_attn * (x == flash_want) for x in flash}
+    check(flash == {x: n_flash * (x == flash_want) for x in flash}
           and ent == {"mma": 1, "scalar": 0} and scan == {"mma": n_ssm, "scalar": 0},
           f"{cfg.name}: kernel path launched flash {flash}, entropy {ent}, ssd_scan "
-          f"{scan}; expected {n_attn} {flash_want}, one mma and {n_ssm} mma")
+          f"{scan}; expected {n_flash} {flash_want}, one mma and {n_ssm} mma")
     # the float32 twin: the bf16 weights cast up in place (exactly), the
     # float32 ones (a Mamba2 block's dt_bias, A_log, D) as they are; cast
     # back after, bitwise the weights before
@@ -2621,7 +2655,7 @@ def dense_bf16_kernel_vs_plain(torch, model, prompts, probe, flash_want: str,
     for p in bf16:
         p.data = p.data.float()
     model.cfg = dataclasses.replace(cfg, dtype="float32")
-    f32 = kernel_vs_plain(torch, model, prompts, probe)["plain"]
+    f32 = kernel_vs_plain(torch, model, prompts, probe, frames)["plain"]
     for p in bf16:
         p.data = p.data.bfloat16()
     model.cfg = cfg
@@ -2834,6 +2868,329 @@ def zamba_phase(torch, np, F, kernels: dict, phases: dict, card: str, scan: dict
     del model
     phase_end(torch, phases, "zamba2", cfg.name, base, t_phase, card, weights=weights,
               over="its serves")
+    return {"launches": profiled, "kernels": recs}
+
+
+# ----------------------------------------------------------------- phase 6e
+
+
+def noncausal_flash_check(torch, F, fa, tag: str, m: int, T: int, bad: list, *,
+                          encoder: bool, B: int = 4, H: int = 16, D: int = 64) -> dict:
+    """bf16 flash with ``causal=False`` at an encoder-decoder's heads (``H``
+    q and kv heads of ``D``) over ``T`` frames, every one valid: the
+    encoder's self-attention (``encoder``: m = T queries at 0..T-1) or
+    cross-attention (m queries, every one at position 0).  One launch of
+    the routed variant and nothing else, against the plain version within
+    phase 3's bar, timed by graph replay in turns with SDPA (no mask: every
+    pair is valid), the plain version by CUDA events, and the bound.
+    Failures go to ``bad``.  Returns the record, with ``variant``."""
+    dn, dtype = "bfloat16", torch.bfloat16
+    scale = 1.0 / math.sqrt(D)
+    want = fa.flash_variant(dtype, D, D)
+
+    def case(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        q = torch.randn((B, m, H, D), generator=g, device="cuda").to(dtype)
+        k = torch.randn((B, T, H, D), generator=g, device="cuda").to(dtype)
+        v = torch.randn((B, T, H, D), generator=g, device="cuda").to(dtype)
+        kv_pos = torch.arange(T, dtype=torch.int32, device="cuda").expand(B, T).contiguous()
+        q_pos = (kv_pos.clone() if encoder
+                 else torch.zeros((B, m), dtype=torch.int32, device="cuda"))
+        return (q, k, v, q_pos, kv_pos)
+
+    args = case(0)
+    kw = dict(causal=False, scale=scale)
+    before = dict(fa.flash_attention_cuda.variant_launches)
+    out = fa.flash_attention_cuda(*args, **kw)
+    after = fa.flash_attention_cuda.variant_launches
+    launched = {x: after[x] - before[x] for x in after}
+    ref = fa.attention_plain(*args, **kw)
+    spread = fa.attention_plain(*args[:2], args[2].abs(), *args[3:], **kw)
+    err, ok, tol = agree(torch, "flash_attention", dn, out, ref, spread)
+    if launched != {x: int(x == want) for x in launched} or not ok:
+        bad.append(f"{tag} flash_attention non-causal m{m} T{T}: launched {launched}, "
+                   f"not one {want}; max abs err {err:.3e} ({tol})")
+    per_set = nbytes(*args) + nbytes(out)
+    sets = [args] + [case(s) for s in range(1, n_sets(per_set))]
+    calls = [lambda s=s: fa.flash_attention_cuda(*s, **kw) for s in sets]
+    lib_sets = [tuple(x.transpose(1, 2) for x in s[:3]) for s in sets]
+    lib_calls = [lambda t=t: F.scaled_dot_product_attention(*t, scale=scale)
+                 for t in lib_sets]
+    k_turns, l_turns = in_turns(torch, calls, lib_calls)
+    p_ms = time_ms(torch, [lambda s=s: fa.attention_plain(*s, **kw) for s in sets],
+                   iters=6)
+    flops = 4 * B * H * m * T * D             # every (query, frame) pair
+    b_ms, b_by = bound_ms(per_set, flops, dn)
+    k_ms, l_ms = statistics.median(k_turns), statistics.median(l_turns)
+    what = "the encoder's self-attention" if encoder else "cross-attention, q at 0"
+    print(f"[kernels] {tag} flash_attention {dn} non-causal ({what}) B{B} m{m} T{T} "
+          f"Hq{H} Hkv{H} D{D} variant {want}: max_abs_err {err:.3e} ({tol}); graph "
+          f"replay in turns, 5 rounds: kernel {turns_text(k_turns)}, sdpa "
+          f"{turns_text(l_turns)}; kernel / sdpa {k_ms / l_ms:.3f}; plain {p_ms:.4f} ms; "
+          f"bound {b_ms:.4f} ms ({b_by}: {per_set / 1e6:.1f} MB, {flops / 1e9:.2f} "
+          f"GFLOP), kernel at {b_ms / k_ms:.3f} of it")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=l_ms, variant=want)
+
+
+def encdec_kernel_checks(torch, F, fa, pa, ep, ptxas: list[str]) -> dict:
+    """Phase 6e's kernel checks at ``seamless-m4t-large-v2``'s shapes, bf16:
+    flash with ``causal=False`` at the encoder's self-attention (B 4, 1024
+    frames, 16 / 16 heads of 64) and at cross-attention (m 1 against 1024
+    frames, q at 0), both on the ``(64, 64)`` instance of the tensor-core
+    kernel; paged at D 64 (m 1 and 2, g 1); the entropy probe over the
+    untied 1024 x 256,256 head, with ``torch.matmul`` + ``logsumexp`` (the
+    logits and their normaliser, not the entropy) timed beside as a
+    yardstick.  ``ptxas``: the (64, 64) instance's lines, printed first.
+    Returns {kernel: record}, flash's cross-attention case under
+    ``cross_m1``."""
+    tag = "seamless-m4t-large-v2"
+    bad = []
+    for line in ptxas:
+        print(f"[kernels] seamless flash_attention ptxas {line}")
+    flash = noncausal_flash_check(torch, F, fa, tag, 1024, 1024, bad, encoder=True)
+    flash["cross_m1"] = noncausal_flash_check(torch, F, fa, tag, 1, 1024, bad,
+                                              encoder=False)
+    for rec in (flash, flash["cross_m1"]):
+        if rec["variant"] != "mma":
+            bad.append(f"{tag} flash routes to {rec['variant']}, not mma")
+    flash["max_abs_err"] = max(flash["max_abs_err"], flash["cross_m1"]["max_abs_err"])
+    paged = [paged_shape_check(torch, pa, tag, m, 16, 16, 64, bad) for m in (1, 2)]
+    rec_paged = dict(paged[0], max_abs_err=max(r["max_abs_err"] for r in paged),
+                     m2=paged[1])
+    entropy = entropy_shape_check(torch, ep, tag, 1024, 256_256, 256_206, False, bad)
+    c = entropy_case(torch, torch.bfloat16, 4, 1024, 256_256, 256_206, False)
+    entropy["matmul_logsumexp_ms"] = graph_ms(torch, [
+        lambda: torch.logsumexp(torch.matmul(c["h"], c["w"]).float(), dim=-1)])
+    print(f"[kernels] {tag} entropy_probe yardstick: bf16 torch.matmul(h, w) + float32 "
+          f"logsumexp (the logits' normaliser, no entropy) "
+          f"{entropy['matmul_logsumexp_ms']:.4f} ms (graph replay), the kernel "
+          f"{entropy['ms']:.4f} ms")
+    del c
+    torch.cuda.empty_cache()
+    check(not bad, "seamless kernel vs plain: " + "; ".join(bad))
+    return {"flash_attention": flash, "paged_attention": rec_paged,
+            "entropy_probe": entropy}
+
+
+def reason_result(np, st, ans, trace) -> list[dict]:
+    """Per row of a finished ``reason()``: its reasoning tokens, count, exit
+    reason, forced answer and EAT trace (per chunk: tokens, evaluations,
+    the EMA variance and the last EAT), for ``check_same``."""
+    toks = st.out_tokens.cpu().numpy()
+    n = st.n_reasoning.cpu().numpy()
+    stop = st.monitor.stop_flag.cpu().numpy()
+    ended = st.ended_think.cpu().numpy()
+    ans = ans.cpu().numpy()
+    rows = [[x.cpu().numpy().tolist() for x in rec] for rec in trace]
+    return [{"n_reasoning": int(n[b]), "slot": b,
+             "exit_reason": "eat" if stop[b] else "end_think" if ended[b] else "budget",
+             "reasoning_tokens": toks[b, :n[b]], "answer_tokens": ans[b],
+             "eat_trace": [tuple(r[b] for r in rec) for rec in rows]}
+            for b in range(len(n))]
+
+
+def encdec_reason_cell(torch, np, model, probe, prompts, lens, frames: list, kernels: dict,
+                       phases: dict, card: str, *, key: str, profile_path) -> dict:
+    """An encoder-decoder reasoned the way the reference serves the family
+    (its ``serve()`` carries no frames): ``start(prompts, lens, frames=)``,
+    ``reason()`` to every row's exit, ``force_answer(4)``, on one engine
+    (ring cache, budget 64, chunk 16, greedy, an EAT probe every 8 tokens,
+    exit at the 2nd evaluation).  Two batches (``prompts``/``lens``/``frames``
+    halves): the first cold (its captures), warm and eager; the second warm
+    and eager through the first's graphs.  Checks: warm == cold == eager
+    bitwise in each batch (tokens, exits, per-chunk EAT traces, answers), 0
+    captures and one snapshot per chunk warm, flash launches per variant in
+    each prefill (encoder, decoder self-attention and cross-attention: 3 x
+    layers, all ``mma``), flash and paged each one call per decoder layer
+    per decode and probe forward, every entropy call mma, at least one EAT
+    exit; one more warm reason under the profiler, its counts the warm
+    one's.  Returns the profiled reason's launches."""
+    from repro_torch.core.monitor import ReasoningMonitor
+    from repro_torch.core.stopping import EATStopper
+    from repro_torch.serving import device_loop
+    from repro_torch.serving.cache import CacheConfig, page_align
+    from repro_torch.serving.engine import EngineConfig, ReasoningEngine
+    from repro_torch.serving.sampler import SamplerConfig
+
+    cfg = model.cfg
+    B, budget, chunk, answer = 4, 64, 16, 4
+    L = cfg.n_layers
+    per_prefill = cfg.n_encoder_layers + 2 * L
+    capacity = page_align(prompts.shape[1] + budget + len(probe) + answer + 1, 16)
+    ecfg = EngineConfig(max_reasoning_tokens=budget, capacity=capacity, chunk_len=chunk,
+                        sampler=SamplerConfig(greedy=True),
+                        cache=CacheConfig(kind="ring", page_size=16, attn_impl="auto"))
+    mon = ReasoningMonitor(stopper=EATStopper(alpha=0.2, delta=1e9), probe=probe,
+                           schedule="every_n", every_n=8, min_evals=2)
+    eng = ReasoningEngine(model, ecfg, mon)
+    watch = Watch(torch, eng, device_loop, kernels)
+    trace = []
+    decode_chunk = eng.executor.decode_chunk
+
+    def traced(*a, **kw):
+        st = decode_chunk(*a, **kw)
+        s = st.monitor.stop_state
+        # device copies: the replay's output buffers are written again by
+        # the next chunk; read after the run, no host read inside it
+        trace.append([x.clone() for x in (st.n_reasoning, st.monitor.n_evals,
+                                          s.ema.var, s.last)])
+        return st
+
+    eng.executor.decode_chunk = traced
+    fa = kernels["flash_attention"]
+
+    def run(half: int, what: str, eager: bool = False):
+        p, n, fr = prompts[4 * half:4 * half + B], lens[4 * half:4 * half + B], frames[half]
+        trace.clear()
+        watch.begin()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        f0 = dict(fa.variant_launches)
+        st = eng.start(p, n, None, frames=fr)
+        prefill_flash = {x: c - f0[x] for x, c in fa.variant_launches.items()}
+        st = eng.reason(st, eager=eager)
+        ans, _ = eng.force_answer(st, answer, greedy=True, eager=eager)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = watch.end(f"{cfg.name} {what}", setup_reads=0)
+        check(prefill_flash == {x: per_prefill * (x == "mma") for x in prefill_flash},
+              f"{cfg.name} {what}: the prefill launched flash {prefill_flash}, expected "
+              f"{per_prefill} mma ({cfg.n_encoder_layers} encoder, {L} self, {L} cross)")
+        return reason_result(np, st, ans, trace), wall, counts
+
+    cold_res, cold_s, cold = run(0, "cold graph reason")
+    check(cold["tiers"]["executor"]["captures"] > 0, f"{cfg.name}: no chunk graph captured")
+    print(graph_line(f"{cfg.name} ring cold reason ({cold_s:.3f} s)", cold))
+    reset_counts(kernels)
+    res, warm_s, warm = run(0, "warm graph reason")
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    flash_variants = dict(kernels["flash_attention"].variant_launches)
+    entropy_variants = dict(kernels["entropy_probe"].variant_launches)
+    wt = warm["tiers"]["executor"]
+    check(wt["captures"] == 0 and wt["replays"] == wt["chunks"] + wt["rollouts"]
+          and warm["device_if"] == 0,
+          f"{cfg.name}: the warm reason captured, ran a chunk or a rollout eagerly, "
+          f"or read device_if: {warm['line']}")
+    check_same(res, cold_res, np, f"{cfg.name}: cold and warm graph reasons differ")
+    e_res, eager_s, eager = run(0, "eager reason", eager=True)
+    check_same(res, e_res, np, f"{cfg.name}: the warm graph reason differs from the eager")
+    # the second batch, other prompts and frames, through the same graphs
+    res2, warm2_s, warm2 = run(1, "second batch warm graph reason")
+    w2 = warm2["tiers"]["executor"]
+    check(w2["captures"] == 0 and w2["replays"] == w2["chunks"] + w2["rollouts"],
+          f"{cfg.name}: the second batch captured or ran eagerly: {warm2['line']}")
+    e_res2, eager2_s, _ = run(1, "second batch eager reason", eager=True)
+    check_same(res2, e_res2, np, f"{cfg.name}: the second batch's warm graph reason "
+               f"differs from its eager reason (the cross K/V of the new frames)")
+    check(any(not np.array_equal(a["reasoning_tokens"], b["reasoning_tokens"])
+              for a, b in zip(res, res2)),
+          f"{cfg.name}: the second batch reasoned the first batch's tokens")
+    exits = [r["exit_reason"] for r in res + res2]
+    check("eat" in exits, f"{cfg.name}: no row exited by EAT: {exits}")
+    # forwards: a decode and a probe forward per step of each replayed
+    # chunk, answer + 1 per rollout, eager probes; flash adds the prefill's
+    forwards = (2 * chunk * wt["chunks"] + (answer + 1) * wt["rollouts"]
+                + wt["probe_calls"])
+    want = {x: (per_prefill + L * forwards) * (x == "mma") for x in flash_variants}
+    check(flash_variants == want, f"{cfg.name}: flash launches per variant "
+          f"{flash_variants}, expected {want} ({per_prefill} per prefill, {L} per "
+          f"forward, {forwards} forwards)")
+    check(launches["paged_attention"] == L * forwards,
+          f"{cfg.name}: paged_attention launched {launches['paged_attention']} times, "
+          f"expected {L} per forward x {forwards}")
+    check_entropy_mma(f"{cfg.name} reason", entropy_variants, launches["entropy_probe"])
+    n_tok = sum(r["n_reasoning"] for r in res)
+    phases.update({f"{key}_cold_s": cold_s, f"{key}_reason_s": warm_s,
+                   f"{key}_eager_s": eager_s, f"{key}_tok_s": n_tok / warm_s,
+                   f"{key}_second_s": warm2_s, f"{key}_second_eager_s": eager2_s,
+                   f"{key}_chunk_ms": statistics.median(wt["chunk_ms"]),
+                   f"{key}_eager_chunk_ms":
+                       statistics.median(eager["tiers"]["executor"]["chunk_ms"])})
+    print(f"[serve] {cfg.name} ring, start(frames=) + reason() + force_answer({answer}): "
+          f"{B} rows, exits {[r['exit_reason'] for r in res]} then "
+          f"{[r['exit_reason'] for r in res2]}, reasoning tokens "
+          f"{[r['n_reasoning'] for r in res]} then {[r['n_reasoning'] for r in res2]}; "
+          f"{warm_s:.3f} s warm graph reason, {n_tok / warm_s:.1f} reasoning tokens/s "
+          f"(cold {cold_s:.3f} s, eager {eager_s:.3f} s; the second batch warm "
+          f"{warm2_s:.3f} s, eager {eager2_s:.3f} s); graph == eager bitwise in both "
+          f"batches (tokens, exits, EAT traces, answers) ({card})")
+    print(f"[serve] {cfg.name} host reads, warm graph reason: {warm['line']}")
+    print(f"[serve] {cfg.name} host reads, second batch warm graph reason: {warm2['line']}")
+    for kind in ("chunk", "rollout"):
+        g = wt[f"{kind}_ms"]
+        e = eager["tiers"]["executor"][f"{kind}_ms"]
+        print(f"[{kind}] {cfg.name} executor: replay {statistics.median(g):.3f} ms "
+              f"(range {min(g):.3f}-{max(g):.3f}, {len(g)} calls), eager "
+              f"{statistics.median(e):.3f} ms (range {min(e):.3f}-{max(e):.3f}, "
+              f"{len(e)} calls), median on the card ({card})")
+    print(f"[serve] launches during the {cfg.name} warm graph reason: "
+          f"{json.dumps(launches)} (flash per variant {json.dumps(flash_variants)}: "
+          f"{per_prefill} mma per prefill + {L} per forward over {forwards} forwards; "
+          f"paged {L} per forward; entropy per variant {json.dumps(entropy_variants)})")
+    profiled = profile_serve(torch, lambda: run(0, "profiled reason")[:2], warm_s,
+                             profile_path, f"profile {key}", kernels)
+    check(profiled == launches, f"{cfg.name}: the profiled reason's launches {profiled} "
+          f"differ from the warm reason's {launches}")
+    phases[f"{key}_pool_mib"] = eng.executor.graphs.pool_bytes / 2**20
+    eng.executor.decode_chunk = decode_chunk
+    return profiled
+
+
+def encdec_phase(torch, np, F, kernels: dict, phases: dict, card: str,
+                 profile_dir=None) -> dict:
+    """Phase 6e: ``seamless-m4t-large-v2`` (arXiv:2308.11596) at full width
+    and depth, zamba2 freed first.  The kernels at its shapes
+    (``encdec_kernel_checks``); kernel path vs plain path on frames (float32
+    cut to 2 + 2 layers, 1e-5; bf16 at the full 24 + 24: the logits within
+    ``DENSE_BF16_TOL``, the EAT within ``DENSE_EAT_TOL`` of float32, flash
+    120 ``mma`` over a prefill, a decode and a probe); then
+    ``encdec_reason_cell``: two batches of 4 of phase 4's prompts (over its
+    256,206 vocabulary), each with its own seeded frames (4 x 1024 x 1024).
+    Returns {"launches": the profiled reason's counts, "kernels": the
+    records}."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.eat import make_probe
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.entropy_probe import ops as ep
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_attention import ops as pa
+
+    t_phase = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ptxas = [line for line in ptxas_report(_build.BUILD_LOG.get("flash_attention", ""),
+                                           "flash_mma_kernel")
+             if ",64,64>" in line]
+    recs = encdec_kernel_checks(torch, F, fa, pa, ep, ptxas)
+    probe = make_probe(1, (6,))
+
+    cfg = get_config("seamless-m4t-large-v2")
+    prompts, lens = serve_workload(np, vocab=cfg.vocab)
+    check(int(prompts.max()) < cfg.vocab, "prompt ids past the vocab")
+    frames = [torch.randn((4, cfg.encoder_len, cfg.d_model), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(10 + i))
+              for i in range(2)]
+    f32_kernel_vs_plain(torch, dataclasses.replace(cfg, name=cfg.name + "-2+2L-f32",
+                                                   n_layers=2, n_encoder_layers=2,
+                                                   dtype="float32"),
+                        prompts, probe, frames[0][:2])
+    model, weights = dense_model(torch, cfg, phases, "encdec", card)
+    print(f"[model] {cfg.name}: and {cfg.n_encoder_layers} encoder layers over "
+          f"{cfg.encoder_len} stub frames of {cfg.d_model}; cross K/V per row "
+          f"{2 * cfg.n_layers * cfg.encoder_len * cfg.d_model * 2 / 1e6:.1f} MB")
+    L = cfg.n_layers
+    dense_bf16_kernel_vs_plain(torch, model, prompts, probe, "mma", frames=frames[0][:2],
+                               flash_calls=cfg.n_encoder_layers + 2 * L + 2 * L)
+    # the reasons' peak, not the float32 twin's of the check above
+    torch.cuda.reset_peak_memory_stats()
+    profiled = encdec_reason_cell(
+        torch, np, model, probe, prompts, lens, frames, kernels, phases, card,
+        key="encdec",
+        profile_path=Path(profile_dir) / "profile_encdec.txt" if profile_dir else None)
+    del model, frames
+    phase_end(torch, phases, "encdec", cfg.name, base, t_phase, card, weights=weights,
+              over="its reasons")
     return {"launches": profiled, "kernels": recs}
 
 
@@ -3627,6 +3984,16 @@ def main() -> None:
                         zamba_scan, profile_dir=args.profile)
     lap("6d")
 
+    # ---- 6e. seamless-m4t-large-v2 (encoder-decoder) at full width and
+    # depth, zamba2 freed first
+    gc.collect()
+    torch.cuda.empty_cache()
+    encdec = encdec_phase(torch, np, F, {name: kernels[name] for name in
+                                         ("flash_attention", "paged_attention",
+                                          "entropy_probe")}, phases, card,
+                          profile_dir=args.profile)
+    lap("6e")
+
     # ---- 7. the training path, the 8B model freed first
     train_phase(torch, np, card, {name: kernels[name] for name in
                                   ("flash_attention", "paged_attention",
@@ -3678,6 +4045,9 @@ def main() -> None:
         if name in zamba["launches"]:
             out[-1]["zamba2"] = {"launches": zamba["launches"][name],
                                  **zamba["kernels"][name]}
+        if name in encdec["launches"]:
+            out[-1]["seamless"] = {"launches": encdec["launches"][name],
+                                   **encdec["kernels"][name]}
         if name in moe["launches"]:
             m = moe["kernels"][name]
             out[-1]["moe"] = {"launches": moe["launches"][name],

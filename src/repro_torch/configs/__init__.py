@@ -8,6 +8,7 @@ from repro_torch.configs import (  # noqa: F401
     mamba2_2p7b,
     paper_native,
     qwen3_1p7b,
+    seamless_m4t_large_v2,
     tiny,
     zamba2_2p7b,
 )

@@ -1,6 +1,7 @@
 """Model configuration: the dense-decoder, Mamba2 (``arch_type="ssm"``),
 mixture-of-experts (``arch_type="moe"``), multi-head latent attention
-(``mla``) and Zamba2-style hybrid (``arch_type="hybrid"``) parts of the JAX package's ``ModelConfig``, ``SSMConfig``,
+(``mla``), Zamba2-style hybrid (``arch_type="hybrid"``) and
+encoder-decoder (``arch_type="encdec"``) parts of the JAX package's ``ModelConfig``, ``SSMConfig``,
 ``MoEConfig`` and ``MLAConfig`` (``repro/configs/base.py``), copied so the
 port imports nothing of ``repro``.  Field names and defaults are the reference's, so a config built
 here describes the same model as its JAX twin.
@@ -87,6 +88,12 @@ class ModelConfig:
     # "shared_attn": one attention+MLP block whose weights every group shares)
     hybrid_pattern: tuple[str, ...] = ()
 
+    # encoder-decoder: the encoder's layer count; the encoder reads stub
+    # frontend frames (precomputed d_model-wide embeddings), encoder_len of
+    # them per example
+    n_encoder_layers: int = 0
+    encoder_len: int = 1024
+
     dtype: str = "bfloat16"
 
     @property
@@ -119,8 +126,9 @@ class ModelConfig:
     def reduced(self) -> "ModelConfig":
         """The reference's CPU-test variant of this config: 2 layers, width
         at most 128, vocab at most 512, heads of 32, at most 4 experts,
-        float32, a hybrid one group deep (the dense, MoE, SSM, MLA and
-        hybrid fields of ``ModelConfig.reduced``)."""
+        float32, a hybrid one group deep, an encoder of 2 layers over 32
+        frames (the dense, MoE, SSM, MLA, hybrid and encoder-decoder fields
+        of ``ModelConfig.reduced``)."""
         n_heads = max(2, min(self.n_heads, 4))
         kw: dict = dict(
             name=self.name + "-reduced",
@@ -152,6 +160,9 @@ class ModelConfig:
             )
         if self.hybrid_pattern:
             kw["n_layers"] = max(2, len(self.hybrid_pattern))
+        if self.n_encoder_layers:
+            kw["n_encoder_layers"] = 2
+            kw["encoder_len"] = 32
         return replace(self, **kw)
 
 

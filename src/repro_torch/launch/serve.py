@@ -52,7 +52,7 @@ from repro_torch.data.synthetic import ChainTask, Tokens
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model, init_params
 from repro_torch.serving.cache import ATTN_IMPLS, CacheConfig
-from repro_torch.serving.engine import EngineConfig, ReasoningEngine
+from repro_torch.serving.engine import EngineConfig, ReasoningEngine, refuse_encdec
 from repro_torch.serving.proxy import ProxyConfig
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.scheduler import SlotScheduler
@@ -112,6 +112,9 @@ def main(argv=None):
         ap.error("--proxy-config/--proxy-ckpt only apply with --monitor proxy "
                  "(default monitor is 'self')")
     cfg = get_config(args.arch)
+    refuse_encdec(cfg, "the launcher")
+    if args.proxy_config:
+        refuse_encdec(get_config(args.proxy_config), "the launcher's proxy tier")
     if cfg.arch_type == "ssm" and args.cache == "paged":
         ap.error(f"--arch {args.arch} is an SSM: its state has no KV capacity "
                  f"axis to page; use --cache ring")

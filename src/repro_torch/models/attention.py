@@ -1,7 +1,7 @@
 """Attention projections (port of ``repro/models/attention.py``): GQA's
-parameter layout, qk-norm, bias and RoPE, and DeepSeek-V2's multi-head
-latent attention (MLA).  The attention math lives in
-``repro_torch.kernels``.
+parameter layout, qk-norm, bias and RoPE, DeepSeek-V2's multi-head latent
+attention (MLA) and the encoder-decoder's cross-attention.  The attention
+math lives in ``repro_torch.kernels``.
 
 The KV-representation contract with the cache is the reference's:
 
@@ -10,6 +10,9 @@ The KV-representation contract with the cache is the reference's:
   rope key ``kr`` (B, S, rope_d), not the per-head K/V: the cached forward
   attends over them in the absorbed form (``mla_absorbed_attend``), and
   only training expands them (``mla_self_attention``).
+* An encoder-decoder's decoder layers also cache the cross K/V ``ck, cv``
+  (B, T, Hkv, hd), computed once from the encoder's output at prefill
+  (``cross_attn_kv``) and read by every later forward (``cross_attention``).
 """
 from __future__ import annotations
 
@@ -165,3 +168,40 @@ def mla_absorbed_attend(p, q_nope: torch.Tensor, q_rope: torch.Tensor,
     w_uv = p["w_uv"].reshape(m.kv_lora_rank, cfg.n_heads, m.v_head_dim)
     o = torch.einsum("bshr,rhd->bshd", o_lat, w_uv)
     return o.reshape(B, S, -1) @ p["wo"]
+
+
+# --------------------------------------------------------------- cross-attn
+
+
+def cross_attn_init(gen, cfg: ModelConfig, dtype, device) -> dict:
+    return gqa_init(gen, cfg, dtype, device)
+
+
+def cross_attention(p, x: torch.Tensor, enc_k: torch.Tensor,
+                    enc_v: torch.Tensor, enc_pos: torch.Tensor,
+                    cfg: ModelConfig, *, attn_impl: str = "auto") -> torch.Tensor:
+    """Encoder-decoder cross-attention: x (B, S, d) decoder states against
+    the encoder's cached K/V (B, T, Hkv, hd) at ``enc_pos`` (B, T).  q gets
+    no RoPE; every q position is 0 and the attention is not causal, so
+    each query sees every valid frame.  Through ``attention`` at every
+    query width, as in the reference.  Returns y (B, S, d)."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.resolved_head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+    q_pos = torch.zeros((B, S), dtype=torch.int32, device=x.device)
+    o = attention(q, enc_k, enc_v, q_pos, enc_pos, causal=False,
+                  scale=attn_scale(cfg), impl=attn_impl)
+    return gqa_out(p, o)
+
+
+def cross_attn_kv(p, enc_out: torch.Tensor, cfg: ModelConfig):
+    """The cross K/V (B, T, Hkv, hd) of one decoder layer from the encoder's
+    output (B, T, d), made once at prefill."""
+    B, T, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = (enc_out @ p["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
+    v = (enc_out @ p["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    return k, v

@@ -36,8 +36,12 @@ Parameter tree (the JAX layout with the layer axis unstacked)::
                 #   D, norm_w, out_proj}}, ...]
                 # arch "hybrid": the SSM blocks only, in block order (the
                 #   reference's (G, n_per) groups, flattened), and beside
+                # arch "encdec": the decoder's layers, each also holding
+                #   "norm_c" and "cross": {wq, wk, wv, wo} (cross-attention)
      ["shared_attn": {"norm1": (2 d,), "attn": {wq, wk, wv: (2 d, .), wo},
-                      "norm2", "ffn"}]   # the one shared attention block
+                      "norm2", "ffn"}],  # the one shared attention block
+     ["enc_layers": [{"norm1", "attn", "norm2", "ffn"}, ...],
+      "enc_norm": (d,)]}                 # arch "encdec": the encoder
 """
 from __future__ import annotations
 
@@ -49,7 +53,7 @@ from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.kernels.entropy_probe.ops import next_token_entropy
 from repro_torch.models import common
 from repro_torch.models import transformer as tfm
-from repro_torch.models.attention import gqa_init, mla_init
+from repro_torch.models.attention import cross_attn_init, cross_attn_kv, gqa_init, mla_init
 from repro_torch.models.moe import moe_init
 from repro_torch.models.ssm import ssm_init
 
@@ -69,26 +73,30 @@ def build_params(cfg: ModelConfig, generator, dev: torch.device) -> dict:
     def norm(d: int) -> torch.Tensor:
         return common.rmsnorm_init(d, dtype, dev, cfg.rmsnorm_one_plus)
 
-    def attn_block(use_moe: bool, d_in: int) -> dict:
+    def attn_block(use_moe: bool, d_in: int, cross: bool = False) -> dict:
         layer = {
             "norm1": norm(d_in),
             "attn": (mla_init(generator, cfg, dtype, dev) if cfg.mla is not None
                      else gqa_init(generator, cfg, dtype, dev, d_in=d_in)),
             "norm2": norm(cfg.d_model),
         }
+        if cross:
+            layer["norm_c"] = norm(cfg.d_model)
+            layer["cross"] = cross_attn_init(generator, cfg, dtype, dev)
         if use_moe:
             layer["moe"] = moe_init(generator, cfg, dtype, dev)
         else:
             layer["ffn"] = common.mlp_init(generator, cfg, dense_ff, dtype, dev)
         return layer
 
+    encdec = cfg.arch_type == "encdec"
     layers = []
     for kind, use_moe in zip(cfg.block_kinds(), cfg.moe_layer_mask()):
         if kind == "ssm":
             layers.append({"norm": norm(cfg.d_model),
                            "ssm": ssm_init(generator, cfg, dtype, dev)})
         elif kind == "attn":
-            layers.append(attn_block(use_moe, cfg.d_model))
+            layers.append(attn_block(use_moe, cfg.d_model, cross=encdec))
     params = {
         "embed": common.embed_init(generator, cfg, dtype, dev),
         "final_norm": norm(cfg.d_model),
@@ -96,6 +104,10 @@ def build_params(cfg: ModelConfig, generator, dev: torch.device) -> dict:
     }
     if "shared_attn" in cfg.block_kinds():
         params["shared_attn"] = attn_block(False, 2 * cfg.d_model)
+    if encdec:
+        params["enc_layers"] = [attn_block(False, cfg.d_model)
+                                for _ in range(cfg.n_encoder_layers)]
+        params["enc_norm"] = norm(cfg.d_model)
     return params
 
 
@@ -133,9 +145,12 @@ class Block(nn.Module):
 class Model(nn.Module):
     """A dense GQA decoder, a mixture-of-experts decoder (``arch_type=
     "moe"``), either with multi-head latent attention (``cfg.mla``), a
-    Mamba2 stack (``arch_type="ssm"``) or a Zamba2-style hybrid
+    Mamba2 stack (``arch_type="ssm"``), a Zamba2-style hybrid
     (``arch_type="hybrid"``: Mamba2 blocks and one shared attention block,
-    ``shared_attn``) for serving.
+    ``shared_attn``) or an encoder-decoder (``arch_type="encdec"``: the
+    bidirectional encoder ``enc_layers`` + ``enc_norm`` over stub frames,
+    run once per prefill, and a decoder whose blocks cross-attend to it)
+    for serving.
 
     ``attn_impl`` selects the prefill attention and ``scan_impl`` the SSM
     prefill scan (``auto``: the CUDA kernel for CUDA tensors, the plain
@@ -162,6 +177,9 @@ class Model(nn.Module):
         self.layers = nn.ModuleList(Block(p) for p in params["layers"])
         self.shared_attn = (Block(params["shared_attn"]) if "shared_attn" in params
                             else None)
+        self.enc_layers = nn.ModuleList(Block(p) for p in params.get("enc_layers", []))
+        self.enc_norm = (_frozen(params["enc_norm"]) if "enc_norm" in params
+                         else None)
 
     @property
     def device(self) -> torch.device:
@@ -192,12 +210,41 @@ class Model(nn.Module):
             return run()
 
     # ---------------------------------------------------------------- serve
-    def prefill(self, tokens, positions, pos1d, cache, *,
+    def prefill(self, tokens, positions, pos1d, cache, *, frames=None,
                 window: int | None = None, live=None) -> torch.Tensor:
         """Fill the cache with the prompt (in place); returns hidden (B,S,d).
-        ``live`` (0-dim bool) masks the commit (``forward_cached``)."""
+        ``live`` (0-dim bool) masks the commit (``forward_cached``).  An
+        encoder-decoder needs ``frames`` (B, T, d): they are encoded, and
+        each decoder layer's cross K/V and the cache's ``enc_pos`` are
+        copied into the cache's own tensors first."""
+        if self.cfg.arch_type == "encdec":
+            self._encode_into(frames, cache)
         return self._forward(tokens, positions, pos1d, cache, commit=True,
                              window=window, live=live)
+
+    def _encode_into(self, frames, cache) -> None:
+        """Encode ``frames`` (B, T, d) with ``enc_pos = arange(T)`` and write
+        every decoder layer's cross K/V and ``enc_pos`` into ``cache``'s
+        tensors with ``copy_``: a chunk graph captured over the cache reads
+        the new frames' K/V at its next replay."""
+        if frames is None:
+            raise ValueError(f"{self.cfg.name} is an encoder-decoder: its "
+                             f"prefill needs frames (B, T, d_model)")
+        cfg = self.cfg
+        B, T, _ = frames.shape
+        if tuple(cache["enc_pos"].shape) != (B, T):
+            raise ValueError(f"frames {tuple(frames.shape)} against a cache "
+                             f"for {tuple(cache['enc_pos'].shape)} frames")
+        enc_pos = torch.arange(T, dtype=torch.int32,
+                               device=frames.device).expand(B, T).contiguous()
+        x = frames.to(self.final_norm.dtype)
+        enc_out = tfm.encode(self.enc_layers, self.enc_norm, x, enc_pos, cfg,
+                             attn_impl=self.attn_impl)
+        for p, entry in zip(self.layers, cache["layers"]):
+            ck, cv = cross_attn_kv(p["cross"], enc_out, cfg)
+            entry["ck"].copy_(ck)
+            entry["cv"].copy_(cv)
+        cache["enc_pos"].copy_(enc_pos)
 
     def decode_step(self, tokens, positions, pos1d, cache, *,
                     window: int | None = None, live=None) -> torch.Tensor:
@@ -248,7 +295,8 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
     unknown = set(batch) - {"tokens", "targets", "loss_mask", "positions", "pos1d"}
     if unknown:
         raise ValueError(f"batch keys {sorted(unknown)} need modules the port "
-                         f"lacks (encoder-decoder frames, VLM image embeds)")
+                         f"does not train yet (encoder-decoder frames, VLM "
+                         f"image embeds): training on them is a later item")
     logits, aux = train_logits(params, cfg, batch["tokens"], batch["positions"],
                                batch["pos1d"], remat=remat, window=window)
     loss, metrics = cross_entropy_loss(logits, batch["targets"],

@@ -1,10 +1,12 @@
 """The cached forward of a dense GQA decoder, a mixture-of-experts decoder
-(either with multi-head latent attention, ``cfg.mla``), a Mamba2 stack and
-a Zamba2-style hybrid, and their training forward (port of the dense, MoE,
-MLA, SSM and hybrid branches of ``repro/models/transformer.py``:
-``write_slots``, the paged-cache helpers, ``page_native_ok``,
-``attn_block_cached``, ``attn_block_full``, ``ssm_block_full`` /
-``ssm_block_step``, ``forward_cached`` and ``forward_train``).  An MoE
+(either with multi-head latent attention, ``cfg.mla``), a Mamba2 stack, a
+Zamba2-style hybrid and an encoder-decoder's decoder, the encoder-decoder's
+bidirectional encoder, and the training forward of all but the last (port
+of the dense, MoE, MLA, SSM, hybrid and encdec branches of
+``repro/models/transformer.py``: ``write_slots``, the paged-cache helpers,
+``page_native_ok``, ``attn_block_cached``, ``attn_block_full``,
+``ssm_block_full`` / ``ssm_block_step``, ``encode``, ``forward_cached`` and
+``forward_train``).  An MoE
 layer (one holding ``moe``) runs ``models/moe.py``'s ``moe_apply`` where a
 dense layer runs its MLP; the reference's ``dense_seg`` and ``moe_seg`` are
 one flat list of layers and cache entries here.  An MLA layer caches its
@@ -19,6 +21,15 @@ block runs the one ``shared`` weight set on ``concat(x, emb0)`` (``emb0``
 the embedded stream, 2 d wide into ``norm1`` and the q/k/v projections;
 the residual adds onto ``x`` alone) against its own K/V entry.
 
+An encoder-decoder (``arch_type="encdec"``): ``encode`` runs the encoder's
+blocks over the stub frames, bidirectionally (``causal=False``, positions
+and RoPE at ``enc_pos = arange(T)``), then ``enc_norm``; each decoder block
+attends to itself, then (``norm_c``) to the encoder's output through its
+entry's cross K/V ``ck``/``cv`` at the cache's ``enc_pos``
+(``attention.cross_attention``, every query at position 0, not causal),
+then runs its MLP.  The cross K/V are written once, at prefill; no forward
+here writes them.
+
 ``forward_train`` runs the plain attention and the plain SSD scan, as the
 reference's trainer does (its ``Model(cfg, attn_impl="xla")`` and
 ``ssd_chunked``): no kernel of the port has a backward.
@@ -31,7 +42,10 @@ Cache layout (built in ``serving/cache.py``)::
                                            # rope_d); paged: (P, ps, ...)
               | [ {"ssm", "conv": {"x", "bc"}} per layer ],   # arch "ssm"
               | both, in block order                          # arch "hybrid"
+              | [ {"k", "v", "ck", "cv"} per layer ],         # arch "encdec":
+                       # ck/cv (B, T, Hkv, hd), dense in a paged cache too
      "pos": (B, C) int32 slot positions (-1 = empty),
+     ["enc_pos": (B, T) int32 frame positions (arch "encdec")],
      "cur": 0-dim int64 committed length (the shared ring pointer),
      ["page_table": (B, NB) int32, "blocks": {"pages","logical","count"}]}
 
@@ -60,12 +74,17 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention.ops import attention, attention_plain
+from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models import attention as att
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import mlp_apply, rmsnorm
 from repro_torch.models.moe import moe_apply
+
+
+#: an encoder-decoder layer entry's cross K/V: one row per batch row and
+#: frame, no slots (written at prefill, read by every forward)
+CROSS_KV = ("ck", "cv")
 
 
 def write_slots(cur, m: int, capacity: int, device) -> torch.Tensor:
@@ -145,13 +164,15 @@ def preserved_slots(cache, slots):
     the capacity onto slot 0 and the prompt) needs it, but the save and
     restore run unconditionally, so no host read of ``pos`` decides them:
     writing an invisible (``pos == -1``) slot's old values back changes no
-    output.  A recurrent (SSM) entry has no slots."""
+    output.  A recurrent (SSM) entry has no slots, nor has an
+    encoder-decoder's cross K/V."""
     slotted = [e for e in cache["layers"] if "ssm" not in e]
     if not slotted:
         yield
         return
     read, write = _slot_views(cache, slots)
-    saved = [{n: read(t) for n, t in e.items()} for e in slotted]
+    saved = [{n: read(t) for n, t in e.items() if n not in CROSS_KV}
+             for e in slotted]
     try:
         yield
     finally:
@@ -172,7 +193,7 @@ def _norm1(p, x, x_extra, cfg: ModelConfig):
 def attn_block_cached(p, x, positions, pos1d, cfg: ModelConfig, entry: dict,
                       kv_pos, slots, *, window: int, attn_impl: str,
                       paged: tuple | None, native: bool, paged_impl: str,
-                      page_block: int, live=None, x_extra=None):
+                      page_block: int, live=None, x_extra=None, enc_pos=None):
     """One cached decoder block.  New K/V are written into ``entry`` at
     ``slots`` (masked by ``live``) before the attention read.  ``paged =
     (table, ps, blocks, bpos)`` when the entry holds page pools; ``native``
@@ -180,7 +201,9 @@ def attn_block_cached(p, x, positions, pos1d, cfg: ModelConfig, entry: dict,
     caches, the same block algorithm over the dense ring otherwise).  An
     MLA layer writes its latents instead and reads them in the absorbed
     form (``_mla_cached``).  ``x_extra`` (the hybrid's shared block: the
-    embedded stream) is concatenated to ``x`` before ``norm1``."""
+    embedded stream) is concatenated to ``x`` before ``norm1``.  With
+    ``enc_pos`` (an encoder-decoder's decoder block) the self-attention is
+    followed by cross-attention over the entry's ``ck``/``cv``."""
     h = _norm1(p, x, x_extra, cfg)
     if cfg.mla is not None:
         x = x + _mla_cached(p["attn"], h, positions, pos1d, cfg, entry, kv_pos,
@@ -216,7 +239,17 @@ def attn_block_cached(p, x, positions, pos1d, cfg: ModelConfig, entry: dict,
                           causal=True, window=window, scale=scale,
                           impl=attn_impl)
     x = x + att.gqa_out(p["attn"], o)
+    if enc_pos is not None:
+        x = _cross_residual(p, x, entry["ck"], entry["cv"], enc_pos, cfg,
+                            attn_impl)
     return ffn_residual(p, x, cfg)[0]
+
+
+def _cross_residual(p, x, ck, cv, enc_pos, cfg: ModelConfig, attn_impl: str):
+    """``x + cross_attention(norm_c(x))`` against the encoder's K/V."""
+    hc = rmsnorm(x, p["norm_c"], cfg.norm_eps, cfg.rmsnorm_one_plus)
+    return x + att.cross_attention(p["cross"], hc, ck, cv, enc_pos, cfg,
+                                   attn_impl=attn_impl)
 
 
 def _mla_cached(p, h, positions, pos1d, cfg: ModelConfig, entry: dict, kv_pos,
@@ -255,20 +288,27 @@ def ffn_residual(p, x, cfg: ModelConfig):
 
 
 def attn_block_full(p, x, positions, pos1d, cfg: ModelConfig, *,
-                    window: int = 0, x_extra=None):
-    """One full-sequence decoder block (training): causal self-attention
-    over the block's own keys by the plain attention (MLA in its expanded
-    form), then the MLP or the MoE; ``x_extra`` as in
-    ``attn_block_cached``.  Returns (x, aux loss or None)."""
+                    window: int = 0, x_extra=None, causal: bool = True,
+                    attn_impl: str = "plain", enc_kv=None, enc_pos=None):
+    """One full-sequence block (training, or the encoder): self-attention
+    over the block's own keys (causal unless ``causal`` is false; by the
+    plain attention unless ``attn_impl`` says otherwise, MLA in its
+    expanded form and always plain), then, with ``enc_kv`` (the encoder's
+    output (B, T, d)) and ``enc_pos``, cross-attention over K/V made from
+    it, then the MLP or the MoE; ``x_extra`` as in ``attn_block_cached``.
+    Returns (x, aux loss or None)."""
     h = _norm1(p, x, x_extra, cfg)
     if cfg.mla is not None:
         y, _ = att.mla_self_attention(p["attn"], h, positions, pos1d, cfg,
                                       window=window)
         return ffn_residual(p, x + y, cfg)
     q, k, v = att.gqa_qkv(p["attn"], h, positions, cfg)
-    o = attention_plain(q, k, v, pos1d, pos1d, causal=True, window=window,
-                        scale=att.attn_scale(cfg))
+    o = attention(q, k, v, pos1d, pos1d, causal=causal, window=window,
+                  scale=att.attn_scale(cfg), impl=attn_impl)
     x = x + att.gqa_out(p["attn"], o)
+    if enc_kv is not None:
+        ck, cv = att.cross_attn_kv(p["cross"], enc_kv, cfg)
+        x = _cross_residual(p, x, ck, cv, enc_pos, cfg, attn_impl)
     return ffn_residual(p, x, cfg)
 
 
@@ -298,7 +338,8 @@ def forward_train(layers, final_norm, x, positions, pos1d, cfg: ModelConfig, *,
     blocks' inputs are kept.  ``shared``: a hybrid's shared block."""
     if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
         raise ValueError(f"the port trains dense, moe, ssm and hybrid models, "
-                         f"not {cfg.arch_type!r}")
+                         f"not {cfg.arch_type!r} (training an encoder-decoder "
+                         f"on frames is a later item of the port)")
 
     def body(kind, p, xx, extra):
         if kind == "ssm":
@@ -316,6 +357,18 @@ def forward_train(layers, final_norm, x, positions, pos1d, cfg: ModelConfig, *,
         if aux is not None:
             aux_total = aux_total + aux
     return rmsnorm(x, final_norm, cfg.norm_eps, cfg.rmsnorm_one_plus), aux_total
+
+
+def encode(enc_layers, enc_norm, frames, enc_pos, cfg: ModelConfig, *,
+           attn_impl: str = "auto") -> torch.Tensor:
+    """The encoder-decoder's bidirectional encoder over the stub frontend
+    frames (B, T, d): each block's self-attention not causal, its positions
+    (RoPE included) ``enc_pos`` (B, T), then ``enc_norm``."""
+    x = frames
+    for p in enc_layers:
+        x = attn_block_full(p, x, enc_pos, enc_pos, cfg, causal=False,
+                            attn_impl=attn_impl)[0]
+    return rmsnorm(x, enc_norm, cfg.norm_eps, cfg.rmsnorm_one_plus)
 
 
 def forward_cached(layers, final_norm, x, positions, pos1d, slots, cache,
@@ -337,7 +390,8 @@ def forward_cached(layers, final_norm, x, positions, pos1d, slots, cache,
     for decode and probe calls, as in the reference; a committing call
     replaces the block's state entry with the new state.  ``shared``: a
     hybrid's shared block, run at every ``shared_attn`` position on
-    ``concat(x, emb0)``."""
+    ``concat(x, emb0)``.  An encoder-decoder's blocks read the cross K/V
+    of their entries at ``cache["enc_pos"]`` and never write them."""
     m = x.shape[1]
     kinds = cfg.block_kinds()
     kv_pos = cache["pos"] if commit else cache["pos"].clone()
@@ -382,7 +436,7 @@ def forward_cached(layers, final_norm, x, positions, pos1d, slots, cache,
             p, x, positions, pos1d, cfg, entries[i], kv_pos, slots, window=window,
             attn_impl=attn_impl, paged=paged, native=native,
             paged_impl=paged_impl, page_block=page_block, live=live,
-            x_extra=extra)
+            x_extra=extra, enc_pos=cache.get("enc_pos"))
     if commit:
         _advance_cur(cache, m, live)
     return rmsnorm(x, final_norm, cfg.norm_eps, cfg.rmsnorm_one_plus)

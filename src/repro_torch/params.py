@@ -10,7 +10,11 @@ list, dense layers first.  A hybrid stacks its SSM blocks under
 ``stack/groups`` with two leading axes ``(G, n_per, ...)`` (G groups of
 ``n_per`` SSM blocks, flattened in block order into the port's list) and
 keeps its one shared attention block, unstacked, under
-``stack/shared_attn`` (the port's ``shared_attn``).  Expert leaves keep
+``stack/shared_attn`` (the port's ``shared_attn``).  An encoder-decoder
+stacks its decoder layers (each with ``norm_c`` and ``cross``) under
+``stack/dec_layers`` (the port's ``layers``), its encoder layers under
+``stack/enc_layers`` (the port's ``enc_layers``) and keeps ``enc_norm``
+under ``stack/enc_norm``.  Expert leaves keep
 their ``(E, d_in, d_out)`` layout under the layer axis; an MLA layer's ``attn`` holds the reference's
 nine leaves (``w_dq``, ``q_norm``, ``w_uq``, ``w_dkv``, ``kv_norm``,
 ``w_kr``, ``w_uk``, ``w_uv``, ``wo``), carried like any other.
@@ -71,9 +75,9 @@ def leaf_from_bytes(data: bytes, dtype: str, shape) -> torch.Tensor:
 
 
 def _check_arch(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid", "encdec"):
         raise ValueError(f"the port has no {cfg.arch_type!r} model "
-                         f"(dense, moe, ssm and hybrid only)")
+                         f"(dense, moe, ssm, hybrid and encdec only)")
 
 
 def _segments(cfg: ModelConfig) -> list[tuple[str, int, tuple[int, ...]]]:
@@ -83,6 +87,8 @@ def _segments(cfg: ModelConfig) -> list[tuple[str, int, tuple[int, ...]]]:
         pat = cfg.hybrid_pattern
         n_per = sum(1 for k in pat if k == "ssm")
         return [("groups", 0, (cfg.n_layers // len(pat), n_per))]
+    if cfg.arch_type == "encdec":
+        return [("dec_layers", 0, (cfg.n_layers,))]
     if cfg.arch_type != "moe":
         return [("layers", 0, (cfg.n_layers,))]
     fk = cfg.moe.first_k_dense
@@ -114,6 +120,10 @@ def unstack(stacked: dict, cfg: ModelConfig, device) -> dict:
            "layers": layers}
     if cfg.arch_type == "hybrid":
         out["shared_attn"] = tree_map(own, stack["shared_attn"])
+    if cfg.arch_type == "encdec":
+        out["enc_layers"] = [tree(stack["enc_layers"], 1, i)
+                             for i in range(cfg.n_encoder_layers)]
+        out["enc_norm"] = own(stack["enc_norm"])
     return out
 
 
@@ -152,6 +162,13 @@ def to_jax(params: dict, cfg: ModelConfig) -> dict:
         out[key] = stack(list(layers[i0:i0 + math.prod(lead)]), lead)
     if cfg.arch_type == "hybrid":
         out["shared_attn"] = tree_map(host, params["shared_attn"])
+    if cfg.arch_type == "encdec":
+        if len(params["enc_layers"]) != cfg.n_encoder_layers:
+            raise ValueError(f"{cfg.name} has {cfg.n_encoder_layers} encoder "
+                             f"layers, the tree {len(params['enc_layers'])}")
+        out["enc_layers"] = stack(list(params["enc_layers"]),
+                                  (cfg.n_encoder_layers,))
+        out["enc_norm"] = host(params["enc_norm"])
     return {"embed": {k: host(v) for k, v in params["embed"].items()},
             "stack": out}
 
@@ -170,4 +187,8 @@ def param_specs(cfg: ModelConfig) -> dict[str, tuple[tuple[int, ...], str]]:
             specs[f"stack/{key}/{path}"] = spec(t, lead)
     for path, t in tree_flatten_with_paths(meta.get("shared_attn", {})):
         specs[f"stack/shared_attn/{path}"] = spec(t)
+    if cfg.arch_type == "encdec":
+        for path, t in tree_flatten_with_paths(meta["enc_layers"][0]):
+            specs[f"stack/enc_layers/{path}"] = spec(t, (cfg.n_encoder_layers,))
+        specs["stack/enc_norm"] = spec(meta["enc_norm"])
     return specs

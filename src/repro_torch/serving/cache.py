@@ -1,6 +1,7 @@
 """Decode-state allocation: the ring KV cache and the block-paged variant
-for the GQA and MLA decoders, the recurrent state of a Mamba2 stack, and
-both for a Zamba2-style hybrid (port of ``repro/serving/cache.py``).
+for the GQA and MLA decoders, the recurrent state of a Mamba2 stack, both
+for a Zamba2-style hybrid, and the cross K/V of an encoder-decoder (port of
+``repro/serving/cache.py``).
 
 Layout (consumed by ``models.transformer.forward_cached``)::
 
@@ -10,10 +11,12 @@ Layout (consumed by ``models.transformer.forward_cached``)::
                      | one of the two per block, in block order,   # arch
                        an SSM state per SSM block and K/V per      # "hybrid"
                        application of the shared block
+                     | [{"k", "v", "ck", "cv"} per decoder layer], # "encdec"
              "pos": (B, C) int32 — absolute position held in each slot, -1 = empty,
              "cur": 0-dim int64 on the cache's device — committed length
                     (the shared ring pointer; the host keeps a mirror of it
-                    from each chunk's snapshot, never reads it mid-chunk)}
+                    from each chunk's snapshot, never reads it mid-chunk),
+             ["enc_pos": (B, T) int32 — encoder frame positions (encdec)]}
 
 SSM: ``ssm`` is the (B, nh, N, hp) float32 scan state, ``conv`` the
 (B, w-1, ·) causal-conv tails; there is no capacity axis, so no paged
@@ -23,7 +26,8 @@ layer's latent ``c`` (B, C, kv_lora) and rope key ``kr`` (B, C, rope_d).
 Paged: the same logical addressing, but each slot tensor is a page POOL
 (num_pages, page_size, ...) shared by all rows, plus a ``page_table`` (B,
 NB) int32 mapping each row's logical block ``slot // page_size`` to a
-physical page;
+physical page (an encoder-decoder's cross K/V ``ck``/``cv``, (B, T, Hkv,
+hd), and ``enc_pos`` have no capacity axis and stay dense, per row);
 page 0 is the trash page whose every read is position-masked.  Page-native reads additionally
 carry the compacted mapped-page list ``blocks`` (``blocks_arrays``).
 
@@ -43,6 +47,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype, upload
 from repro_torch.models.ssm import ssm_state_init
+from repro_torch.models.transformer import CROSS_KV
 
 #: physical page id reserved as the trash page — never handed out by the
 #: allocator; unmapped page-table entries point here
@@ -105,9 +110,30 @@ def _cur(device) -> torch.Tensor:
 
 def _entries(cfg: ModelConfig, batch: int, lead: tuple, dtype, device) -> list:
     """One entry per block: a zero recurrent state (B rows) for an SSM
-    block, an attention entry of slot tensors ``lead + ...`` otherwise."""
-    return [ssm_state_init(cfg, batch, dtype, device) if kind == "ssm"
-            else _attn_entry(cfg, lead, dtype, device) for kind in cfg.block_kinds()]
+    block, an attention entry of slot tensors ``lead + ...`` otherwise (an
+    encoder-decoder's with its cross K/V, ``batch`` rows of
+    ``encoder_len`` frames)."""
+    out = []
+    for kind in cfg.block_kinds():
+        if kind == "ssm":
+            out.append(ssm_state_init(cfg, batch, dtype, device))
+            continue
+        entry = _attn_entry(cfg, lead, dtype, device)
+        if cfg.arch_type == "encdec":
+            cross = (batch, cfg.encoder_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+            for name in CROSS_KV:
+                entry[name] = torch.zeros(cross, dtype=dtype, device=device)
+        out.append(entry)
+    return out
+
+
+def _with_enc_pos(cfg: ModelConfig, cache: dict, batch: int, device) -> dict:
+    """An encoder-decoder cache's ``enc_pos`` (B, T) int32 (zeros until a
+    prefill writes the frames' positions)."""
+    if cfg.arch_type == "encdec":
+        cache["enc_pos"] = torch.zeros((batch, cfg.encoder_len),
+                                       dtype=torch.int32, device=device)
+    return cache
 
 
 def is_recurrent(entry: dict) -> bool:
@@ -120,11 +146,11 @@ def alloc_cache(cfg: ModelConfig, batch: int, capacity: int, *, device,
     """An empty ring cache with ``capacity`` kv slots per sequence (a zero
     recurrent state for each SSM block)."""
     dtype = dtype or torch_dtype(cfg.dtype)
-    return {
+    return _with_enc_pos(cfg, {
         "pos": torch.full((batch, capacity), -1, dtype=torch.int32, device=device),
         "cur": _cur(device),
         "layers": _entries(cfg, batch, (batch, capacity), dtype, device),
-    }
+    }, batch, device)
 
 
 def blocks_arrays(pages, logical, counts, *, device) -> dict:
@@ -161,15 +187,15 @@ def alloc_paged_cache(cfg: ModelConfig, batch: int, capacity: int,
                                  device=device),
         "layers": _entries(cfg, batch, (num_pages, page_size), dtype, device),
     }
-    return cache
+    return _with_enc_pos(cfg, cache, batch, device)
 
 
 def pack_paged_cache(paged: dict, dense: dict, table) -> dict:
     """Scatter a freshly prefilled DENSE cache (capacity C_pre, a page
     multiple) into the empty paged cache ``paged`` through ``table`` (the
     allocator's (B, NB) table with the prompt blocks mapped).  Blocks of
-    ``dense`` past a row's mapped prompt land in the trash page; SSM states
-    copy whole."""
+    ``dense`` past a row's mapped prompt land in the trash page; SSM
+    states, cross K/V and ``enc_pos`` copy whole."""
     dev = paged["pos"].device
     table = upload(np.asarray(table, np.int32), dev)
     NB = table.shape[1]
@@ -179,6 +205,8 @@ def pack_paged_cache(paged: dict, dense: dict, table) -> dict:
     paged["page_table"].copy_(table)
     paged["pos"][:, :C_pre] = dense["pos"]
     paged["cur"].copy_(dense["cur"])
+    if "enc_pos" in dense:
+        paged["enc_pos"].copy_(dense["enc_pos"])
     idx = table[:, :nbp].long()
     for pe, de in zip(paged["layers"], dense["layers"]):
         if is_recurrent(de):
@@ -186,6 +214,9 @@ def pack_paged_cache(paged: dict, dense: dict, table) -> dict:
                 p.copy_(d)
             continue
         for name, src in de.items():
+            if name in CROSS_KV:
+                pe[name].copy_(src)
+                continue
             B = src.shape[0]
             pe[name][idx] = src.reshape((B, nbp, ps) + tuple(src.shape[2:])).to(
                 pe[name].dtype)
@@ -196,9 +227,9 @@ def merge_paged_row(cache: dict, one: dict, row: int, row_table) -> dict:
     """Paged slot admission: write the single-sequence DENSE cache ``one``
     (batch 1, prefill capacity C_pre) into batch row ``row`` through
     ``row_table`` (the allocator's fresh mapping for the row).  The row's
-    ``pos`` is replaced (tail -1), its SSM states too, and ``cur`` becomes
-    ``max(cur, one_cur)`` — the ring's semantics, so the admitted stream
-    matches the ring's."""
+    ``pos`` is replaced (tail -1), its SSM states, cross K/V and
+    ``enc_pos`` too, and ``cur`` becomes ``max(cur, one_cur)`` — the ring's
+    semantics, so the admitted stream matches the ring's."""
     dev = cache["pos"].device
     row_table = upload(np.asarray(row_table, np.int32), dev)
     C = cache["pos"].shape[1]
@@ -210,6 +241,8 @@ def merge_paged_row(cache: dict, one: dict, row: int, row_table) -> dict:
     row_pos[:C_pre] = one["pos"][0]
     cache["pos"][row] = row_pos
     torch.maximum(cache["cur"], one["cur"], out=cache["cur"])
+    if "enc_pos" in one:
+        cache["enc_pos"][row] = one["enc_pos"][0]
     idx = row_table[:nbp].long()
     for pe, oe in zip(cache["layers"], one["layers"]):
         if is_recurrent(oe):
@@ -218,6 +251,9 @@ def merge_paged_row(cache: dict, one: dict, row: int, row_table) -> dict:
             continue
         for name, t in oe.items():
             src = t[0]
+            if name in CROSS_KV:
+                pe[name][row] = src
+                continue
             pe[name][idx] = src.reshape((nbp, ps) + tuple(src.shape[1:])).to(
                 pe[name].dtype)
     return cache
@@ -234,7 +270,8 @@ def _leaves(entry: dict):
 
 def cache_leaves(cache: dict) -> list:
     """Every tensor of a cache (``pos``, ``cur``, the page table and page
-    list, every layer's K/V or states), in a fixed order."""
+    list, ``enc_pos``, every layer's K/V, cross K/V or states), in a fixed
+    order."""
     out = list(_leaves({k: v for k, v in cache.items() if k != "layers"}))
     for e in cache["layers"]:
         out.extend(_leaves(e))
@@ -243,10 +280,13 @@ def cache_leaves(cache: dict) -> list:
 
 def reset_cache(cache: dict) -> dict:
     """Empty ``cache`` in place: every slot empty (``pos`` -1), ``cur`` 0,
-    the page table all-trash, recurrent states zero.  K/V and MLA latents
-    stay as they are: a slot with ``pos`` -1 is masked out of every read."""
+    the page table all-trash, recurrent states and ``enc_pos`` zero.  K/V,
+    MLA latents and cross K/V stay as they are: a slot with ``pos`` -1 is
+    masked out of every read, and a prefill writes the cross K/V whole."""
     cache["pos"].fill_(-1)
     cache["cur"].zero_()
+    if "enc_pos" in cache:
+        cache["enc_pos"].zero_()
     if "page_table" in cache:
         cache["page_table"].fill_(PAGE_TRASH)
     for e in cache["layers"]:
@@ -274,10 +314,12 @@ def commit_layers(cache: dict, kept: list) -> dict:
 
 def merge_cache_row(cache: dict, one: dict, row: int) -> dict:
     """Ring slot admission: replace batch row ``row`` wholesale (K/V slots,
-    positions, SSM states) with the single-sequence cache ``one`` (batch 1,
-    same capacity); the shared ring pointer advances to
-    ``max(cur, one_cur)``."""
+    positions, SSM states, cross K/V and ``enc_pos``) with the
+    single-sequence cache ``one`` (batch 1, same capacity); the shared ring
+    pointer advances to ``max(cur, one_cur)``."""
     cache["pos"][row] = one["pos"][0]
+    if "enc_pos" in one:
+        cache["enc_pos"][row] = one["enc_pos"][0]
     torch.maximum(cache["cur"], one["cur"], out=cache["cur"])
     for ce, oe in zip(cache["layers"], one["layers"]):
         for c, o in zip(_leaves(ce), _leaves(oe)):

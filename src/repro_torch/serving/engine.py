@@ -33,6 +33,12 @@ stopping rules of ``core/stopping.py`` are replayed over
 unmonitored step ``_decode_fn`` and the per-token loop
 ``_reason_per_token`` are the costs and the baseline the chunked loop is
 measured against.
+
+An encoder-decoder (``arch_type="encdec"``) is served as the reference
+serves it: ``start(prompts, prompt_len, frames=...)``, then ``reason()``,
+``force_answer()`` and the evaluation path on the started state.  The
+request queue (``serve``, either loop) and the proxy tier carry no frames
+and refuse it (``refuse_encdec``).
 """
 from __future__ import annotations
 
@@ -90,6 +96,17 @@ def _view(model, ccfg: CacheConfig):
     return model
 
 
+def refuse_encdec(cfg, what: str) -> None:
+    """Raise for an encoder-decoder ``cfg`` on an entry point that carries
+    no frames (the request queue, the proxy tier)."""
+    if cfg.arch_type == "encdec":
+        raise ValueError(
+            f"{what} carries no encoder frames: the encoder-decoder "
+            f"{cfg.name} is served through ReasoningEngine.start(prompts, "
+            f"prompt_len, frames=...), then reason() and force_answer(), as "
+            f"in the reference")
+
+
 class ReasoningEngine:
     """The serving facade, in one of two monitor modes:
 
@@ -120,6 +137,8 @@ class ReasoningEngine:
         self.proxy_executor = None
         self._ptier = None       # the last serve's tier, for its pool stats
         if proxy is not None:
+            refuse_encdec(model.cfg, "the proxy tier")
+            refuse_encdec(proxy.model.cfg, "the proxy tier")
             if model.cfg.arch_type in ("ssm", "hybrid"):
                 raise ValueError(
                     "monitor='proxy' needs a slot-addressed generator cache "
@@ -134,8 +153,11 @@ class ReasoningEngine:
 
     # ------------------------------------------------------------- prefill
     def start(self, prompts, prompt_len, rng: torch.Generator | None = None,
-              *, capacity: int | None = None, fresh: bool = False) -> ServeState:
-        """prompts: (B, S) LEFT-padded token ids; prompt_len: (B,).
+              *, frames=None, capacity: int | None = None,
+              fresh: bool = False) -> ServeState:
+        """prompts: (B, S) LEFT-padded token ids; prompt_len: (B,); an
+        encoder-decoder also takes ``frames`` (B, T, d_model), the stub
+        frontend's embeddings, which are encoded into the cache's cross K/V.
         Positions are 0..len-1 per sequence (pad slots get -1 = masked).
         The cache is the executor's kept one of (B, capacity), which the
         chunk graphs capture (an earlier state on it is consumed); with
@@ -149,8 +171,11 @@ class ReasoningEngine:
         capacity = capacity or ecfg.capacity
         cache = (alloc_cache(model.cfg, B, capacity, device=dev) if fresh
                  else self.executor.cache_for(B, capacity))
+        if frames is not None:
+            frames = upload(frames, dev)
         self.executor.settle_rng()
-        hidden = self.executor.prefill(prompts, pos1d, pos1d, cache)
+        hidden = self.executor.prefill(prompts, pos1d, pos1d, cache,
+                                       frames=frames)
         logits_last = model.logits(hidden[:, -1:])[:, 0]
         first = sample(logits_last, model.cfg.vocab, ecfg.sampler, rng)
         buf = torch.full((B, ecfg.max_reasoning_tokens + 8), ecfg.pad_id,
@@ -315,6 +340,7 @@ class ReasoningEngine:
         pipeline event (the tests' seam).  The engine's ``capacity`` needs
         one chunk of headroom (the ring guard adds the chunk in flight).
         """
+        refuse_encdec(self.model.cfg, "serve() (the request queue, either loop)")
         ss = self._serve_setup(prompts, prompt_len, rng, batch_size=batch_size,
                                max_tokens=max_tokens, use_monitor=use_monitor,
                                chunk_len=chunk_len, overlap=overlap)

@@ -590,12 +590,15 @@ class Executor:
         return state, self.snapshot_async(state)
 
     # ---------------------------------------------------------- prefill/probe
-    def prefill(self, tokens, positions, pos1d, cache) -> torch.Tensor:
+    def prefill(self, tokens, positions, pos1d, cache, *,
+                frames=None) -> torch.Tensor:
         """Prompt prefill into ``cache`` (in place); returns hidden.  A
         recurrent cache's new states are copied into its tensors, which
-        stay the ones it was allocated with."""
+        stay the ones it was allocated with; so are an encoder-decoder's
+        cross K/V, made from ``frames`` (``Model.prefill``)."""
         kept = list(cache["layers"]) if self._recurrent else None
-        hidden = self.model.prefill(tokens, positions, pos1d, cache)
+        hidden = self.model.prefill(tokens, positions, pos1d, cache,
+                                    frames=frames)
         if kept is not None:
             commit_layers(cache, kept)
         return hidden
