@@ -220,7 +220,7 @@ DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
    ``DENSE_EAT_TOL`` nats of float32, flash 120 ``mma`` on the kernel
    path); seeded random weights at full width and depth (1.63 B
    parameters, 3.3 GB), reasoned as the reference serves this family
-   (``encdec_reason_cell``: ``start(frames=)``, ``reason()``,
+   (``reason_cell``: ``start(frames=)``, ``reason()``,
    ``force_answer(4)``; 4 rows of prompts of 128-512 tokens, a ring cache,
    budget 64, chunk 16, greedy, a probe every 8 tokens, exit at the 2nd
    evaluation): cold, warm and eager on one engine, then a second start
@@ -230,6 +230,33 @@ DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
    ``scalar``, 24 flash and 24 paged calls per decode and probe forward,
    every entropy call mma, at least one EAT exit, a profiled warm reason
    and the reasons' peak memory against the weights;
+6f. ``qwen2-vl-7b`` (arXiv:2409.12191: the VLM's language backbone, 28
+   layers, d 3584, 28 q heads on 4 kv heads of 128 (g 7) with qkv bias,
+   M-RoPE sections (16, 24, 24), an untied 152,064 vocabulary; 256 stub
+   image patches per row, the vision tower a stub as in the reference; the
+   encoder-decoder freed first): flash on the ``(128, 128)`` instance of
+   the tensor-core kernel at the image prefill (B 4, 256 patches in slots
+   before each row's pad slots, then 512 prompt slots) and at the text
+   prefill, each timed in turns with SDPA; paged at g 7 (m 1 and 2); the
+   entropy probe over the untied 3584 x 152,064 head beside
+   ``torch.matmul`` + ``logsumexp`` (``[kernels] qwen2-vl-7b`` lines);
+   kernel path vs plain path with 256 patches in front of the prompt
+   (float32 cut to 2 layers, 1e-5; bf16 at the full 28, the logits within
+   ``DENSE_BF16_TOL`` and the kernel path's EAT within ``DENSE_EAT_TOL``
+   nats of float32, flash 28 ``mma``); seeded random weights at full width
+   and depth (7.62 B parameters, 15.2 GB), served as phase 5b serves
+   (``serve_cell``): cold, warm and eager paged self-EAT text serves of
+   phase 4's traffic over its 152,064 vocabulary (the reference serves a
+   VLM's queue text only), warm == eager bitwise, 0 captures, flash 28
+   ``mma`` per prefill and none ``scalar``, 28 paged calls per decode and
+   probe forward, every entropy call mma, a profiled serve, a ring serve
+   bitwise the paged one; then ``reason_cell`` on image patches:
+   ``start(image_embeds=)``, ``reason()``, ``force_answer(4)`` of 4 rows,
+   two batches with their own seeded patches (4 x 256 x 3584) through one
+   set of chunk graphs, warm == eager bitwise, 0 captures and one snapshot
+   per chunk warm, flash 28 ``mma`` per prefill, 28 paged calls per
+   forward, at least one EAT exit, a profiled warm reason; and the phase's
+   peak memory against the weights;
 7. the training path (``[train]`` lines, each with the card's name and
    power limit), the 8B model freed first: the training forward (plain
    attention, as the reference's trainer runs) against ``Model.prefill`` +
@@ -258,7 +285,9 @@ DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
    at the MoE's shapes, and a ``gemma`` record: phase 6c's, with gemma-2b's
    and codeqwen1.5-7b's shapes beside; flash, paged, entropy and ssd_scan a
    ``zamba2`` record: phase 6d's; flash, paged and entropy a ``seamless``
-   record: phase 6e's; flash an ``mla`` record: phase 6b's;
+   record: phase 6e's; flash, paged and entropy a ``vlm`` record: phase
+   6f's (the text serve's launches, the image reason's under
+   ``image_launches``); flash an ``mla`` record: phase 6b's;
    decode_attention its head-dim-256 cases under ``d256``), the card line,
    and the last line ``{"ok": true, "device": {...}}``.
 
@@ -1375,30 +1404,37 @@ def rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
-def kernel_vs_plain(torch, model, prompts, probe, frames=None):
+def kernel_vs_plain(torch, model, prompts, probe, frames=None, image=None):
     """Prefill the last 64 tokens of two prompts, decode one, probe: kernel
     path and plain path on the same weights (a ring cache; its decode and
     probe reads through the paged kernel's ring comparator; a hybrid's
     prefill through the SSD scan kernel or its plain version; an
     encoder-decoder's on ``frames`` (2, T, d), its encoder and every
-    cross-attention through flash or the plain attention).  Returns
-    {impl: (prefill logits, decode logits, EAT)}."""
+    cross-attention through flash or the plain attention; a VLM's with
+    ``image`` (2, P, d) patches in front of the tokens, every position
+    through ``positions_for``).  Returns {impl: (prefill logits, decode
+    logits, EAT)}."""
+    from repro_torch.models.common import positions_for
     from repro_torch.serving.cache import alloc_cache
 
+    P = 0 if image is None else image.shape[1]
     toks = torch.as_tensor(prompts[:2, -64:], device="cuda")
-    pos = torch.arange(64, dtype=torch.int32, device="cuda").expand(2, 64).contiguous()
+    pos = torch.arange(P + 64, dtype=torch.int32, device="cuda").expand(2, P + 64).contiguous()
     nxt = torch.full((2, 1), 7, dtype=torch.long, device="cuda")
-    p1 = torch.full((2, 1), 64, dtype=torch.int32, device="cuda")
-    pp = torch.tensor([[65, 66]], dtype=torch.int32, device="cuda").expand(2, 2).contiguous()
+    p1 = torch.full((2, 1), P + 64, dtype=torch.int32, device="cuda")
+    pp = torch.tensor([[P + 65, P + 66]], dtype=torch.int32,
+                      device="cuda").expand(2, 2).contiguous()
     ptoks = torch.tensor([probe.tokens], device="cuda").expand(2, 2)
+    at = lambda q: positions_for(model.cfg, q)  # noqa: E731
+    extra = {} if image is None else {"image_embeds": image}
     outs = {}
     for impl in ("cuda", "plain"):
         model.attn_impl = model.paged_attn_impl = model.scan_impl = impl
-        cache = alloc_cache(model.cfg, 2, 96, device="cuda")
-        hidden = model.prefill(toks, pos, pos, cache, frames=frames)
+        cache = alloc_cache(model.cfg, 2, P + 96, device="cuda")
+        hidden = model.prefill(toks, at(pos), pos, cache, frames=frames, **extra)
         logits = model.logits(hidden[:, -1]).float()
-        dlog = model.decode_step(nxt, p1, p1, cache)[:, -1].float()
-        eat = model.probe_entropy(ptoks, pp, pp, cache, entropy_impl=impl)
+        dlog = model.decode_step(nxt, at(p1), p1, cache)[:, -1].float()
+        eat = model.probe_entropy(ptoks, at(pp), pp, cache, entropy_impl=impl)
         outs[impl] = (logits, dlog, eat)
     model.attn_impl, model.paged_attn_impl, model.scan_impl = "auto", "gather", "auto"
     return outs
@@ -1602,9 +1638,10 @@ MOE_BF16_TOL = 3e-2
 
 
 def flash_shape_check(torch, F, fa, tag: str, Hq: int, Hkv: int, D: int, bad: list,
-                      scalar: bool = False) -> dict:
-    """bf16 flash at a model's prefill (B 4, S 512, left-padded; ``Hq`` q
-    heads on ``Hkv`` kv heads of ``D``): one launch of the routed variant
+                      scalar: bool = False, case=None) -> dict:
+    """bf16 flash at a model's prefill (B 4, S 512, left-padded, or the
+    inputs ``case`` makes in ``flash_case``'s form; ``Hq`` q heads on
+    ``Hkv`` kv heads of ``D``): one launch of the routed variant
     and nothing else, against the plain version within phase 3's bar (one
     ulp + 2^-7 x the attention of |v|), timed by graph replay in turns with
     SDPA (bool mask, K/V repeated per q head outside the timed call), the
@@ -1615,7 +1652,8 @@ def flash_shape_check(torch, F, fa, tag: str, Hq: int, Hkv: int, D: int, bad: li
     dn, dtype = "bfloat16", torch.bfloat16
     scale = 1.0 / math.sqrt(D)
     want = fa.flash_variant(dtype, D, D)
-    c = flash_case(torch, dtype, Hq=Hq, Hkv=Hkv, D=D)
+    case = case or flash_case
+    c = case(torch, dtype, Hq=Hq, Hkv=Hkv, D=D)
     args = (c["q"], c["k"], c["v"], c["q_pos"], c["kv_pos"])
     before = dict(fa.flash_attention_cuda.variant_launches)
     out = fa.flash_attention_cuda(*args, scale=scale)
@@ -1629,7 +1667,7 @@ def flash_shape_check(torch, F, fa, tag: str, Hq: int, Hkv: int, D: int, bad: li
         bad.append(f"{tag} flash_attention Hq{Hq} Hkv{Hkv} D{D}: launched {launched}, "
                    f"not one {want}; max abs err {err:.3e} ({tol})")
     per_set = nbytes(*args) + nbytes(out)
-    sets = [c] + [flash_case(torch, dtype, seed=s, Hq=Hq, Hkv=Hkv, D=D)
+    sets = [c] + [case(torch, dtype, seed=s, Hq=Hq, Hkv=Hkv, D=D)
                   for s in range(1, n_sets(per_set))]
     calls = [lambda s=s: fa.flash_attention_cuda(
         s["q"], s["k"], s["v"], s["q_pos"], s["kv_pos"], scale=scale) for s in sets]
@@ -1858,16 +1896,16 @@ def moe_kernel_vs_plain(torch, model, prompts, probe):
     return free, shared, differ, routes
 
 
-def f32_kernel_vs_plain(torch, cfg32, prompts, probe, frames=None) -> None:
+def f32_kernel_vs_plain(torch, cfg32, prompts, probe, frames=None, image=None) -> None:
     """A float32 model of ``cfg32`` (seeded random weights, depth cut by the
     caller) through ``kernel_vs_plain`` (on ``frames`` for an
-    encoder-decoder): the logits' relative L2 and the EAT within 1e-5.
-    Frees the model."""
+    encoder-decoder, with ``image`` patches for a VLM): the logits'
+    relative L2 and the EAT within 1e-5.  Frees the model."""
     from repro_torch.models.model import Model, init_params
 
     model32 = Model(cfg32, init_params(cfg32, torch.Generator(device="cuda").manual_seed(1),
                                        device="cuda"))
-    outs = kernel_vs_plain(torch, model32, prompts, probe, frames)
+    outs = kernel_vs_plain(torch, model32, prompts, probe, frames, image)
     for i, what in enumerate(("prefill logits", "decode logits")):
         rel = rel_l2(outs["cuda"][i], outs["plain"][i])
         check(bool(torch.isfinite(outs["cuda"][i]).all()) and rel < 1e-5,
@@ -2615,9 +2653,10 @@ HYBRID_SEEDS = (1, 2)
 
 def dense_bf16_kernel_vs_plain(torch, model, prompts, probe, flash_want: str,
                                tol: float = DENSE_BF16_TOL, frames=None,
-                               flash_calls: int | None = None) -> None:
+                               flash_calls: int | None = None, image=None) -> None:
     """``kernel_vs_plain`` on a bf16 dense (or hybrid, or encoder-decoder on
-    ``frames``) model at full depth: the logits within ``tol``, and the
+    ``frames``, or VLM with ``image`` patches) model at full depth: the
+    logits within ``tol``, and the
     kernel path's launches: ``flash_calls`` flash calls (by default one per
     attention block: the prefill), every one
     ``flash_want``, one scan call per SSM block on the tensor cores, and
@@ -2640,7 +2679,7 @@ def dense_bf16_kernel_vs_plain(torch, model, prompts, probe, flash_want: str,
     f0 = dict(fa.flash_attention_cuda.variant_launches)
     e0 = dict(ep.entropy_probe_cuda.variant_launches)
     s0 = dict(ss.ssd_scan_cuda.variant_launches)
-    outs = kernel_vs_plain(torch, model, prompts, probe, frames)
+    outs = kernel_vs_plain(torch, model, prompts, probe, frames, image)
     flash = {x: n - f0[x] for x, n in fa.flash_attention_cuda.variant_launches.items()}
     ent = {x: n - e0[x] for x, n in ep.entropy_probe_cuda.variant_launches.items()}
     scan = {x: n - s0[x] for x, n in ss.ssd_scan_cuda.variant_launches.items()}
@@ -2655,7 +2694,7 @@ def dense_bf16_kernel_vs_plain(torch, model, prompts, probe, flash_want: str,
     for p in bf16:
         p.data = p.data.float()
     model.cfg = dataclasses.replace(cfg, dtype="float32")
-    f32 = kernel_vs_plain(torch, model, prompts, probe, frames)["plain"]
+    f32 = kernel_vs_plain(torch, model, prompts, probe, frames, image)["plain"]
     for p in bf16:
         p.data = p.data.bfloat16()
     model.cfg = cfg
@@ -2990,22 +3029,27 @@ def reason_result(np, st, ans, trace) -> list[dict]:
             for b in range(len(n))]
 
 
-def encdec_reason_cell(torch, np, model, probe, prompts, lens, frames: list, kernels: dict,
-                       phases: dict, card: str, *, key: str, profile_path) -> dict:
-    """An encoder-decoder reasoned the way the reference serves the family
-    (its ``serve()`` carries no frames): ``start(prompts, lens, frames=)``,
-    ``reason()`` to every row's exit, ``force_answer(4)``, on one engine
-    (ring cache, budget 64, chunk 16, greedy, an EAT probe every 8 tokens,
-    exit at the 2nd evaluation).  Two batches (``prompts``/``lens``/``frames``
-    halves): the first cold (its captures), warm and eager; the second warm
-    and eager through the first's graphs.  Checks: warm == cold == eager
-    bitwise in each batch (tokens, exits, per-chunk EAT traces, answers), 0
-    captures and one snapshot per chunk warm, flash launches per variant in
-    each prefill (encoder, decoder self-attention and cross-attention: 3 x
-    layers, all ``mma``), flash and paged each one call per decoder layer
-    per decode and probe forward, every entropy call mma, at least one EAT
-    exit; one more warm reason under the profiler, its counts the warm
-    one's.  Returns the profiled reason's launches."""
+def reason_cell(torch, np, model, probe, prompts, lens, inputs: list, kernels: dict,
+                phases: dict, card: str, *, key: str, profile_path, start_kw: str,
+                per_prefill: int, prefill_text: str, flash_per_forward: int,
+                extra_slots: int = 0) -> dict:
+    """A model reasoned on side inputs the way the reference takes them
+    (its ``serve()`` carries none): ``start(prompts, lens, **{start_kw:
+    inputs[i]})`` (an encoder-decoder's ``frames``, a VLM's
+    ``image_embeds``), ``reason()`` to every row's exit, ``force_answer(4)``,
+    on one engine (ring cache of the prompts, ``extra_slots`` more (a VLM's
+    patches), the budget and the answer; budget 64, chunk 16, greedy, an EAT
+    probe every 8 tokens, exit at the 2nd evaluation).  Two batches
+    (``prompts``/``lens`` halves and ``inputs[0]``, ``inputs[1]``): the
+    first cold (its captures), warm and eager; the second warm and eager
+    through the first's graphs.  Checks: warm == cold == eager bitwise in
+    each batch (tokens, exits, per-chunk EAT traces, answers), 0 captures
+    and one snapshot per chunk warm, ``per_prefill`` flash launches in each
+    prefill, all ``mma`` (``prefill_text`` says which), flash
+    ``flash_per_forward`` calls and paged one call per layer per decode and
+    probe forward, every entropy call mma, at least one EAT exit; one more
+    warm reason under the profiler, its counts the warm one's.  Returns the
+    profiled reason's launches."""
     from repro_torch.core.monitor import ReasoningMonitor
     from repro_torch.core.stopping import EATStopper
     from repro_torch.serving import device_loop
@@ -3016,8 +3060,8 @@ def encdec_reason_cell(torch, np, model, probe, prompts, lens, frames: list, ker
     cfg = model.cfg
     B, budget, chunk, answer = 4, 64, 16, 4
     L = cfg.n_layers
-    per_prefill = cfg.n_encoder_layers + 2 * L
-    capacity = page_align(prompts.shape[1] + budget + len(probe) + answer + 1, 16)
+    capacity = page_align(extra_slots + prompts.shape[1] + budget + len(probe) + answer
+                          + 1, 16)
     ecfg = EngineConfig(max_reasoning_tokens=budget, capacity=capacity, chunk_len=chunk,
                         sampler=SamplerConfig(greedy=True),
                         cache=CacheConfig(kind="ring", page_size=16, attn_impl="auto"))
@@ -3041,13 +3085,13 @@ def encdec_reason_cell(torch, np, model, probe, prompts, lens, frames: list, ker
     fa = kernels["flash_attention"]
 
     def run(half: int, what: str, eager: bool = False):
-        p, n, fr = prompts[4 * half:4 * half + B], lens[4 * half:4 * half + B], frames[half]
+        p, n = prompts[4 * half:4 * half + B], lens[4 * half:4 * half + B]
         trace.clear()
         watch.begin()
         torch.cuda.synchronize()
         t = time.perf_counter()
         f0 = dict(fa.variant_launches)
-        st = eng.start(p, n, None, frames=fr)
+        st = eng.start(p, n, None, **{start_kw: inputs[half]})
         prefill_flash = {x: c - f0[x] for x, c in fa.variant_launches.items()}
         st = eng.reason(st, eager=eager)
         ans, _ = eng.force_answer(st, answer, greedy=True, eager=eager)
@@ -3056,7 +3100,7 @@ def encdec_reason_cell(torch, np, model, probe, prompts, lens, frames: list, ker
         counts = watch.end(f"{cfg.name} {what}", setup_reads=0)
         check(prefill_flash == {x: per_prefill * (x == "mma") for x in prefill_flash},
               f"{cfg.name} {what}: the prefill launched flash {prefill_flash}, expected "
-              f"{per_prefill} mma ({cfg.n_encoder_layers} encoder, {L} self, {L} cross)")
+              f"{per_prefill} mma ({prefill_text})")
         return reason_result(np, st, ans, trace), wall, counts
 
     cold_res, cold_s, cold = run(0, "cold graph reason")
@@ -3082,7 +3126,7 @@ def encdec_reason_cell(torch, np, model, probe, prompts, lens, frames: list, ker
           f"{cfg.name}: the second batch captured or ran eagerly: {warm2['line']}")
     e_res2, eager2_s, _ = run(1, "second batch eager reason", eager=True)
     check_same(res2, e_res2, np, f"{cfg.name}: the second batch's warm graph reason "
-               f"differs from its eager reason (the cross K/V of the new frames)")
+               f"differs from its eager reason (the new {start_kw} in the kept cache)")
     check(any(not np.array_equal(a["reasoning_tokens"], b["reasoning_tokens"])
               for a, b in zip(res, res2)),
           f"{cfg.name}: the second batch reasoned the first batch's tokens")
@@ -3092,10 +3136,11 @@ def encdec_reason_cell(torch, np, model, probe, prompts, lens, frames: list, ker
     # chunk, answer + 1 per rollout, eager probes; flash adds the prefill's
     forwards = (2 * chunk * wt["chunks"] + (answer + 1) * wt["rollouts"]
                 + wt["probe_calls"])
-    want = {x: (per_prefill + L * forwards) * (x == "mma") for x in flash_variants}
+    want = {x: (per_prefill + flash_per_forward * forwards) * (x == "mma")
+            for x in flash_variants}
     check(flash_variants == want, f"{cfg.name}: flash launches per variant "
-          f"{flash_variants}, expected {want} ({per_prefill} per prefill, {L} per "
-          f"forward, {forwards} forwards)")
+          f"{flash_variants}, expected {want} ({per_prefill} per prefill, "
+          f"{flash_per_forward} per forward, {forwards} forwards)")
     check(launches["paged_attention"] == L * forwards,
           f"{cfg.name}: paged_attention launched {launches['paged_attention']} times, "
           f"expected {L} per forward x {forwards}")
@@ -3107,7 +3152,7 @@ def encdec_reason_cell(torch, np, model, probe, prompts, lens, frames: list, ker
                    f"{key}_chunk_ms": statistics.median(wt["chunk_ms"]),
                    f"{key}_eager_chunk_ms":
                        statistics.median(eager["tiers"]["executor"]["chunk_ms"])})
-    print(f"[serve] {cfg.name} ring, start(frames=) + reason() + force_answer({answer}): "
+    print(f"[serve] {cfg.name} ring, start({start_kw}=) + reason() + force_answer({answer}): "
           f"{B} rows, exits {[r['exit_reason'] for r in res]} then "
           f"{[r['exit_reason'] for r in res2]}, reasoning tokens "
           f"{[r['n_reasoning'] for r in res]} then {[r['n_reasoning'] for r in res2]}; "
@@ -3126,8 +3171,9 @@ def encdec_reason_cell(torch, np, model, probe, prompts, lens, frames: list, ker
               f"{len(e)} calls), median on the card ({card})")
     print(f"[serve] launches during the {cfg.name} warm graph reason: "
           f"{json.dumps(launches)} (flash per variant {json.dumps(flash_variants)}: "
-          f"{per_prefill} mma per prefill + {L} per forward over {forwards} forwards; "
-          f"paged {L} per forward; entropy per variant {json.dumps(entropy_variants)})")
+          f"{per_prefill} mma per prefill + {flash_per_forward} per forward over "
+          f"{forwards} forwards; paged {L} per forward; entropy per variant "
+          f"{json.dumps(entropy_variants)})")
     profiled = profile_serve(torch, lambda: run(0, "profiled reason")[:2], warm_s,
                              profile_path, f"profile {key}", kernels)
     check(profiled == launches, f"{cfg.name}: the profiled reason's launches {profiled} "
@@ -3145,7 +3191,7 @@ def encdec_phase(torch, np, F, kernels: dict, phases: dict, card: str,
     cut to 2 + 2 layers, 1e-5; bf16 at the full 24 + 24: the logits within
     ``DENSE_BF16_TOL``, the EAT within ``DENSE_EAT_TOL`` of float32, flash
     120 ``mma`` over a prefill, a decode and a probe); then
-    ``encdec_reason_cell``: two batches of 4 of phase 4's prompts (over its
+    ``reason_cell``: two batches of 4 of phase 4's prompts (over its
     256,206 vocabulary), each with its own seeded frames (4 x 1024 x 1024).
     Returns {"launches": the profiled reason's counts, "kernels": the
     records}."""
@@ -3184,14 +3230,146 @@ def encdec_phase(torch, np, F, kernels: dict, phases: dict, card: str,
                                flash_calls=cfg.n_encoder_layers + 2 * L + 2 * L)
     # the reasons' peak, not the float32 twin's of the check above
     torch.cuda.reset_peak_memory_stats()
-    profiled = encdec_reason_cell(
+    profiled = reason_cell(
         torch, np, model, probe, prompts, lens, frames, kernels, phases, card,
         key="encdec",
-        profile_path=Path(profile_dir) / "profile_encdec.txt" if profile_dir else None)
+        profile_path=Path(profile_dir) / "profile_encdec.txt" if profile_dir else None,
+        start_kw="frames", per_prefill=cfg.n_encoder_layers + 2 * L,
+        prefill_text=f"{cfg.n_encoder_layers} encoder, {L} self, {L} cross",
+        flash_per_forward=L)
     del model, frames
     phase_end(torch, phases, "encdec", cfg.name, base, t_phase, card, weights=weights,
               over="its reasons")
     return {"launches": profiled, "kernels": recs}
+
+
+# ----------------------------------------------------------------- phase 6f
+
+
+def image_flash_case(torch, dtype, seed=0, B=4, S=512, P=256, Hq=28, Hkv=4, D=128):
+    """A VLM's image prefill in ``flash_case``'s form: P patch slots at
+    positions 0..P-1, then row b's 64 b pad slots at -1, then its text at
+    P.. (the layout ``ReasoningEngine.start(image_embeds=)`` gives: valid
+    slots before pad slots before valid slots)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    T = P + S
+    q = torch.randn((B, T, Hq, D), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, T, Hkv, D), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, T, Hkv, D), generator=g, device="cuda").to(dtype)
+    ar = torch.arange(T, device="cuda", dtype=torch.int32)[None]
+    text = ar - P - torch.arange(B, device="cuda", dtype=torch.int32)[:, None] * 64
+    pos = torch.where(ar < P, ar, torch.where(text >= 0, text + P, -1))
+    pos = pos.to(torch.int32).contiguous()
+    return dict(q=q, k=k, v=v, q_pos=pos, kv_pos=pos)
+
+
+def vlm_kernel_checks(torch, F, fa, pa, ep) -> dict:
+    """Phase 6f's kernel checks at ``qwen2-vl-7b``'s shapes, bf16, 28 q heads
+    on 4 kv heads of 128 (g 7): flash at the image prefill (B 4, 256
+    patches then 512 prompt slots, the patches before each row's pad
+    slots; ``image_flash_case``) and at the text prefill (B 4, S 512,
+    left-padded), both on the ``(128, 128)`` instance of the tensor-core
+    kernel and timed in turns with SDPA; paged at m 1 and 2; the entropy
+    probe over the untied 3584 x 152,064 head, with ``torch.matmul`` +
+    ``logsumexp`` timed beside as a yardstick.  Returns {kernel: record},
+    flash's text prefill under ``text_prefill``, paged's m 2 under ``m2``."""
+    tag = "qwen2-vl-7b"
+    bad = []
+    flash = flash_shape_check(torch, F, fa, tag + " image prefill", 28, 4, 128, bad,
+                              case=image_flash_case)
+    flash["text_prefill"] = flash_shape_check(torch, F, fa, tag + " text prefill", 28, 4,
+                                              128, bad)
+    for rec in (flash, flash["text_prefill"]):
+        if rec["variant"] != "mma":
+            bad.append(f"{tag} flash routes to {rec['variant']}, not mma")
+    flash["max_abs_err"] = max(flash["max_abs_err"], flash["text_prefill"]["max_abs_err"])
+    paged = [paged_shape_check(torch, pa, tag, m, 28, 4, 128, bad) for m in (1, 2)]
+    rec_paged = dict(paged[0], max_abs_err=max(r["max_abs_err"] for r in paged),
+                     m2=paged[1])
+    entropy = entropy_shape_check(torch, ep, tag, 3584, 152_064, 152_064, False, bad)
+    c = entropy_case(torch, torch.bfloat16, 4, 3584, 152_064, 152_064, False)
+    entropy["matmul_logsumexp_ms"] = graph_ms(torch, [
+        lambda: torch.logsumexp(torch.matmul(c["h"], c["w"]).float(), dim=-1)])
+    print(f"[kernels] {tag} entropy_probe yardstick: bf16 torch.matmul(h, w) + float32 "
+          f"logsumexp (the logits' normaliser, no entropy) "
+          f"{entropy['matmul_logsumexp_ms']:.4f} ms (graph replay), the kernel "
+          f"{entropy['ms']:.4f} ms")
+    del c
+    torch.cuda.empty_cache()
+    check(not bad, "qwen2-vl-7b kernel vs plain: " + "; ".join(bad))
+    return {"flash_attention": flash, "paged_attention": rec_paged,
+            "entropy_probe": entropy}
+
+
+def vlm_phase(torch, np, F, kernels: dict, phases: dict, card: str,
+              profile_dir=None) -> dict:
+    """Phase 6f: ``qwen2-vl-7b`` (arXiv:2409.12191: the VLM's language
+    backbone, 28 layers, d 3584, 28 q / 4 kv heads of 128 with qkv bias,
+    M-RoPE sections (16, 24, 24), an untied 152,064 vocabulary; the vision
+    tower a stub, as in the reference) at full width and depth, the
+    encoder-decoder freed first.  The kernels at its shapes
+    (``vlm_kernel_checks``); kernel path vs plain path on 256 patches in
+    front of the prompt (float32 cut to 2 layers, 1e-5; bf16 at the full
+    28: the logits within ``DENSE_BF16_TOL``, the EAT within
+    ``DENSE_EAT_TOL`` of float32, flash 28 ``mma``); then ``serve_cell``:
+    the paged self-EAT text serve of phase 4's traffic (prompts over its
+    152,064 vocabulary; the reference serves a VLM's queue text only),
+    flash 28 ``mma`` per prefill and none scalar, 28 paged calls per
+    decode and probe forward, every entropy call mma, a profiled serve and
+    a ring serve bitwise the paged one; and ``reason_cell``: two batches
+    of 4 of phase 4's prompts, each with its own 256 seeded stub patches
+    (4 x 256 x 3584), through ``start(image_embeds=)``, ``reason()`` and
+    ``force_answer(4)`` on one engine's graphs.  Returns {"launches": the
+    profiled serve's counts, "image_launches": the profiled reason's,
+    "kernels": the records}."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.eat import make_probe
+    from repro_torch.kernels.entropy_probe import ops as ep
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_attention import ops as pa
+
+    t_phase = time.perf_counter()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    recs = vlm_kernel_checks(torch, F, fa, pa, ep)
+    probe = make_probe(1, (6,))
+
+    cfg = get_config("qwen2-vl-7b")
+    P, L = cfg.n_image_patches, cfg.n_layers
+    prompts, lens = serve_workload(np, vocab=cfg.vocab)
+    check(int(prompts.max()) < cfg.vocab, "prompt ids past the vocab")
+    images = [torch.randn((4, P, cfg.d_model), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(20 + i))
+              for i in range(2)]
+    f32_kernel_vs_plain(torch, dataclasses.replace(cfg, name=cfg.name + "-2L-f32",
+                                                   n_layers=2, dtype="float32"),
+                        prompts, probe, image=images[0][:2])
+    model, weights = dense_model(torch, cfg, phases, "vlm", card)
+    print(f"[model] {cfg.name}: M-RoPE sections {cfg.mrope_sections}, {P} stub image "
+          f"patches of {cfg.d_model} per row; K/V "
+          f"{2 * L * cfg.n_kv_heads * cfg.resolved_head_dim * 2 / 1024:.0f} KiB per token")
+    dense_bf16_kernel_vs_plain(torch, model, prompts, probe, "mma", image=images[0][:2])
+    # the serves' peak, not the float32 twin's of the check above
+    torch.cuda.reset_peak_memory_stats()
+    profiled = serve_cell(
+        torch, np, model, probe, prompts, lens, kernels, phases, card, key="vlm",
+        flash_want=lambda forwards, prefills: {"mma": L * prefills, "mla": 0, "wide": 0,
+                                               "scalar": 0},
+        flash_text=f"{L} mma per prefill",
+        paged_want=lambda forwards, prefills: L * (forwards - prefills),
+        profile_path=Path(profile_dir) / "profile_vlm.txt" if profile_dir else None)
+    image = reason_cell(
+        torch, np, model, probe, prompts, lens, images, kernels, phases, card,
+        key="vlm_image",
+        profile_path=Path(profile_dir) / "profile_vlm_image.txt" if profile_dir else None,
+        start_kw="image_embeds", per_prefill=L,
+        prefill_text=f"{L} self-attention over {P} patches, pads and the prompt",
+        flash_per_forward=0, extra_slots=P)
+    del model, images
+    phases["vlm_pool_mib"] += phases["vlm_image_pool_mib"]
+    phase_end(torch, phases, "vlm", cfg.name, base, t_phase, card, weights=weights,
+              over="its serves and reasons")
+    return {"launches": profiled, "image_launches": image, "kernels": recs}
 
 
 # ------------------------------------------------------------------ phase 7
@@ -3994,6 +4172,16 @@ def main() -> None:
                           profile_dir=args.profile)
     lap("6e")
 
+    # ---- 6f. qwen2-vl-7b (VLM) at full width and depth, the encoder-decoder
+    # freed first
+    gc.collect()
+    torch.cuda.empty_cache()
+    vlm = vlm_phase(torch, np, F, {name: kernels[name] for name in
+                                   ("flash_attention", "paged_attention",
+                                    "entropy_probe")}, phases, card,
+                    profile_dir=args.profile)
+    lap("6f")
+
     # ---- 7. the training path, the 8B model freed first
     train_phase(torch, np, card, {name: kernels[name] for name in
                                   ("flash_attention", "paged_attention",
@@ -4048,6 +4236,10 @@ def main() -> None:
         if name in encdec["launches"]:
             out[-1]["seamless"] = {"launches": encdec["launches"][name],
                                    **encdec["kernels"][name]}
+        if name in vlm["kernels"]:
+            out[-1]["vlm"] = {"launches": vlm["launches"][name],
+                              "image_launches": vlm["image_launches"][name],
+                              **vlm["kernels"][name]}
         if name in moe["launches"]:
             m = moe["kernels"][name]
             out[-1]["moe"] = {"launches": moe["launches"][name],

@@ -7,6 +7,7 @@ from repro_torch.configs import (  # noqa: F401
     gemma_7b,
     mamba2_2p7b,
     paper_native,
+    qwen2_vl_7b,
     qwen3_1p7b,
     seamless_m4t_large_v2,
     tiny,

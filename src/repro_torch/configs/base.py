@@ -1,8 +1,9 @@
 """Model configuration: the dense-decoder, Mamba2 (``arch_type="ssm"``),
 mixture-of-experts (``arch_type="moe"``), multi-head latent attention
-(``mla``), Zamba2-style hybrid (``arch_type="hybrid"``) and
-encoder-decoder (``arch_type="encdec"``) parts of the JAX package's ``ModelConfig``, ``SSMConfig``,
-``MoEConfig`` and ``MLAConfig`` (``repro/configs/base.py``), copied so the
+(``mla``), Zamba2-style hybrid (``arch_type="hybrid"``),
+encoder-decoder (``arch_type="encdec"``) and vision-language
+(``arch_type="vlm"``: M-RoPE, stub image patches) parts of the JAX
+package's ``ModelConfig``, ``SSMConfig``, ``MoEConfig`` and ``MLAConfig`` (``repro/configs/base.py``), copied so the
 port imports nothing of ``repro``.  Field names and defaults are the reference's, so a config built
 here describes the same model as its JAX twin.
 """
@@ -75,6 +76,7 @@ class ModelConfig:
     rmsnorm_one_plus: bool = False    # gemma: (1 + w) * normed
     norm_eps: float = 1e-6
     rope_theta: float = 10_000.0
+    mrope_sections: tuple[int, ...] = ()   # qwen2-vl M-RoPE (t, h, w)
     logit_softcap: float = 0.0
 
     sliding_window: int = 0           # 0 = full attention; >0 = SWA window
@@ -93,6 +95,9 @@ class ModelConfig:
     # them per example
     n_encoder_layers: int = 0
     encoder_len: int = 1024
+
+    # vlm: number of stub image-patch embeddings prepended to the stream
+    n_image_patches: int = 0
 
     dtype: str = "bfloat16"
 
@@ -127,8 +132,9 @@ class ModelConfig:
         """The reference's CPU-test variant of this config: 2 layers, width
         at most 128, vocab at most 512, heads of 32, at most 4 experts,
         float32, a hybrid one group deep, an encoder of 2 layers over 32
-        frames (the dense, MoE, SSM, MLA, hybrid and encoder-decoder fields
-        of ``ModelConfig.reduced``)."""
+        frames, 8 image patches and M-RoPE sections (4, 6, 6) (the dense,
+        MoE, SSM, MLA, hybrid, encoder-decoder and VLM fields of
+        ``ModelConfig.reduced``)."""
         n_heads = max(2, min(self.n_heads, 4))
         kw: dict = dict(
             name=self.name + "-reduced",
@@ -163,6 +169,10 @@ class ModelConfig:
         if self.n_encoder_layers:
             kw["n_encoder_layers"] = 2
             kw["encoder_len"] = 32
+        if self.n_image_patches:
+            kw["n_image_patches"] = 8
+        if self.mrope_sections:
+            kw["mrope_sections"] = (4, 6, 6)  # sums to head_dim // 2 = 16
         return replace(self, **kw)
 
 

@@ -9,6 +9,8 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.models.common import positions_for
+
 
 @dataclasses.dataclass(frozen=True)
 class ProbeSpec:
@@ -29,8 +31,8 @@ def make_probe(end_think_id: int, prefix_ids: Sequence[int] = ()) -> ProbeSpec:
 def eval_eat(model, cache, probe: ProbeSpec, next_pos: torch.Tensor, *,
              entropy_impl: str = "auto") -> torch.Tensor:
     """Batched EAT for every sequence sharing the cache.  (B,) float32.
-    The probe tokens take positions next_pos + [0..m); nothing is
-    committed."""
+    The probe tokens take positions next_pos + [0..m) (M-RoPE's three
+    streams all these, ``positions_for``); nothing is committed."""
     B = next_pos.shape[0]
     m = len(probe)
     # one fill per token: a host-to-device copy would synchronise the host
@@ -39,7 +41,7 @@ def eval_eat(model, cache, probe: ProbeSpec, next_pos: torch.Tensor, *,
                         for t in probe.tokens], 1)
     pos1d = (next_pos[:, None]
              + torch.arange(m, dtype=torch.int32, device=next_pos.device)[None, :])
-    return model.probe_entropy(toks, pos1d, pos1d, cache,
+    return model.probe_entropy(toks, positions_for(model.cfg, pos1d), pos1d, cache,
                                entropy_impl=entropy_impl)
 
 

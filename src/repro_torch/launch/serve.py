@@ -27,6 +27,9 @@ of its shared attention block and keeps its SSM states per row, so it
 serves with either cache (and never as a proxy tier's generator).  Its prefill runs the chunked scan only
 for a prompt batch wider than 16 tokens; the task's prompts are shorter, so
 here, as in the JAX launcher, they take the recurrent step.
+The VLM ``qwen2-vl-7b`` serves text only here, as the reference's launcher
+serves it (its M-RoPE positions t = h = w); image patches go in through
+``ReasoningEngine.start(prompts, prompt_len, image_embeds=...)``.
 ``--monitor proxy`` serves black-box: a second model (``--proxy-config``,
 default a twin of ``--arch``, seeded apart, or ``--proxy-ckpt``'s weights)
 shadows the emitted stream and supplies the EAT exits; it must share the

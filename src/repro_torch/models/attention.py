@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import attention, attention_plain
-from repro_torch.models.common import apply_rope, dense_init, rmsnorm
+from repro_torch.models.common import apply_rope, dense_init, maybe_rope, rmsnorm
 
 
 def gqa_init(gen, cfg: ModelConfig, dtype, device, d_in: int | None = None) -> dict:
@@ -47,7 +47,9 @@ def gqa_init(gen, cfg: ModelConfig, dtype, device, d_in: int | None = None) -> d
 
 
 def gqa_qkv(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
-    """x: (B, S, d) -> q (B,S,Hq,hd), k,v (B,S,Hkv,hd) with RoPE applied."""
+    """x: (B, S, d) -> q (B,S,Hq,hd), k,v (B,S,Hkv,hd) with RoPE applied
+    (M-RoPE over (B, S, 3) ``positions`` for a config with
+    ``mrope_sections``)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q = x @ p["wq"]
@@ -61,9 +63,7 @@ def gqa_qkv(p, x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return maybe_rope(q, positions, cfg), maybe_rope(k, positions, cfg), v
 
 
 def gqa_out(p, attn: torch.Tensor) -> torch.Tensor:

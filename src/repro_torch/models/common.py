@@ -1,9 +1,10 @@
 """Shared model building blocks: norms, RoPE, MLPs, embeddings, and the
 seeded initialisers (port of ``repro/models/common.py``).
 
-Dtype discipline is the reference's: ``rmsnorm`` and ``apply_rope`` compute
-in float32 and cast back to the storage dtype; everything else runs in the
-storage dtype.  Weights keep JAX's ``(d_in, d_out)`` layout (``x @ W``).
+Dtype discipline is the reference's: ``rmsnorm``, ``apply_rope`` and
+``apply_mrope`` compute in float32 and cast back to the storage dtype;
+everything else runs in the storage dtype.  Weights keep JAX's ``(d_in,
+d_out)`` layout (``x @ W``).
 """
 from __future__ import annotations
 
@@ -56,14 +57,58 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (..., S, H, D); positions: broadcastable to (..., S) integer.
     Half-rotation ("rotate_half", llama) convention."""
-    d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                    # (d/2,)
-    angles = positions[..., None].float() * freqs             # (..., S, d/2)
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # (d/2,)
+    return _rotate_half(x, positions[..., None].float() * freqs)
+
+
+def _rotate_half(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, D) rotated by ``angles`` (..., S, D/2), in float32."""
     cos = torch.cos(angles)[..., None, :]                     # (..., S, 1, d/2)
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL M-RoPE.  x: (..., S, H, D); positions3: (..., S, 3) integer
+    (t, h, w) position ids.  The D/2 frequency slots are split into
+    ``sections`` (t | h | w, in that order); each slot takes its angle from
+    its own position stream.  The rotate-half layout is ``apply_rope``'s;
+    with t == h == w the two agree bit for bit."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to head_dim/2 "
+                         f"= {d // 2}")
+    freqs = rope_freqs(d, theta, x.device)                    # (d/2,)
+    # each slot's stream by slicing, not by an index tensor: no host copy,
+    # so a CUDA graph can capture it
+    pf = positions3.float()
+    pos = torch.cat([pf[..., i:i + 1].expand(*pf.shape[:-1], n)
+                     for i, n in enumerate(sections)], dim=-1)  # (..., S, d/2)
+    return _rotate_half(x, pos * freqs)
+
+
+def positions_for(cfg: ModelConfig, pos1d: torch.Tensor) -> torch.Tensor:
+    """Model-facing positions from 1-D positions (the reference's
+    ``serving/executor.py`` ``positions_for``): an M-RoPE config takes the
+    (..., 3) layout with t = h = w = ``pos1d`` (a broadcast view), every
+    other config ``pos1d`` itself.  The one definition that prefill, the
+    decode and shadow steps, the EAT probe and the rollouts share, so cached
+    and probed positions cannot drift apart."""
+    if cfg.mrope_sections:
+        return pos1d[..., None].expand(*pos1d.shape, 3)
+    return pos1d
+
+
+def maybe_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """RoPE by the config: M-RoPE over (B, S, 3) positions where
+    ``mrope_sections`` is set, else plain RoPE over (B, S) (the
+    reference's ``_maybe_rope``)."""
+    if cfg.mrope_sections:
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    return apply_rope(x, positions, cfg.rope_theta)
 
 
 # ----------------------------------------------------------------- mlp

@@ -36,6 +36,7 @@ Parameter tree (the JAX layout with the layer axis unstacked)::
                 #   D, norm_w, out_proj}}, ...]
                 # arch "hybrid": the SSM blocks only, in block order (the
                 #   reference's (G, n_per) groups, flattened), and beside
+                # arch "vlm": the dense layout, with qkv bias
                 # arch "encdec": the decoder's layers, each also holding
                 #   "norm_c" and "cross": {wq, wk, wv, wo} (cross-attention)
      ["shared_attn": {"norm1": (2 d,), "attn": {wq, wk, wv: (2 d, .), wo},
@@ -150,7 +151,8 @@ class Model(nn.Module):
     ``shared_attn``) or an encoder-decoder (``arch_type="encdec"``: the
     bidirectional encoder ``enc_layers`` + ``enc_norm`` over stub frames,
     run once per prefill, and a decoder whose blocks cross-attend to it)
-    for serving.
+    or a VLM's language backbone (``arch_type="vlm"``: the dense decoder
+    with M-RoPE, stub patch embeddings in front of a prompt) for serving.
 
     ``attn_impl`` selects the prefill attention and ``scan_impl`` the SSM
     prefill scan (``auto``: the CUDA kernel for CUDA tensors, the plain
@@ -193,10 +195,10 @@ class Model(nn.Module):
         return common.lm_head_apply(self.embed, hidden, self.cfg)
 
     def _forward(self, tokens, positions, pos1d, cache, *, commit: bool,
-                 window: int | None, live=None):
+                 window: int | None, live=None, image_embeds=None):
         cfg = self.cfg
         window = cfg.sliding_window if window is None else window
-        x = common.embed_apply(self.embed, tokens, cfg)
+        x = embed_stream(self.embed, cfg, tokens, image_embeds)
         slots = tfm.write_slots(cache["cur"], x.shape[1], cache["pos"].shape[1],
                                 x.device)
         run = lambda: tfm.forward_cached(  # noqa: E731
@@ -211,16 +213,20 @@ class Model(nn.Module):
 
     # ---------------------------------------------------------------- serve
     def prefill(self, tokens, positions, pos1d, cache, *, frames=None,
-                window: int | None = None, live=None) -> torch.Tensor:
+                image_embeds=None, window: int | None = None,
+                live=None) -> torch.Tensor:
         """Fill the cache with the prompt (in place); returns hidden (B,S,d).
         ``live`` (0-dim bool) masks the commit (``forward_cached``).  An
         encoder-decoder needs ``frames`` (B, T, d): they are encoded, and
         each decoder layer's cross K/V and the cache's ``enc_pos`` are
-        copied into the cache's own tensors first."""
+        copied into the cache's own tensors first.  A VLM may take
+        ``image_embeds`` (B, P, d), put in front of the tokens: positions,
+        pos1d and the hidden states then cover P + S slots, and the patches'
+        K/V land in the cache's own slots like the prompt's."""
         if self.cfg.arch_type == "encdec":
             self._encode_into(frames, cache)
         return self._forward(tokens, positions, pos1d, cache, commit=True,
-                             window=window, live=live)
+                             window=window, live=live, image_embeds=image_embeds)
 
     def _encode_into(self, frames, cache) -> None:
         """Encode ``frames`` (B, T, d) with ``enc_pos = arange(T)`` and write
@@ -270,13 +276,26 @@ class Model(nn.Module):
 # ------------------------------------------------------------------ train
 
 
+def embed_stream(embed, cfg: ModelConfig, tokens, image_embeds=None) -> torch.Tensor:
+    """``embed_apply`` of ``tokens``, with a VLM's ``image_embeds`` (B, P, d)
+    cast to the embeddings' dtype and put in front (B, P + S, d): the
+    reference's ``Model.embed_stream``."""
+    x = common.embed_apply(embed, tokens, cfg)
+    if cfg.arch_type == "vlm" and image_embeds is not None:
+        x = torch.cat([image_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
 def train_logits(params: dict, cfg: ModelConfig, tokens, positions, pos1d, *,
-                 remat: bool = True, window: int | None = None) -> torch.Tensor:
+                 remat: bool = True, window: int | None = None,
+                 image_embeds=None) -> torch.Tensor:
     """The training forward (no cache; plain attention and scan, as the
     reference's trainer): (logits (B, S, Vp) in the storage dtype, the
-    MoE layers' summed aux loss, 0-dim float32)."""
+    MoE layers' summed aux loss, 0-dim float32).  A VLM's
+    ``image_embeds`` (B, P, d) go in front of the tokens; ``positions``
+    ((B, P + S, 3) with M-RoPE) and ``pos1d`` then cover both."""
     window = cfg.sliding_window if window is None else window
-    x = common.embed_apply(params["embed"], tokens, cfg)
+    x = embed_stream(params["embed"], cfg, tokens, image_embeds)
     hidden, aux = tfm.forward_train(params["layers"], params["final_norm"], x,
                                     positions, pos1d, cfg, valid=pos1d >= 0,
                                     remat=remat, window=window,
@@ -287,18 +306,24 @@ def train_logits(params: dict, cfg: ModelConfig, tokens, positions, pos1d, *,
 def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
                remat: bool = True, z_loss: float = 1e-4,
                window: int | None = None):
-    """batch: tokens (B, S); targets, loss_mask, positions, pos1d (B, S),
-    tensors on the parameters' device.  Returns (loss, metrics dict of
-    0-dim device tensors: ce, z_loss, accuracy, tokens, loss, and for an
-    MoE config aux_loss, which the loss carries times
+    """batch: tokens (B, S); targets, loss_mask, pos1d (B, S_total);
+    positions (B, S_total), or (B, S_total, 3) for an M-RoPE config; a
+    VLM's optional image_embeds (B, P, d), put in front of the tokens
+    (S_total = P + S); tensors on the parameters' device.  Returns (loss,
+    metrics dict of 0-dim device tensors: ce, z_loss, accuracy, tokens,
+    loss, and for an MoE config aux_loss, which the loss carries times
     ``router_aux_weight``)."""
-    unknown = set(batch) - {"tokens", "targets", "loss_mask", "positions", "pos1d"}
+    unknown = set(batch) - {"tokens", "targets", "loss_mask", "positions", "pos1d",
+                            "image_embeds"}
     if unknown:
         raise ValueError(f"batch keys {sorted(unknown)} need modules the port "
-                         f"does not train yet (encoder-decoder frames, VLM "
-                         f"image embeds): training on them is a later item")
+                         f"does not train yet (encoder-decoder frames): training "
+                         f"on them is a later item")
+    if "image_embeds" in batch and cfg.arch_type != "vlm":
+        raise ValueError(f"{cfg.name} is not a VLM: it takes no image_embeds")
     logits, aux = train_logits(params, cfg, batch["tokens"], batch["positions"],
-                               batch["pos1d"], remat=remat, window=window)
+                               batch["pos1d"], remat=remat, window=window,
+                               image_embeds=batch.get("image_embeds"))
     loss, metrics = cross_entropy_loss(logits, batch["targets"],
                                        batch["loss_mask"], cfg.vocab,
                                        z_loss=z_loss)

@@ -336,8 +336,8 @@ def forward_train(layers, final_norm, x, positions, pos1d, cfg: ModelConfig, *,
     recomputes each block in the backward pass (``torch.utils.checkpoint``,
     the reference's ``jax.checkpoint`` around its scan body): only the
     blocks' inputs are kept.  ``shared``: a hybrid's shared block."""
-    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
-        raise ValueError(f"the port trains dense, moe, ssm and hybrid models, "
+    if cfg.arch_type not in ("dense", "vlm", "moe", "ssm", "hybrid"):
+        raise ValueError(f"the port trains dense, vlm, moe, ssm and hybrid models, "
                          f"not {cfg.arch_type!r} (training an encoder-decoder "
                          f"on frames is a later item of the port)")
 

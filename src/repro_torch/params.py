@@ -14,7 +14,8 @@ keeps its one shared attention block, unstacked, under
 stacks its decoder layers (each with ``norm_c`` and ``cross``) under
 ``stack/dec_layers`` (the port's ``layers``), its encoder layers under
 ``stack/enc_layers`` (the port's ``enc_layers``) and keeps ``enc_norm``
-under ``stack/enc_norm``.  Expert leaves keep
+under ``stack/enc_norm``.  A VLM's tree is the dense one (``stack/layers``,
+with qkv bias).  Expert leaves keep
 their ``(E, d_in, d_out)`` layout under the layer axis; an MLA layer's ``attn`` holds the reference's
 nine leaves (``w_dq``, ``q_norm``, ``w_uq``, ``w_dkv``, ``kv_norm``,
 ``w_kr``, ``w_uk``, ``w_uv``, ``wo``), carried like any other.
@@ -75,9 +76,9 @@ def leaf_from_bytes(data: bytes, dtype: str, shape) -> torch.Tensor:
 
 
 def _check_arch(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid", "encdec"):
+    if cfg.arch_type not in ("dense", "vlm", "moe", "ssm", "hybrid", "encdec"):
         raise ValueError(f"the port has no {cfg.arch_type!r} model "
-                         f"(dense, moe, ssm, hybrid and encdec only)")
+                         f"(dense, vlm, moe, ssm, hybrid and encdec only)")
 
 
 def _segments(cfg: ModelConfig) -> list[tuple[str, int, tuple[int, ...]]]:

@@ -59,6 +59,7 @@ from repro_torch.serving.executor import (
     Executor,
     ProxyExecutor,
     ServeState,
+    positions_for,
     prompt_positions,
 )
 from repro_torch.serving.pipeline import serve_overlapped
@@ -153,12 +154,17 @@ class ReasoningEngine:
 
     # ------------------------------------------------------------- prefill
     def start(self, prompts, prompt_len, rng: torch.Generator | None = None,
-              *, frames=None, capacity: int | None = None,
+              *, frames=None, image_embeds=None, capacity: int | None = None,
               fresh: bool = False) -> ServeState:
         """prompts: (B, S) LEFT-padded token ids; prompt_len: (B,); an
         encoder-decoder also takes ``frames`` (B, T, d_model), the stub
         frontend's embeddings, which are encoded into the cache's cross K/V.
         Positions are 0..len-1 per sequence (pad slots get -1 = masked).
+        A VLM may take ``image_embeds`` (B, P, d_model), the stub vision
+        tower's patches: the stream is [patches | pads | text], the patches
+        at positions 0..P-1, the text shifted by P, the pads -1 (M-RoPE's
+        three streams all equal, as in the reference), and the next
+        position P + prompt_len; the capacity must hold P + S slots.
         The cache is the executor's kept one of (B, capacity), which the
         chunk graphs capture (an earlier state on it is consumed); with
         ``fresh`` a new one (an admission's or a paged prefill's, merged
@@ -168,14 +174,27 @@ class ReasoningEngine:
         plen = upload(prompt_len, dev, torch.int32)
         B, S = prompts.shape
         pos1d = prompt_positions(plen, S, dev)
+        n_img = 0
+        if image_embeds is not None:
+            if model.cfg.arch_type != "vlm":
+                raise ValueError(f"{model.cfg.name} is not a VLM: it takes no "
+                                 f"image_embeds")
+            image_embeds = upload(image_embeds, dev)
+            n_img = image_embeds.shape[1]
+            img_pos = torch.arange(n_img, dtype=torch.int32, device=dev).expand(B, n_img)
+            pos1d = torch.cat([img_pos, torch.where(pos1d >= 0, pos1d + n_img, -1)], 1)
         capacity = capacity or ecfg.capacity
+        if capacity < n_img + S:
+            raise ValueError(f"capacity {capacity} cannot hold {n_img} image "
+                             f"patches and {S} prompt slots")
         cache = (alloc_cache(model.cfg, B, capacity, device=dev) if fresh
                  else self.executor.cache_for(B, capacity))
         if frames is not None:
             frames = upload(frames, dev)
         self.executor.settle_rng()
-        hidden = self.executor.prefill(prompts, pos1d, pos1d, cache,
-                                       frames=frames)
+        hidden = self.executor.prefill(prompts, positions_for(model.cfg, pos1d),
+                                       pos1d, cache, frames=frames,
+                                       image_embeds=image_embeds)
         logits_last = model.logits(hidden[:, -1:])[:, 0]
         first = sample(logits_last, model.cfg.vocab, ecfg.sampler, rng)
         buf = torch.full((B, ecfg.max_reasoning_tokens + 8), ecfg.pad_id,
@@ -185,7 +204,7 @@ class ReasoningEngine:
             cache=cache,
             rng=rng,
             active=torch.ones((B,), dtype=torch.bool, device=dev),
-            next_pos=plen.clone(),
+            next_pos=plen + n_img,
             last_token=first,
             n_reasoning=torch.ones((B,), dtype=torch.long, device=dev),
             monitor=self.monitor.init(B, dev),

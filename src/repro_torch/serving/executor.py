@@ -68,6 +68,7 @@ import torch
 from repro_torch.core.eat import eval_eat
 from repro_torch.core.monitor import MonitorState, ReasoningMonitor
 from repro_torch.device import upload, upload_into
+from repro_torch.models.common import positions_for
 from repro_torch.models.transformer import preserved_slots, write_slots
 from repro_torch.serving.cache import (
     alloc_cache,
@@ -225,8 +226,8 @@ def make_eat_step(model, monitor: ReasoningMonitor | None,
     cfg = model.cfg
 
     def step(cache, token, pos1d, mon: MonitorState, active, rng, live=None):
-        logits = model.decode_step(token, pos1d, pos1d, cache, window=window,
-                                   live=live)
+        logits = model.decode_step(token, positions_for(cfg, pos1d), pos1d, cache,
+                                   window=window, live=live)
         nxt = sample(logits[:, -1], cfg.vocab, sampler, rng)
         if monitor is None:
             return nxt, mon, torch.zeros_like(active)
@@ -255,13 +256,14 @@ def make_shadow_step(model, monitor: ReasoningMonitor, *,
     proxy running the generator's own weights reproduces the self-EAT EMA
     trajectory bit for bit.  The committed forward skips the unembedding:
     the proxy's logits at the stream token are never read."""
-    recurrent = model.cfg.arch_type in RECURRENT_ARCHS
+    cfg = model.cfg
+    recurrent = cfg.arch_type in RECURRENT_ARCHS
 
     def step(cache, tok_in, tok_out, next_pos, mon: MonitorState, valid,
              live=None):
         pos1d = torch.where(valid, next_pos, -1)[:, None]
         before = list(cache["layers"]) if recurrent else None
-        model.prefill(tok_in, pos1d, pos1d, cache, live=live)
+        model.prefill(tok_in, positions_for(cfg, pos1d), pos1d, cache, live=live)
         if before is not None:
             freeze_inactive_rows(cache, before, valid)
         new_pos = next_pos + valid.int()
@@ -590,15 +592,17 @@ class Executor:
         return state, self.snapshot_async(state)
 
     # ---------------------------------------------------------- prefill/probe
-    def prefill(self, tokens, positions, pos1d, cache, *,
-                frames=None) -> torch.Tensor:
-        """Prompt prefill into ``cache`` (in place); returns hidden.  A
-        recurrent cache's new states are copied into its tensors, which
-        stay the ones it was allocated with; so are an encoder-decoder's
-        cross K/V, made from ``frames`` (``Model.prefill``)."""
+    def prefill(self, tokens, positions, pos1d, cache, *, frames=None,
+                image_embeds=None) -> torch.Tensor:
+        """Prompt prefill into ``cache`` (in place); returns hidden.
+        ``positions`` are ``positions_for(cfg, pos1d)``.  A recurrent
+        cache's new states are copied into its tensors, which stay the
+        ones it was allocated with; so are an encoder-decoder's cross K/V,
+        made from ``frames`` (``Model.prefill``).  A VLM's ``image_embeds``
+        (B, P, d) go in front of ``tokens``, the positions covering both."""
         kept = list(cache["layers"]) if self._recurrent else None
         hidden = self.model.prefill(tokens, positions, pos1d, cache,
-                                    frames=frames)
+                                    frames=frames, image_embeds=image_embeds)
         if kept is not None:
             commit_layers(cache, kept)
         return hidden
@@ -780,14 +784,16 @@ class Executor:
             et = torch.full((B, 1), ecfg.end_think_id, dtype=torch.long,
                             device=next_pos.device)
             pos1d = next_pos[:, None]
-            logit = model.decode_step(et, pos1d, pos1d, local)[:, -1]
+            logit = model.decode_step(et, positions_for(cfg, pos1d), pos1d,
+                                      local)[:, -1]
             p = next_pos + 1
             for _ in range(n):
                 tok = sample(logit, cfg.vocab, scfg, rng)
                 toks.append(tok)
                 lps.append(logprob_of(logit, tok, cfg.vocab))
                 p1 = p[:, None]
-                logit = model.decode_step(tok[:, None], p1, p1, local)[:, -1]
+                logit = model.decode_step(tok[:, None], positions_for(cfg, p1), p1,
+                                          local)[:, -1]
                 p = p + 1
         return torch.stack(toks, 1), torch.stack(lps, 1)
 

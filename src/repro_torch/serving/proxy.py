@@ -38,6 +38,7 @@ from repro_torch.serving.executor import (
     Snapshot,
     _clone,
     _flat,
+    positions_for,
     prompt_positions,
 )
 from repro_torch.serving.scheduler import PageAllocator
@@ -62,7 +63,8 @@ class ProxyMonitor:
         m = tokens.shape[1]
         pos1d = (next_pos[:, None]
                  + torch.arange(m, dtype=torch.int32, device=tokens.device)[None])
-        self.model.prefill(tokens, pos1d, pos1d, cache)
+        self.model.prefill(tokens, positions_for(self.model.cfg, pos1d), pos1d,
+                           cache)
         return next_pos + m
 
     def probe(self, cache, next_pos) -> torch.Tensor:
@@ -75,7 +77,7 @@ class ProxyMonitor:
         B, S = prompts.shape
         pos1d = prompt_positions(prompt_len, S, dev)
         cache = alloc_cache(self.model.cfg, B, self.capacity, device=dev)
-        self.prefill(prompts, pos1d, pos1d, cache)
+        self.prefill(prompts, positions_for(self.model.cfg, pos1d), pos1d, cache)
         return {
             "cache": cache,
             "next_pos": torch.as_tensor(np.asarray(prompt_len), dtype=torch.int32,
@@ -200,7 +202,7 @@ class ProxyTier:
         pos1d = prompt_positions(plen, S, dev)
         cache = (ex.cache_for(B, capacity) if kept
                  else alloc_cache(ex.cfg, B, capacity, device=dev))
-        ex.prefill(prompts, pos1d, pos1d, cache)
+        ex.prefill(prompts, positions_for(ex.cfg, pos1d), pos1d, cache)
         ones = torch.ones((B,), dtype=torch.long, device=dev)
         return ServeState(
             cache=cache,
