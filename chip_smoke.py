@@ -97,7 +97,9 @@ imports nothing of JAX or of the JAX package.  Phases:
    self-EAT serve of 8 requests through 4 slots at full width and depth,
    cold graph, warm graph and eager on one engine as above, with the
    launches of its kernels counted (every entropy call the tensor-core
-   kernel);
+   kernel); before it, one ``decode_and_probe`` against ``decode_step`` +
+   ``probe_entropy`` from one cache state, bitwise (a recurrent stack's
+   fused step is the separate step, as in the reference);
 5b. ``deepseek-moe-16b`` (arXiv:2401.06066; the 8B and mamba2 engines freed,
    the 8B model kept for phase 6): flash (16 q and 16 kv heads: g = 1),
    paged (m 1 and 2, g = 1) and entropy (its untied 2048 x 102,400 head)
@@ -144,6 +146,23 @@ DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
    K 8 x 4 tokens; and the per-token loop (``_reason_per_token``) against
    ``reason`` on the chunk graphs, unmonitored, in tokens/s in turns (3
    each), which must give the same tokens;
+6g. the fused decode-and-probe step (``Model.decode_and_probe``: one
+   forward over ``[token, </think>, prefix]`` that commits the token
+   alone) on the same 8B model (``fused_phase``): the paged kernel at m 3
+   (12 rows at g 4) against its plain version at phase 3's bar, timed with
+   its bound; at contexts 512 and 2048 (B 4), on a paged cache and on the
+   ring, one fused step against one separate step from the same cache
+   state and the two decode steps after each (``fused_vs_separate``:
+   logits within 3e-2 relative L2 and max |diff| / max |logits|, EAT
+   within 6e-2 nats; a stray stale probe key would hide inside these bf16
+   bars: that the probe's K/V stay masked is held at 1e-5 in float32 by
+   ``tests/test_torch_fused_probe.py``), the fused step's launches counted from 0 (36 paged,
+   1 entropy, no flash), paged == ring bitwise; both steps timed as
+   CUDA-graph replays in turns (5 rounds; ``[fig21]`` lines beside phase
+   6's, with the bound of one read of the weights); then 16 greedy steps
+   of ``build_serve_step_program(fused_probe=True)`` (every-token
+   monitor), eager with their launches counted and captured as one CUDA
+   graph whose cold and warm replays equal the eager run bitwise;
 6b. ``deepseek-v2-236b`` (arXiv:2405.04434: multi-head latent attention
    and 160 routed + 2 shared experts; the 8B model freed first): the flash
    kernel at MLA's absorbed shapes (128 q heads of 576 against one kv head,
@@ -156,7 +175,10 @@ DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
    (float32 cut to 2 layers, 1e-5; bf16 at 8 layers within
    ``MOE_BF16_TOL``, the logits with shared expert routes); seeded random
    weights at full width and 8 of 60 layers (``MLA_LAYERS``: 58.38 GB of
-   weights, what one card holds), served as phase 5b serves (``serve_cell``):
+   weights, what one card holds); the fused step at m 3 against the
+   separate step (the bars of 6g, every flash launch ``mla``; the kernel
+   at m 3 over the 704-slot view is one of the ``[kernels] mla`` cases);
+   served as phase 5b serves (``serve_cell``):
    cold, warm and eager paged self-EAT serves of phase 4's traffic, warm ==
    eager bitwise, 0 captures, flash 8 ``mla`` launches per forward and
    none ``mma`` or ``scalar``, no paged read (MLA reads the gathered view),
@@ -197,7 +219,11 @@ DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
    full 54 on the weights of seeds 0, 1 and 2 (``HYBRID_SEEDS``), the logits
    within ``HYBRID_BF16_TOL`` and the kernel path's EAT within
    ``DENSE_EAT_TOL`` nats of float32, flash 9 ``mma`` and the scan 45
-   ``mma``); seeded random weights at full width and depth (2.08 B
+   ``mma``; where that check fails, ``hybrid_block_gap`` first prints
+   where the two bf16 paths part: the residual stream's relative L2 after
+   each of the 54 blocks of the prefill and of a decode step, and each
+   block kind's growth factors, ``[zamba2 gap]`` lines); seeded random weights
+   at full width and depth (2.08 B
    parameters, 4.17 GB), served as phase 5b serves (``serve_cell``): cold,
    warm and eager paged self-EAT serves of phase 4's traffic over its
    32,000 vocabulary, warm == eager bitwise, 0 captures, flash 9 ``mma``
@@ -262,8 +288,14 @@ DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
    attention, as the reference's trainer runs) against ``Model.prefill`` +
    ``logits`` on the flash kernel, same ``qwen3-1.7b`` weights, a 2 x 96
    token batch, float32 cut to 4 layers (max |diff| within 1e-5 of max
-   |logits|) and bf16 at the full 28 (3e-2); ``qwen3-1.7b`` and
-   ``mamba2-2.7b`` in bf16 at full width and depth, 8 AdamW steps of 8
+   |logits|) and bf16 at the full 28 (3e-2); the same for
+   ``seamless-m4t-large-v2`` on seeded stub frames (2 x 1024 x 1024 at 0.1
+   N(0, 1); float32 cut to 2 + 2 layers, bf16 at 24 + 24) and
+   ``zamba2-2.7b`` (plain scan against the scan kernel; float32 cut to 12
+   blocks, bf16 at 54 within ``HYBRID_BF16_TOL``); ``qwen3-1.7b``,
+   ``mamba2-2.7b``, ``seamless-m4t-large-v2`` (each batch with 8 seeded
+   stub frame sets of 1024 x 1024) and ``zamba2-2.7b`` in bf16 at full
+   width and depth, 8 AdamW steps of 8
    ChainTask rows of 95 tokens each (remat, lr 3e-4, warmup 2): every loss,
    gradient norm and parameter finite, the last loss below the first, ms
    per step (median of steps 2-8), tokens/s, peak memory against the
@@ -279,7 +311,7 @@ DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
    every request finished, and flash, paged and entropy launched during
    the EAT serve;
 8. the ``[phases]`` lines: every phase's readings, then each phase's wall
-   (host clock, 1 to 7) and their sum; one JSON line per the contract:
+   (host clock, 1 to 7, 6g after 6) and their sum; one JSON line per the contract:
    ``{"kernels": [...]}`` (five records; flash, paged and entropy carry a
    ``moe`` record: phase 5b's warm-serve launches and its kernel readings
    at the MoE's shapes, and a ``gemma`` record: phase 6c's, with gemma-2b's
@@ -287,7 +319,10 @@ DIR and profiles the ``qwen3-1.7b`` proxy serve the same way.
    ``zamba2`` record: phase 6d's; flash, paged and entropy a ``seamless``
    record: phase 6e's; flash, paged and entropy a ``vlm`` record: phase
    6f's (the text serve's launches, the image reason's under
-   ``image_launches``); flash an ``mla`` record: phase 6b's;
+   ``image_launches``); flash an ``mla`` record: phase 6b's, with its
+   kernel at m 3 under ``fused`` and the fused step's launches; paged a
+   ``fused_m3`` record: phase 6g's kernel at m 3 and the 16-step program's
+   launches;
    decode_attention its head-dim-256 cases under ``d256``), the card line,
    and the last line ``{"ok": true, "device": {...}}``.
 
@@ -1536,6 +1571,15 @@ def mamba_phase(torch, np, kernels, phases, profile_dir=None) -> dict:
           f"{[round(x, 4) for x in eat_p.tolist()]} max diff {d_eat:.3e} "
           f"(tol {MAMBA_EAT_TOL:g})")
     del outs
+    # the fused step of a recurrent stack is the separate step (the
+    # reference's fallback): bitwise, after a 64-token prefill
+    cache = alloc_cache(cfg, 2, 96, device="cuda")
+    pos = torch.arange(64, dtype=torch.int32, device="cuda").expand(2, 64).contiguous()
+    model.prefill(torch.as_tensor(prompts[:2, -64:], device="cuda"), pos, pos, cache)
+    fused_vs_separate(torch, model, cache, torch.full((2, 1), 64, dtype=torch.int32,
+                                                      device="cuda"),
+                      probe, cfg.name, kernels, bitwise=True)
+    del cache
 
     # the serve: 8 requests, 4 slots, ring, budget 64, chunk 16, greedy, an
     # EAT probe every 8 tokens, exit at the 2nd evaluation, forced answers
@@ -2366,6 +2410,279 @@ def trace_phase(torch, np, model, probe, prompts, lens, kernels: dict,
 
 
 
+# ----------------------------------------------------------------- phase 6g
+
+
+def tensor_leaves(torch, tree) -> list:
+    """Every tensor of a (nested) state, in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tensor_leaves(torch, tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tensor_leaves(torch, v)]
+    return []
+
+
+def fused_vs_separate(torch, model, base, p1, probe, what: str, kernels: dict, *,
+                      bitwise: bool = False, tol: float = 3e-2,
+                      eat_tol: float = 6e-2):
+    """One fused step (``decode_and_probe``: token 7 at ``p1`` (B, 1) and the
+    probe after it, one forward) and one separate step (``decode_step``,
+    then ``probe_entropy``), each on its own copy of the cache ``base``,
+    each followed by two ``decode_step``s.  The logits of each step are held
+    to ``tol`` (relative L2 and max |diff| / max |logits|), the EAT to
+    ``eat_tol`` nats, or everything to bitwise equality (``bitwise``: a
+    recurrent stack's fused step is the separate step).  The bf16 bars
+    check the fused step's results, not that its stale probe K/V stay
+    masked (one stray key among hundreds would pass them): the float32 CPU
+    tests hold that at 1e-5.  The fused step's
+    launches are counted from 0 (``kernels``'s wrappers, flash per
+    variant).  Returns (the fused path's [logits, EAT, next logits, next
+    logits], its launches, flash per variant, its cache)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.common import positions_for
+
+    cfg = model.cfg
+    B, m = p1.shape[0], len(probe)
+    at = lambda q: positions_for(cfg, q)  # noqa: E731
+    tok = torch.full((B, 1), 7, dtype=torch.long, device="cuda")
+    pos_all = (p1 + torch.arange(1 + m, dtype=torch.int32, device="cuda")[None]).contiguous()
+    pp = pos_all[:, 1:].contiguous()
+    ptoks = torch.tensor([probe.tokens], device="cuda").expand(B, m)
+    fused_c, sep_c = clone_tree(torch, base), clone_tree(torch, base)
+    reset_counts(kernels)
+    f = list(model.decode_and_probe(tok, at(pos_all), pos_all, fused_c, ptoks))
+    launched = {name: fn.launches for name, fn in kernels.items()}
+    flash = dict(fa.flash_attention_cuda.variant_launches)
+    s = [model.decode_step(tok, at(p1), p1, sep_c),
+         model.probe_entropy(ptoks, at(pp), pp, sep_c)]
+    for k in (1, 2):
+        pk = p1 + k
+        f.append(model.decode_step(tok, at(pk), pk, fused_c))
+        s.append(model.decode_step(tok, at(pk), pk, sep_c))
+    check(int(fused_c["cur"]) == int(sep_c["cur"]),
+          f"{what}: cur {int(fused_c['cur'])} after the fused step, "
+          f"{int(sep_c['cur'])} after the separate one")
+    texts = []
+    for i, name in enumerate(("fused step logits", "EAT", "decode step 1 logits",
+                              "decode step 2 logits")):
+        a, b = f[i].float(), s[i].float()
+        check(bool(torch.isfinite(a).all()), f"{what} {name}: not finite")
+        if bitwise:
+            check(torch.equal(f[i], s[i]), f"{what} {name}: fused and separate differ")
+            continue
+        if name == "EAT":
+            d = (a - b).abs().max().item()
+            check(d <= eat_tol, f"{what} EAT: fused {a.tolist()} vs separate "
+                  f"{b.tolist()} (tol {eat_tol:g} nats)")
+            texts.append(f"EAT {d:.3e} nats (tol {eat_tol:g})")
+            continue
+        rel, top = rel_l2(a, b), ((a - b).abs().max() / b.abs().max()).item()
+        check(rel <= tol and top <= tol, f"{what} {name}: fused vs separate relative "
+              f"L2 {rel}, max |diff| / max |logits| {top} (tol {tol:g} each)")
+        texts.append(f"{name} {rel:.3e} / {top:.3e}")
+    print(f"[fused] {what}: fused step vs separate step (decode_step + probe_entropy) "
+          f"from one cache state, then two decode steps from each cache: "
+          + ("bitwise equal (logits, EAT, the next two steps' logits)" if bitwise else
+             "; ".join(texts) + f" (relative L2 / max |diff| / max |logits|, tol "
+             f"{tol:g})") + f"; the fused step's launches {json.dumps(launched)}, "
+          f"flash {json.dumps(flash)}")
+    del sep_c
+    return f, launched, flash, fused_c
+
+
+def fused_phase(torch, np, model, kernels: dict, phases: dict, card: str) -> dict:
+    """Phase 6g: the fused decode-and-probe step (``Model.decode_and_probe``,
+    one forward over ``[token, </think>, prefix]``) on ``model`` (the 8B at
+    full width and depth, bf16), B 4, at contexts 512 and 2048.  The paged
+    kernel at m 3 (its width here) against its plain version at phase 3's
+    bar, timed with its bound; at each context, on a paged cache (shuffled
+    pages) and on the ring (both read through the paged kernel, the ring
+    by its identity page list): one fused step against one separate step
+    from the same cache state (``fused_vs_separate``, the dense bars), its
+    launches counted (one paged call per layer, one entropy call, no
+    flash), the paged results equal to the ring's bitwise; the fused and
+    the separate step timed as CUDA-graph replays in turns (5 rounds,
+    ``cur`` put back after each call), beside the bound of one read of the
+    weights.  Then a 16-step every-token run of
+    ``build_serve_step_program(fused_probe=True)`` (greedy) at context 512,
+    eager with its launches counted, and captured as one CUDA graph whose
+    cold and warm replays must equal the eager run bitwise (tokens, monitor
+    state, cache).  Returns the paged kernel's m 3 record with the
+    16-step run's launches."""
+    from repro_torch.core.eat import make_probe
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.models.common import positions_for
+    from repro_torch.serving.cache import (alloc_cache, alloc_paged_cache,
+                                           blocks_arrays, pack_paged_cache)
+    from repro_torch.serving.executor import ServeStepConfig, build_serve_step_program
+    from repro_torch.serving.sampler import SamplerConfig
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    probe = make_probe(1, (6,))
+    m = len(probe)
+    bad = []
+    rec = paged_shape_check(torch, pa, f"{cfg.name} fused step", 1 + m, cfg.n_heads,
+                            cfg.n_kv_heads, cfg.resolved_head_dim, bad)
+    check(not bad, "fused step paged kernel vs plain: " + "; ".join(bad))
+    saved = (model.paged_attn_impl, model.paged_attn_page)
+    model.paged_attn_impl, model.paged_attn_page = "auto", 16
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    read_ms = weights / HBM_BYTES_PER_S * 1e3
+    B, ps = 4, 16
+    at = lambda q: positions_for(cfg, q)  # noqa: E731
+    per_step = {"paged_attention": cfg.n_layers, "entropy_probe": 1, "flash_attention": 0}
+
+    def caches(T: int) -> dict:
+        """A ring and a paged cache (every block on a shuffled page, the
+        compacted page list in order) after the prefill of T seeded tokens."""
+        C = T + 64
+        toks = torch.as_tensor(np.random.default_rng(T).integers(16, cfg.vocab, (B, T)),
+                               device="cuda")
+        pos = torch.arange(T, dtype=torch.int32, device="cuda").expand(B, T).contiguous()
+        ring = alloc_cache(cfg, B, C, device="cuda")
+        model.prefill(toks, at(pos), pos, ring)
+        NB = C // ps
+        table = (np.random.default_rng(T + 1).permutation(B * NB) + 1).reshape(B, NB)
+        paged = alloc_paged_cache(cfg, B, C, ps, 1 + B * NB, device="cuda")
+        pack_paged_cache(paged, ring, table.astype(np.int32))
+        logical = np.broadcast_to(np.arange(NB, dtype=np.int32), (B, NB)).copy()
+        paged["blocks"] = blocks_arrays(table, logical, np.full(B, NB, np.int32),
+                                        device="cuda")
+        return {"paged": paged, "ring": ring}
+
+    ptoks = torch.tensor([probe.tokens], device="cuda").expand(B, m)
+    tok = torch.full((B, 1), 7, dtype=torch.long, device="cuda")
+    for T in (512, 2048):
+        base = caches(T)
+        p1 = torch.full((B, 1), T, dtype=torch.int32, device="cuda")
+        outs = {}
+        for kind, c in base.items():
+            f, launched, flash, _ = fused_vs_separate(
+                torch, model, c, p1, probe, f"{cfg.name} {kind} context {T}", kernels)
+            check(launched == per_step and flash.get("mma", 0) == 0,
+                  f"{cfg.name} {kind} fused step launched {launched}, flash {flash}; "
+                  f"expected {per_step}")
+            outs[kind] = f
+        check(all(torch.equal(a, b) for a, b in zip(outs["paged"], outs["ring"])),
+              f"{cfg.name} context {T}: the fused step on the paged cache differs from "
+              f"the ring's")
+        print(f"[fused] {cfg.name} context {T}: paged == ring bitwise (the fused "
+              f"step's logits and EAT, the next two steps' logits)")
+        # the two steps by graph replay in turns, on a copy of the paged cache
+        # whose cur is put back after every call (each replay the same step)
+        work = clone_tree(torch, base["paged"])
+        cur0 = work["cur"].clone()
+        pos_all = (p1 + torch.arange(1 + m, dtype=torch.int32, device="cuda")[None]
+                   ).contiguous()
+        pp = pos_all[:, 1:].contiguous()
+
+        def fused():
+            model.decode_and_probe(tok, at(pos_all), pos_all, work, ptoks)
+            work["cur"].copy_(cur0)
+
+        def separate():
+            model.decode_step(tok, at(p1), p1, work)
+            model.probe_entropy(ptoks, at(pp), pp, work)
+            work["cur"].copy_(cur0)
+
+        f_t, s_t = in_turns(torch, [fused], [separate], rounds=5, reps=20)
+        f_ms, s_ms = statistics.median(f_t), statistics.median(s_t)
+        fig = phases.get(f"fig21_{T}", {})
+        fig_text = (f"; phase 6's decode_step + eval_eat_now {fig['decode_ms']:.3f} + "
+                    f"{fig['probe_ms']:.3f} = {fig['decode_ms'] + fig['probe_ms']:.3f} ms"
+                    if fig else "")
+        print(f"[fig21] context {T}, B {B}, paged: fused step (decode_and_probe) "
+              f"{turns_text(f_t)}, separate step (decode_step + probe_entropy) "
+              f"{turns_text(s_t)}, graph replay in turns, 5 rounds; fused / separate "
+              f"{f_ms / s_ms:.3f}; one read of the {weights / 1e9:.2f} GB of weights "
+              f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s {read_ms:.3f} ms{fig_text} ({card})")
+        phases[f"fused_{T}"] = {"fused_ms": f_ms, "separate_ms": s_ms,
+                                "fused_turns": f_t, "separate_turns": s_t,
+                                "weight_read_ms": read_ms}
+        del work
+        if T == 512:
+            base512 = base["paged"]
+        else:
+            del base
+        torch.cuda.empty_cache()
+
+    # the every-token serve-step program, fused, 16 greedy steps
+    n_steps = 16
+    scfg = ServeStepConfig(sampler=SamplerConfig(greedy=True), fused_probe=True)
+    step, mon0 = build_serve_step_program(model, scfg, base512)
+    pos0 = torch.full((B, 1), 512, dtype=torch.int32, device="cuda")
+
+    def run(cache) -> list:
+        """The tokens, the last stop flags, the evaluation counts, then
+        every tensor of the monitor state."""
+        t, p, mon = tok, pos0, mon0
+        out = []
+        for _ in range(n_steps):
+            nxt, mon, stop = step(cache, t, p, mon, None)
+            out.append(nxt)
+            t, p = nxt[:, None], p + 1
+        return [torch.stack(out, 1), stop, mon.n_evals] + tensor_leaves(torch, mon)
+
+    eager_c = clone_tree(torch, base512)
+    reset_counts(kernels)
+    eager = run(eager_c)
+    launched = {name: fn.launches for name, fn in kernels.items()}
+    want = {k: v * n_steps for k, v in per_step.items()}
+    check(launched == want and bool((eager[2] == n_steps).all()),
+          f"serve-step program: {n_steps} eager steps launched {launched} (expected "
+          f"{want}), evaluations {eager[2].tolist()} (expected {n_steps} a row)")
+    graph_c = clone_tree(torch, base512)
+
+    def restore() -> None:
+        for a, b in zip(tensor_leaves(torch, graph_c), tensor_leaves(torch, base512)):
+            a.copy_(b)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):               # warm-up off the capture
+        run(graph_c)
+    torch.cuda.current_stream().wait_stream(side)
+    restore()
+    graph, captures = torch.cuda.CUDAGraph(), 1
+    t_cap = time.perf_counter()
+    with torch.cuda.graph(graph):
+        g_out = run(graph_c)
+    cap_s = time.perf_counter() - t_cap
+    times = []
+    for replay in ("cold", "warm"):
+        restore()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        same = (all(torch.equal(a, b) for a, b in zip(g_out, eager))
+                and all(torch.equal(a, b) for a, b in
+                        zip(tensor_leaves(torch, graph_c), tensor_leaves(torch, eager_c))))
+        check(same, f"serve-step program: the {replay} graph replay differs from the "
+              f"eager run")
+    print(f"[fused] serve-step program (build_serve_step_program, fused_probe=True, "
+          f"greedy, every-token monitor) on {cfg.name} paged, B {B}, context 512: "
+          f"{n_steps} eager steps launched {json.dumps(launched)}; captured as one "
+          f"CUDA graph ({captures} capture, {cap_s:.2f} s; 0 when warm), cold and warm "
+          f"replays == the eager run bitwise (tokens, stop flags, monitor state, "
+          f"cache); replay {times[0]:.3f} / {times[1]:.3f} ms, "
+          f"{times[1] / n_steps:.3f} ms per step ({card})")
+    phases["fused_program"] = {"launches": launched, "replay_ms": times,
+                               "ms_per_step": times[1] / n_steps}
+    model.paged_attn_impl, model.paged_attn_page = saved
+    del base512, eager_c, graph_c, graph, g_out, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases["fused_phase_s"] = time.perf_counter() - t0
+    return dict(rec, launches=launched["paged_attention"])
+
+
 # ----------------------------------------------------------------- phase 6b
 
 #: deepseek-v2-236b's depth on one card: 8 of its 60 layers (1 dense, 7 MoE:
@@ -2428,7 +2745,7 @@ def mla_kernel_checks(torch, F, fa, capacity: int, ptxas: list[str]) -> dict:
     for line in ptxas:
         print(f"[kernels] mla flash_attention ptxas {line}")
     cases = [("prefill", 512, 512, False), ("decode", 1, capacity, False),
-             ("expanded", 512, 512, True)]
+             ("fused", 3, capacity, False), ("expanded", 512, 512, True)]
     for what, m, C, expanded in cases:
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).removeprefix("torch.")
@@ -2500,10 +2817,10 @@ def mla_kernel_checks(torch, F, fa, capacity: int, ptxas: list[str]) -> dict:
     check(not bad, "mla flash kernel vs plain: " + "; ".join(bad))
     rec = dict(recs["prefill", "bfloat16"])
     rec["max_abs_err"] = max(r["max_abs_err"] for r in recs.values())
-    for what in ("decode", "expanded"):
+    for what in ("decode", "fused", "expanded"):
         rec[what] = {k: v for k, v in recs[what, "bfloat16"].items() if k != "max_abs_err"}
     rec["float32_ms"] = {what: recs[what, "float32"]["ms"] for what in
-                         ("prefill", "decode", "expanded")}
+                         ("prefill", "decode", "fused", "expanded")}
     return rec
 
 
@@ -2562,6 +2879,22 @@ def mla_phase(torch, np, F, kernels: dict, phases: dict, card: str,
           f"params, {n_params * 2 / 1e9:.2f} GB, init {phases['mla_init_s']:.1f} s")
     # bf16 at 8 layers
     moe_bf16_kernel_vs_plain(torch, model, prompts, probe)
+    # the fused step (m 3 through the absorbed MLA kernel) against the
+    # separate step, after a 64-token prefill of two prompts
+    from repro_torch.serving.cache import alloc_cache
+
+    cache = alloc_cache(cfg, 2, 96, device="cuda")
+    pos = torch.arange(64, dtype=torch.int32, device="cuda").expand(2, 64).contiguous()
+    model.prefill(torch.as_tensor(prompts[:2, -64:], device="cuda"), pos, pos, cache)
+    _, launched, flash, _ = fused_vs_separate(
+        torch, model, cache, torch.full((2, 1), 64, dtype=torch.int32, device="cuda"),
+        probe, cfg.name, kernels)
+    want = {"mma": 0, "mla": cfg.n_layers, "wide": 0, "scalar": 0}
+    check(flash == want and launched["entropy_probe"] == 1
+          and launched["paged_attention"] == 0,
+          f"{cfg.name} fused step: flash {flash} (expected {want}), launches {launched}")
+    phases["mla_fused_launches"] = {"flash": flash, **launched}
+    del cache
 
     L = cfg.n_layers
     profiled = serve_cell(
@@ -2841,6 +3174,91 @@ def zamba_kernel_checks(torch, F, fa, pa, ep, ptxas: list[str]) -> dict:
             "entropy_probe": entropy}
 
 
+def hybrid_bf16_kernel_vs_plain(torch, model, prompts, probe, seed: int) -> None:
+    """``dense_bf16_kernel_vs_plain`` at ``HYBRID_BF16_TOL``; where it fails,
+    ``hybrid_block_gap`` first prints where the two paths part."""
+    try:
+        dense_bf16_kernel_vs_plain(torch, model, prompts, probe, "mma", HYBRID_BF16_TOL)
+    except SystemExit:
+        hybrid_block_gap(torch, model, prompts, seed)
+        raise
+
+
+def hybrid_block_gap(torch, model, prompts, seed: int) -> None:
+    """Where a hybrid's kernel path and plain path part: the residual stream
+    after every block of ``kernel_vs_plain``'s prefill (64 tokens of two
+    prompts: the Mamba2 blocks on the SSD scan kernel or its plain version,
+    the shared blocks on flash or the plain attention) and of its decode
+    step (the shared blocks' paged read at D 80 or the plain attention; a
+    decode's Mamba2 step has no kernel), recorded through the transformer's
+    block functions, and its relative L2 between the two paths block by
+    block.  Each block's growth factor (its gap over the previous block's)
+    is given to the block's kind: the geometric mean and the product of the
+    factors per kind say which kind carries the gap."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.cache import alloc_cache
+
+    cfg = model.cfg
+    kinds = cfg.block_kinds()
+    names = ("ssm_block_full", "ssm_block_step", "attn_block_cached")
+    originals = {n: getattr(tfm, n) for n in names}
+    toks = torch.as_tensor(prompts[:2, -64:], device="cuda")
+    pos = torch.arange(64, dtype=torch.int32, device="cuda").expand(2, 64).contiguous()
+    nxt = torch.full((2, 1), 7, dtype=torch.long, device="cuda")
+    p1 = torch.full((2, 1), 64, dtype=torch.int32, device="cuda")
+    streams = {}
+    try:
+        for impl in ("cuda", "plain"):
+            rec: list = []
+
+            def wrap(fn):
+                def call(*a, **kw):
+                    out = fn(*a, **kw)
+                    rec.append((out[0] if isinstance(out, tuple) else out).float())
+                    return out
+                return call
+
+            for n in names:
+                setattr(tfm, n, wrap(originals[n]))
+            model.attn_impl = model.paged_attn_impl = model.scan_impl = impl
+            cache = alloc_cache(cfg, 2, 96, device="cuda")
+            model.prefill(toks, pos, pos, cache)
+            prefill = list(rec)
+            rec.clear()
+            model.decode_step(nxt, p1, p1, cache)
+            streams[impl] = (prefill, list(rec))
+            for n in names:
+                setattr(tfm, n, originals[n])
+    finally:
+        for n in names:
+            setattr(tfm, n, originals[n])
+        model.attn_impl, model.paged_attn_impl, model.scan_impl = "auto", "gather", "auto"
+    for i, what in enumerate(("prefill", "decode")):
+        k_s, p_s = streams["cuda"][i], streams["plain"][i]
+        check(len(k_s) == len(p_s) == len(kinds), f"{cfg.name} block gap: recorded "
+              f"{len(k_s)} and {len(p_s)} blocks, not {len(kinds)}")
+        gaps = [rel_l2(a, b) for a, b in zip(k_s, p_s)]
+        growth = {"ssm": [], "shared_attn": []}
+        for j in range(1, len(gaps)):
+            if gaps[j - 1] > 0 and gaps[j] > 0:
+                growth[kinds[j]].append(gaps[j] / gaps[j - 1])
+        per_kind = {k: {"blocks": len(v),
+                        "geomean": math.exp(statistics.fmean(math.log(x) for x in v))
+                        if v else None,
+                        "product": math.prod(v) if v else None}
+                    for k, v in growth.items()}
+        print(f"[zamba2 gap] seed {seed} {what}: relative L2 of the residual stream, "
+              f"kernel path vs plain path, after each of the {len(kinds)} blocks "
+              f"(S ssm, A shared attention): "
+              + " ".join(f"{'A' if k == 'shared_attn' else 'S'}{g:.2e}"
+                         for k, g in zip(kinds, gaps)))
+        print(f"[zamba2 gap] seed {seed} {what}: the first block's gap {gaps[0]:.3e} "
+              f"({kinds[0]}), the last {gaps[-1]:.3e}; growth factor per block, "
+              f"geometric mean (product): "
+              + "; ".join(f"{k} {v['geomean']:.4f} ({v['product']:.3f}, {v['blocks']} "
+                          f"blocks)" for k, v in per_kind.items() if v["geomean"]))
+
+
 def zamba_phase(torch, np, F, kernels: dict, phases: dict, card: str, scan: dict,
                 profile_dir=None) -> dict:
     """Phase 6d: ``zamba2-2.7b`` (arXiv:2411.15242: 45 Mamba2 blocks and one
@@ -2890,10 +3308,10 @@ def zamba_phase(torch, np, F, kernels: dict, phases: dict, card: str, scan: dict
         print(f"[model] {cfg.name}: the weights of seed {seed}")
         other = Model(cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
                                        device="cuda"))
-        dense_bf16_kernel_vs_plain(torch, other, prompts, probe, "mma", HYBRID_BF16_TOL)
+        hybrid_bf16_kernel_vs_plain(torch, other, prompts, probe, seed)
         del other
     model, weights = dense_model(torch, cfg, phases, "zamba2", card)
-    dense_bf16_kernel_vs_plain(torch, model, prompts, probe, "mma", HYBRID_BF16_TOL)
+    hybrid_bf16_kernel_vs_plain(torch, model, prompts, probe, 0)
     # the serves' peak, not the float32 twin's of the check above
     torch.cuda.reset_peak_memory_stats()
     profiled = serve_cell(
@@ -3374,10 +3792,19 @@ def vlm_phase(torch, np, F, kernels: dict, phases: dict, card: str,
 
 # ------------------------------------------------------------------ phase 7
 
+def stub_frames(torch, cfg, B: int, seed: int):
+    """An encoder-decoder's seeded stub frames (B, T, d) at 0.1 N(0, 1) on
+    the card, as the reference's smoke tests make them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return 0.1 * torch.randn((B, cfg.encoder_len, cfg.d_model), generator=g,
+                             device="cuda")
+
+
 def train_run(torch, cfg, card: str, *, steps=8, batch=8, seq=96,
               profile: bool = False, table_path: Path | None = None):
     """``steps`` AdamW steps of ``cfg`` from seeded weights on ChainTask
-    batches (the launcher's ``--seq``: ``seq`` - 1 input tokens a row),
+    batches (the launcher's ``--seq``: ``seq`` - 1 input tokens a row; an
+    encoder-decoder's batch with ``stub_frames`` of seed 100 + step beside),
     remat on, lr 3e-4 with 2 warmup steps, each step timed by the host
     clock between synchronisations.  Checks every loss and gradient norm
     finite, every parameter finite after the run, and the last loss below
@@ -3402,8 +3829,10 @@ def train_run(torch, cfg, card: str, *, steps=8, batch=8, seq=96,
     step = make_train_step(cfg, TrainConfig(
         opt=AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=steps), remat=True))
     times, metrics = [], []
-    for _, b in zip(range(steps), train_batches(ChainTask(seq_len=seq), batch, seed=0)):
+    for i, b in zip(range(steps), train_batches(ChainTask(seq_len=seq), batch, seed=0)):
         b = device_put_batch(b, "cuda")
+        if cfg.arch_type == "encdec":
+            b["frames"] = stub_frames(torch, cfg, batch, 100 + i)
         torch.cuda.synchronize()
         t = time.perf_counter()
         state, m = step(state, b)
@@ -3425,13 +3854,15 @@ def train_run(torch, cfg, card: str, *, steps=8, batch=8, seq=96,
     ms = statistics.median(times[1:]) * 1e3
     tokens = batch * (seq - 1)
     gb = lambda x: x / 1e9  # noqa: E731
+    frames = (f" + {cfg.encoder_len} x {cfg.d_model} stub frames a row through "
+              f"{cfg.n_encoder_layers} encoder layers" if cfg.arch_type == "encdec" else "")
     print(f"[train] {cfg.name} {cfg.dtype} {cfg.n_layers} layers d{cfg.d_model}, "
           f"{n / 1e9:.3f} B params: {steps} steps of batch {batch} x {seq - 1} "
-          f"tokens, remat, lr 3e-4 warmup 2; loss {', '.join(f'{x:.4f}' for x in loss)}; "
+          f"tokens{frames}, remat, lr 3e-4 warmup 2; loss {', '.join(f'{x:.4f}' for x in loss)}; "
           f"grad norm {', '.join(f'{x:.3f}' for x in gnorm)} ({card})")
     print(f"[train] {cfg.name}: {ms:.1f} ms per step (median of steps 2-{steps}, "
-          f"host clock with synchronize; range {min(times[1:]) * 1e3:.1f}-"
-          f"{max(times[1:]) * 1e3:.1f}; first step {times[0] * 1e3:.1f}), "
+          f"host clock with synchronize; range {min(times[1:]) * 1e3:.3f}-"
+          f"{max(times[1:]) * 1e3:.3f}; first step {times[0] * 1e3:.1f}), "
           f"{tokens / ms * 1e3:.0f} tokens/s ({card})")
     print(f"[train] {cfg.name}: peak memory {gb(peak):.2f} GB "
           f"(torch.cuda.max_memory_allocated over the run) against the reckoned "
@@ -3441,7 +3872,9 @@ def train_run(torch, cfg, card: str, *, steps=8, batch=8, seq=96,
     del state, step, metrics
     gc.collect()
     torch.cuda.empty_cache()
-    return {"params": n, "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+    return {"params": n, "ms_per_step": ms, "ms_range": [min(times[1:]) * 1e3,
+                                                         max(times[1:]) * 1e3],
+            "tokens_per_s": tokens / ms * 1e3,
             "peak_gb": gb(peak), "reckoned_gb": gb(sum(reckoned.values())),
             "loss_first": loss[0], "loss_last": loss[-1], "profiled": busy}
 
@@ -3504,10 +3937,18 @@ def train_phase(torch, np, card: str, kernels: dict, phases: dict,
     qcfg = get_config("qwen3-1.7b")
 
     # (a) the training forward against the serving prefill, same weights, a
-    # 96-token batch: max |difference| over max |logits|
+    # 96-token batch: max |difference| over max |logits|; float32 at reduced
+    # depth, bf16 at full depth (zamba2-2.7b within its serve phase's bar)
+    scfg, zcfg = get_config("seamless-m4t-large-v2"), get_config("zamba2-2.7b")
     for cfg, bar in ((dataclasses.replace(qcfg, name=qcfg.name + "-4L-f32",
                                           n_layers=4, dtype="float32"), 1e-5),
-                     (qcfg, 3e-2)):
+                     (qcfg, 3e-2),
+                     (dataclasses.replace(scfg, name=scfg.name + "-2+2L-f32", n_layers=2,
+                                          n_encoder_layers=2, dtype="float32"), 1e-5),
+                     (scfg, 3e-2),
+                     (dataclasses.replace(zcfg, name=zcfg.name + "-12L-f32", n_layers=12,
+                                          dtype="float32"), 1e-5),
+                     (zcfg, HYBRID_BF16_TOL)):
         params = init_params(cfg, torch.Generator(device="cuda").manual_seed(3),
                              device="cuda")
         model = Model(cfg, params)
@@ -3515,23 +3956,31 @@ def train_phase(torch, np, card: str, kernels: dict, phases: dict,
         toks = torch.randint(0, cfg.vocab, (B, S), device="cuda",
                              generator=torch.Generator(device="cuda").manual_seed(4))
         pos = torch.arange(S, dtype=torch.int32, device="cuda").expand(B, S).contiguous()
+        frames = stub_frames(torch, cfg, B, 5) if cfg.arch_type == "encdec" else None
+        n_flash = sum(kind != "ssm" for kind in cfg.block_kinds())
+        if frames is not None:               # the encoder's, and each cross-attention
+            n_flash += cfg.n_encoder_layers + cfg.n_layers
         before = dict(fa.flash_attention_cuda.variant_launches)
         with torch.no_grad():
-            ref = train_logits(params, cfg, toks, pos, pos, remat=False)[0].float()
+            ref = train_logits(params, cfg, toks, pos, pos, remat=False,
+                               frames=frames)[0].float()
             cache = alloc_cache(cfg, B, S, device="cuda")
-            out = model.logits(model.prefill(toks, pos, pos, cache)).float()
+            out = model.logits(model.prefill(toks, pos, pos, cache, frames=frames)).float()
         flash = {k: v - before[k] for k, v in fa.flash_attention_cuda.variant_launches.items()}
         err = (out - ref).abs().max().item() / ref.abs().max().item()
         check(bool(torch.isfinite(out).all() and torch.isfinite(ref).all())
-              and err <= bar and sum(flash.values()) == cfg.n_layers,
+              and err <= bar and sum(flash.values()) == n_flash,
               f"{cfg.name}: training forward vs serving prefill {err} (bar {bar}), "
-              f"flash launches {flash}")
-        print(f"[train] {cfg.name}: training forward (plain attention) vs serving "
+              f"flash launches {flash} (expected {n_flash})")
+        plain = "plain attention" + (" and the plain scan" if "ssm" in cfg.block_kinds()
+                                     else "")
+        print(f"[train] {cfg.name}: training forward ({plain}) vs serving "
               f"prefill + logits (flash kernel, {json.dumps(flash)} launches), "
-              f"B {B} x {S} tokens: max |diff| / max |logits| {err:.3e} (bar {bar:g}; "
+              f"B {B} x {S} tokens{' on stub frames' if frames is not None else ''}: "
+              f"max |diff| / max |logits| {err:.3e} (bar {bar:g}; "
               f"max |logits| {ref.abs().max().item():.3f}) ({card})")
-        phases[f"train_vs_prefill_{cfg.dtype}"] = err
-        del params, model, ref, out, cache
+        phases[f"train_vs_prefill_{cfg.name}"] = err
+        del params, model, ref, out, cache, frames
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3542,6 +3991,11 @@ def train_phase(torch, np, card: str, kernels: dict, phases: dict,
 
     # (c) mamba2-2.7b at full width and depth (8 steps take ~15 s: no cut)
     phases["train_mamba"] = train_run(torch, get_config("mamba2-2.7b"), card)
+
+    # (c2) the encoder-decoder (on stub frames) and the hybrid at full width
+    # and depth
+    phases["train_seamless"] = train_run(torch, scfg, card)
+    phases["train_zamba2"] = train_run(torch, zcfg, card)
 
     # (d) tiny-reasoner by the example's recipe, saved, reloaded, served
     sys.path.insert(0, str(ROOT / "examples"))
@@ -4129,11 +4583,17 @@ def main() -> None:
 
     # ---- 6. the evaluation path on eat-paper-8b
     trace_phase(torch, np, model, probe, prompts, lens, kernels, phases)
+    lap("6")
+
+    # ---- 6g. the fused decode-and-probe step on eat-paper-8b, still held
+    fused = fused_phase(torch, np, model, {name: kernels[name] for name in
+                                           ("flash_attention", "paged_attention",
+                                            "entropy_probe")}, phases, card)
     del model
     gc.collect()
     torch.cuda.empty_cache()
 
-    lap("6")
+    lap("6g")
 
     # ---- 6b. deepseek-v2-236b (MLA) at full width, 8 of 60 layers, the 8B
     # model freed first
@@ -4225,8 +4685,12 @@ def main() -> None:
                               "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                               "bound_by": m["bound_by"], "library_ms": m["library_ms"],
                               "variant": m["variant"],
-                              "decode": m["decode"], "expanded": m["expanded"],
+                              "decode": m["decode"], "fused": m["fused"],
+                              "fused_launches": phases["mla_fused_launches"]["flash"]["mla"],
+                              "expanded": m["expanded"],
                               "float32_ms": m["float32_ms"]}
+        if name == "paged_attention":
+            out[-1]["fused_m3"] = fused
         if name in gemma["launches"]:
             g = dict(gemma["kernels"][name])
             out[-1]["gemma"] = {"launches": gemma["launches"][name], **g}

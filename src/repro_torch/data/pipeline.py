@@ -22,5 +22,6 @@ def device_put_batch(batch: dict, device) -> dict:
     """The batch's arrays as tensors on ``device`` (``device.upload``:
     through pinned memory, not blocking the host, on the card), every key
     carried: a VLM batch's ``image_embeds`` (B, P, d) and (B, S_total, 3)
-    M-RoPE ``positions`` reach ``train_loss`` as they are."""
+    M-RoPE ``positions``, and an encoder-decoder batch's ``frames`` (B, T,
+    d), reach ``train_loss`` as they are."""
     return {k: upload(v, device) for k, v in batch.items()}

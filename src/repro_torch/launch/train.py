@@ -16,6 +16,10 @@ parameters in the reference's format (``training/checkpoint.py``), which
 ``repro_torch.launch.serve --ckpt`` and the JAX package both load.
 ``--multipod`` (the reference's production mesh) waits for the port's
 multi-GPU layer.  ``--device cuda`` (the default) without a GPU raises.
+An encoder-decoder (``seamless-m4t-large-v2``) is refused by name: the
+``ChainTask`` batches carry no encoder frames, and the reference's launcher
+fails there too.  ``models.model.train_loss`` trains it on a batch with
+``frames``.
 """
 from __future__ import annotations
 
@@ -47,8 +51,13 @@ def main(argv=None):
                     help="cuda (default) or cpu; cuda without a GPU raises")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.arch_type == "encdec":
+        raise ValueError(
+            f"the launcher's ChainTask batches carry no encoder frames: the "
+            f"encoder-decoder {cfg.name} trains through train_loss(params, cfg, "
+            f"batch) with batch['frames'] (B, T, d_model)")
+    dev = resolve_device(args.device)
     if args.reduced:
         cfg = cfg.reduced()
     task = ChainTask(seq_len=args.seq or 96)

@@ -3,9 +3,11 @@ and the training loss (port of ``repro/models/model.py``).
 
 ``Model`` is an ``nn.Module`` holding the weights (frozen, inference only);
 the cache is an explicit argument that the committing calls (``prefill``,
-``decode_step``) update in place.  The EAT probe (``probe_entropy``) is a
-forward over the probe tokens against the live cache that commits nothing,
-followed by the fused entropy kernel.
+``decode_step``, ``decode_and_probe``) update in place.  The EAT probe
+(``probe_entropy``) is a forward over the probe tokens against the live
+cache that commits nothing, followed by the fused entropy kernel;
+``decode_and_probe`` (the reference's §Perf step) runs one forward over
+``[token, probe...]`` that commits the token alone.
 
 Training is functional, as in the reference: ``train_loss(params, cfg,
 batch)`` takes the parameter tree itself (its leaves ``requires_grad``;
@@ -195,7 +197,8 @@ class Model(nn.Module):
         return common.lm_head_apply(self.embed, hidden, self.cfg)
 
     def _forward(self, tokens, positions, pos1d, cache, *, commit: bool,
-                 window: int | None, live=None, image_embeds=None):
+                 window: int | None, live=None, image_embeds=None,
+                 advance: int | None = None):
         cfg = self.cfg
         window = cfg.sliding_window if window is None else window
         x = embed_stream(self.embed, cfg, tokens, image_embeds)
@@ -203,7 +206,8 @@ class Model(nn.Module):
                                 x.device)
         run = lambda: tfm.forward_cached(  # noqa: E731
             self.layers, self.final_norm, x, positions, pos1d, slots, cache,
-            cfg, commit=commit, attn_impl=self.attn_impl, window=window,
+            cfg, commit=commit, advance=advance, attn_impl=self.attn_impl,
+            window=window,
             paged_impl=self.paged_attn_impl, page_block=self.paged_attn_page,
             scan_impl=self.scan_impl, live=live, shared=self.shared_attn)
         if commit:
@@ -260,6 +264,44 @@ class Model(nn.Module):
                                window=window, live=live)
         return self.logits(hidden)
 
+    def decode_and_probe(self, token, positions, pos1d, cache, probe_tokens, *,
+                         window: int | None = None, entropy_impl: str = "auto"):
+        """The fused serve step: ONE forward over ``[token, probe...]``
+        instead of a decode step and a separate probe, so the weights are
+        read once per step.  It commits the token alone: the K/V and
+        positions of all 1 + m slots are written and ``cur`` advances by 1;
+        the probe's entries stay in the slots after ``cur``, masked by
+        position until the next steps overwrite them.  With a sliding-window ring the probe writes take
+        the m oldest window slots (the window is then effectively W - m).
+        On a paged cache, probe slots past a row's mapped pages send their
+        K/V to the trash page (their positions to the row's ``pos``), as
+        the reference's page-table write does: the gathered read reads them
+        back from there, the page-native read skips the trash page, so the
+        probe rows then miss the probe's own K/V, as in the reference.
+
+        token (B, 1); probe_tokens (B, m); positions/pos1d over the 1 + m
+        slots ((B, 1 + m, 3) positions under M-RoPE).  Returns (logits (B,
+        1, Vp) of the token's row, the EAT (B,) float32 of the last probe
+        row).  A recurrent stack (``ssm``, ``hybrid``) would bake the probe
+        into its states, so it runs ``decode_step`` then ``probe_entropy``
+        instead, as the reference does."""
+        cfg = self.cfg
+        m = probe_tokens.shape[1]
+        if cfg.arch_type in ("ssm", "hybrid"):
+            # contiguous slices: the kernels' wrappers take no strided positions
+            logits = self.decode_step(token, positions[:, :1].contiguous(),
+                                      pos1d[:, :1].contiguous(), cache,
+                                      window=window)
+            eat = self.probe_entropy(probe_tokens, positions[:, 1:1 + m].contiguous(),
+                                     pos1d[:, 1:1 + m].contiguous(), cache,
+                                     window=window, entropy_impl=entropy_impl)
+            return logits, eat
+        hidden = self._forward(torch.cat([token, probe_tokens], dim=1), positions,
+                               pos1d, cache, commit=True, window=window, advance=1)
+        eat = next_token_entropy(hidden[:, -1].contiguous(), self.unembed_matrix(),
+                                 cfg.vocab, impl=entropy_impl)
+        return self.logits(hidden[:, :1]), eat
+
     def probe_entropy(self, probe_tokens, positions, pos1d, cache, *,
                       window: int | None = None,
                       entropy_impl: str = "auto") -> torch.Tensor:
@@ -288,18 +330,30 @@ def embed_stream(embed, cfg: ModelConfig, tokens, image_embeds=None) -> torch.Te
 
 def train_logits(params: dict, cfg: ModelConfig, tokens, positions, pos1d, *,
                  remat: bool = True, window: int | None = None,
-                 image_embeds=None) -> torch.Tensor:
+                 image_embeds=None, frames=None) -> torch.Tensor:
     """The training forward (no cache; plain attention and scan, as the
     reference's trainer): (logits (B, S, Vp) in the storage dtype, the
     MoE layers' summed aux loss, 0-dim float32).  A VLM's
     ``image_embeds`` (B, P, d) go in front of the tokens; ``positions``
-    ((B, P + S, 3) with M-RoPE) and ``pos1d`` then cover both."""
+    ((B, P + S, 3) with M-RoPE) and ``pos1d`` then cover both.  An
+    encoder-decoder's ``frames`` (B, T, d) are encoded first (under
+    ``remat`` too, with ``enc_pos = arange(T)``) and every decoder block
+    cross-attends to the encoder's output."""
     window = cfg.sliding_window if window is None else window
     x = embed_stream(params["embed"], cfg, tokens, image_embeds)
+    enc_out = enc_pos = None
+    if cfg.arch_type == "encdec":
+        B, T, _ = frames.shape
+        enc_pos = torch.arange(T, dtype=torch.int32,
+                               device=frames.device).expand(B, T).contiguous()
+        enc_out = tfm.encode(params["enc_layers"], params["enc_norm"],
+                             frames.to(x.dtype), enc_pos, cfg, attn_impl="plain",
+                             remat=remat)
     hidden, aux = tfm.forward_train(params["layers"], params["final_norm"], x,
                                     positions, pos1d, cfg, valid=pos1d >= 0,
                                     remat=remat, window=window,
-                                    shared=params.get("shared_attn"))
+                                    shared=params.get("shared_attn"),
+                                    enc_out=enc_out, enc_pos=enc_pos)
     return common.lm_head_apply(params["embed"], hidden, cfg), aux
 
 
@@ -309,21 +363,26 @@ def train_loss(params: dict, cfg: ModelConfig, batch: dict, *,
     """batch: tokens (B, S); targets, loss_mask, pos1d (B, S_total);
     positions (B, S_total), or (B, S_total, 3) for an M-RoPE config; a
     VLM's optional image_embeds (B, P, d), put in front of the tokens
-    (S_total = P + S); tensors on the parameters' device.  Returns (loss,
-    metrics dict of 0-dim device tensors: ce, z_loss, accuracy, tokens,
-    loss, and for an MoE config aux_loss, which the loss carries times
+    (S_total = P + S); an encoder-decoder's frames (B, T, d), which it
+    needs; tensors on the parameters' device.  Returns (loss, metrics dict
+    of 0-dim device tensors: ce, z_loss, accuracy, tokens, loss, and for an
+    MoE config aux_loss, which the loss carries times
     ``router_aux_weight``)."""
     unknown = set(batch) - {"tokens", "targets", "loss_mask", "positions", "pos1d",
-                            "image_embeds"}
+                            "image_embeds", "frames"}
     if unknown:
-        raise ValueError(f"batch keys {sorted(unknown)} need modules the port "
-                         f"does not train yet (encoder-decoder frames): training "
-                         f"on them is a later item")
+        raise ValueError(f"batch keys {sorted(unknown)} are not training inputs")
     if "image_embeds" in batch and cfg.arch_type != "vlm":
         raise ValueError(f"{cfg.name} is not a VLM: it takes no image_embeds")
+    if ("frames" in batch) != (cfg.arch_type == "encdec"):
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: its batch needs frames (B, T, d_model)"
+            if cfg.arch_type == "encdec" else
+            f"{cfg.name} is not an encoder-decoder: it takes no frames")
     logits, aux = train_logits(params, cfg, batch["tokens"], batch["positions"],
                                batch["pos1d"], remat=remat, window=window,
-                               image_embeds=batch.get("image_embeds"))
+                               image_embeds=batch.get("image_embeds"),
+                               frames=batch.get("frames"))
     loss, metrics = cross_entropy_loss(logits, batch["targets"],
                                        batch["loss_mask"], cfg.vocab,
                                        z_loss=z_loss)

@@ -1,7 +1,7 @@
 """The cached forward of a dense GQA decoder, a mixture-of-experts decoder
 (either with multi-head latent attention, ``cfg.mla``), a Mamba2 stack, a
 Zamba2-style hybrid and an encoder-decoder's decoder, the encoder-decoder's
-bidirectional encoder, and the training forward of all but the last (port
+bidirectional encoder, and the training forward of all of them (port
 of the dense, MoE, MLA, SSM, hybrid and encdec branches of
 ``repro/models/transformer.py``: ``write_slots``, the paged-cache helpers,
 ``page_native_ok``, ``attn_block_cached``, ``attn_block_full``,
@@ -27,8 +27,10 @@ and RoPE at ``enc_pos = arange(T)``), then ``enc_norm``; each decoder block
 attends to itself, then (``norm_c``) to the encoder's output through its
 entry's cross K/V ``ck``/``cv`` at the cache's ``enc_pos``
 (``attention.cross_attention``, every query at position 0, not causal),
-then runs its MLP.  The cross K/V are written once, at prefill; no forward
-here writes them.
+then runs its MLP.  The cross K/V are written once, at prefill; no cached forward
+here writes them.  Training (``forward_train`` with ``enc_out``) makes each
+decoder block's cross K/V from the encoder's output in the call, as the
+reference's trainer does.
 
 ``forward_train`` runs the plain attention and the plain SSD scan, as the
 reference's trainer does (its ``Model(cfg, attn_impl="xla")`` and
@@ -59,6 +61,13 @@ state has no slots: an SSM layer returns a new state, and only a
 committing forward puts it in the cache (replacing the layer's entry,
 never writing into its tensors), so a probe or a rollout leaves the live
 state as it was.
+
+A committing forward may advance ``cur`` by fewer slots than it writes
+(``advance``): the fused decode-and-probe step writes the K/V and
+positions of its token and its probe tokens and commits the token alone
+(``cur`` += 1).  The probe's entries stay in the slots after ``cur``,
+masked by their positions (later than any query until the next steps
+overwrite them), as in the reference's ``Model.decode_and_probe``.
 
 A committing forward may be masked by ``live``, a 0-dim bool device tensor
 (the masked decode step of a chunk run as one CUDA graph): where it is
@@ -329,50 +338,61 @@ def ssm_block_step(p, x, cfg: ModelConfig, state):
 
 
 def forward_train(layers, final_norm, x, positions, pos1d, cfg: ModelConfig, *,
-                  valid=None, remat: bool = True, window: int = 0, shared=None):
+                  valid=None, remat: bool = True, window: int = 0, shared=None,
+                  enc_out=None, enc_pos=None):
     """Full-sequence forward over the stack, no cache (training).  Returns
     (the final-normed hidden states, the MoE layers' aux losses summed in
     layer order, 0-dim float32: 0 without MoE layers).  ``remat``
     recomputes each block in the backward pass (``torch.utils.checkpoint``,
     the reference's ``jax.checkpoint`` around its scan body): only the
-    blocks' inputs are kept.  ``shared``: a hybrid's shared block."""
-    if cfg.arch_type not in ("dense", "vlm", "moe", "ssm", "hybrid"):
-        raise ValueError(f"the port trains dense, vlm, moe, ssm and hybrid models, "
-                         f"not {cfg.arch_type!r} (training an encoder-decoder "
-                         f"on frames is a later item of the port)")
+    blocks' inputs are kept.  ``shared``: a hybrid's shared block.  An
+    encoder-decoder's decoder needs ``enc_out`` (the encoder's output (B,
+    T, d), ``encode``) and ``enc_pos`` (B, T): each block cross-attends to
+    K/V made from it in the call."""
+    if cfg.arch_type not in ("dense", "vlm", "moe", "ssm", "hybrid", "encdec"):
+        raise ValueError(f"the port trains dense, vlm, moe, ssm, hybrid and encdec "
+                         f"models, not {cfg.arch_type!r}")
+    if (cfg.arch_type == "encdec") != (enc_out is not None):
+        raise ValueError(f"{cfg.name}: enc_out goes with an encoder-decoder, and an "
+                         f"encoder-decoder needs it")
 
-    def body(kind, p, xx, extra):
+    def body(kind, p, xx, extra, enc):
         if kind == "ssm":
             return ssm_block_full(p, xx, cfg, valid=valid, scan_impl="plain")[0], None
         return attn_block_full(p, xx, positions, pos1d, cfg, window=window,
-                               x_extra=extra)
+                               x_extra=extra, enc_kv=enc, enc_pos=enc_pos)
 
     emb0 = x
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     own = iter(layers)
     for kind in cfg.block_kinds():
         p, extra = (shared, emb0) if kind == "shared_attn" else (next(own), None)
-        x, aux = (checkpoint(body, kind, p, x, extra, use_reentrant=False) if remat
-                  else body(kind, p, x, extra))
+        x, aux = (checkpoint(body, kind, p, x, extra, enc_out, use_reentrant=False)
+                  if remat else body(kind, p, x, extra, enc_out))
         if aux is not None:
             aux_total = aux_total + aux
     return rmsnorm(x, final_norm, cfg.norm_eps, cfg.rmsnorm_one_plus), aux_total
 
 
 def encode(enc_layers, enc_norm, frames, enc_pos, cfg: ModelConfig, *,
-           attn_impl: str = "auto") -> torch.Tensor:
+           attn_impl: str = "auto", remat: bool = False) -> torch.Tensor:
     """The encoder-decoder's bidirectional encoder over the stub frontend
     frames (B, T, d): each block's self-attention not causal, its positions
-    (RoPE included) ``enc_pos`` (B, T), then ``enc_norm``."""
+    (RoPE included) ``enc_pos`` (B, T), then ``enc_norm``.  ``remat``
+    recomputes each block in the backward pass, as ``forward_train``."""
+    def body(p, xx):
+        return attn_block_full(p, xx, enc_pos, enc_pos, cfg, causal=False,
+                               attn_impl=attn_impl)[0]
+
     x = frames
     for p in enc_layers:
-        x = attn_block_full(p, x, enc_pos, enc_pos, cfg, causal=False,
-                            attn_impl=attn_impl)[0]
+        x = checkpoint(body, p, x, use_reentrant=False) if remat else body(p, x)
     return rmsnorm(x, enc_norm, cfg.norm_eps, cfg.rmsnorm_one_plus)
 
 
 def forward_cached(layers, final_norm, x, positions, pos1d, slots, cache,
                    cfg: ModelConfig, *, commit: bool = True,
+                   advance: int | None = None,
                    attn_impl: str = "auto", window: int = 0,
                    paged_impl: str = "gather", page_block: int = 16,
                    scan_impl: str = "auto", live=None, shared=None):
@@ -382,6 +402,10 @@ def forward_cached(layers, final_norm, x, positions, pos1d, slots, cache,
     cache's ``pos`` and ``cur`` advance over the new tokens; without it they
     are left as they were (the K/V writes still land in ``slots`` — wrap
     them in ``preserved_slots``; SSM states are not written at all).  A
+    committing forward writes the positions of all m slots and advances
+    ``cur`` by ``advance`` (m by default; 1 for the fused decode-and-probe
+    step, which a recurrent stack does not take: its states hold no
+    slots).  A
     committing forward masked by ``live`` (0-dim bool) writes its slots and
     advances ``cur`` only where ``live`` is true; an SSM block's new state
     is still committed (the caller's ``freeze_inactive_rows`` takes it
@@ -438,7 +462,7 @@ def forward_cached(layers, final_norm, x, positions, pos1d, slots, cache,
             paged_impl=paged_impl, page_block=page_block, live=live,
             x_extra=extra, enc_pos=cache.get("enc_pos"))
     if commit:
-        _advance_cur(cache, m, live)
+        _advance_cur(cache, m if advance is None else advance, live)
     return rmsnorm(x, final_norm, cfg.norm_eps, cfg.rmsnorm_one_plus)
 
 

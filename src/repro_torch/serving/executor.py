@@ -56,6 +56,12 @@ caller must treat a state it hands to a mutating method (``decode_chunk``, ``dec
   snapshot       the packed host copy of a state (one device-to-host read)
   snapshot_async the same copy on its way: waited on later
   decode_chunk_snapshot  decode_chunk, then snapshot_async behind it
+
+Beside the executor: ``make_eat_step`` (the canonical monitored step; with
+``fused_probe`` the reference's §Perf step, ``Model.decode_and_probe``,
+which the chunks do not use, as the reference's engine does not) and
+``build_serve_step_program`` (the reference's every-token dry-run
+program, single-device: ``ServeStepConfig``, ``serve_monitor``).
 """
 from __future__ import annotations
 
@@ -65,8 +71,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.eat import eval_eat
+from repro_torch.core.eat import ProbeSpec, eval_eat
 from repro_torch.core.monitor import MonitorState, ReasoningMonitor
+from repro_torch.core.stopping import EATStopper
 from repro_torch.device import upload, upload_into
 from repro_torch.models.common import positions_for
 from repro_torch.models.transformer import preserved_slots, write_slots
@@ -214,7 +221,7 @@ def prompt_positions(prompt_len, S: int, device) -> torch.Tensor:
 
 def make_eat_step(model, monitor: ReasoningMonitor | None,
                   sampler: SamplerConfig, *, window: int | None = None,
-                  probe_cond: bool = True):
+                  probe_cond: bool = True, fused_probe: bool = False):
     """Build ``step(cache, token, pos1d, mon, active, rng, live=None)`` ->
     ``(next_token, mon, stop)``: one committed decode step (its commit
     masked by ``live``, see ``Model.decode_step``), the sampler, then the
@@ -222,10 +229,35 @@ def make_eat_step(model, monitor: ReasoningMonitor | None,
     evaluation is due for some active row (the reference's ``lax.cond``);
     ``probe_cond=False`` probes every step, which a step with no row due
     leaves unused (``ReasoningMonitor.update`` with ``use`` all false is
-    ``tick_no_eval``).  token/pos1d: (B, 1)."""
+    ``tick_no_eval``).  token/pos1d: (B, 1).
+
+    ``fused_probe`` (with a monitor): ONE forward over ``[token, probe...]``
+    at positions ``pos1d + [0, 1 + m)`` (``Model.decode_and_probe``, which
+    commits the token alone), the sampler, then the monitor's update with
+    that step's EAT, every step.  It takes no ``live``: the engine's
+    chunks build the step non-fused, as the reference's do."""
     cfg = model.cfg
 
+    def fused(cache, token, pos1d, mon: MonitorState, active, rng):
+        B, m = token.shape[0], len(monitor.probe)
+        probe_toks = torch.stack([torch.full((B,), t, dtype=torch.long,
+                                             device=token.device)
+                                  for t in monitor.probe.tokens], 1)
+        pos_all = (pos1d[:, :1]
+                   + torch.arange(1 + m, dtype=torch.int32, device=pos1d.device)[None])
+        logits, eat = model.decode_and_probe(
+            token, positions_for(cfg, pos_all), pos_all, cache, probe_toks,
+            window=window)
+        nxt = sample(logits[:, -1], cfg.vocab, sampler, rng)
+        mon = monitor.update(mon, eat, monitor.due(mon, nxt), active)
+        return nxt, mon, mon.stop_flag
+
     def step(cache, token, pos1d, mon: MonitorState, active, rng, live=None):
+        if monitor is not None and fused_probe:
+            if live is not None:
+                raise ValueError("the fused decode-and-probe step takes no live "
+                                 "mask: a masked chunk builds the step non-fused")
+            return fused(cache, token, pos1d, mon, active, rng)
         logits = model.decode_step(token, positions_for(cfg, pos1d), pos1d, cache,
                                    window=window, live=live)
         nxt = sample(logits[:, -1], cfg.vocab, sampler, rng)
@@ -238,6 +270,48 @@ def make_eat_step(model, monitor: ReasoningMonitor | None,
         return nxt, mon, mon.stop_flag
 
     return step
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeStepConfig:
+    """The every-token serve step's settings (the reference's dry-run
+    program, single-device): the probe is ``</think>`` + the answer prefix,
+    and ``fused_probe`` folds it into the decode forward.  The step always
+    probes, and attends over the config's own ``sliding_window``."""
+
+    probe: ProbeSpec = ProbeSpec((1, 6))
+    stopper: EATStopper = EATStopper(alpha=0.2, delta=1e-3)
+    sampler: SamplerConfig = SamplerConfig()
+    fused_probe: bool = False
+
+
+def serve_monitor(scfg: ServeStepConfig) -> ReasoningMonitor:
+    """The serve step's evaluation schedule: a probe every token, no
+    warmup (the most expensive configuration of the monitored step)."""
+    return ReasoningMonitor(stopper=scfg.stopper, probe=scfg.probe,
+                            schedule="every_n", every_n=1, min_evals=0)
+
+
+def build_serve_step_program(model, scfg: ServeStepConfig, cache: dict):
+    """ONE every-token EAT step over ``cache``'s batch, every row active
+    (the reference's ``build_serve_step_program`` without a mesh).
+
+    Returns ``(step, mon)``: ``step(cache, token, pos1d, mon, rng)`` ->
+    ``(next_token, mon, stop)`` (token/pos1d (B, 1); the cache updated in
+    place; ``rng`` a ``torch.Generator`` or None for a greedy sampler), and
+    the monitor's initial state for the batch.  The probe runs every step,
+    unconditionally (``probe_cond=False``), so the step has no host read
+    and captures into a CUDA graph as it is."""
+    monitor = serve_monitor(scfg)
+    eat_step = make_eat_step(model, monitor, scfg.sampler, probe_cond=False,
+                             fused_probe=scfg.fused_probe)
+
+    def step(cache, token, pos1d, mon: MonitorState, rng):
+        active = torch.ones(token.shape[:1], dtype=torch.bool, device=token.device)
+        return eat_step(cache, token, pos1d, mon, active, rng)
+
+    B = cache["pos"].shape[0]
+    return step, monitor.init(B, cache["pos"].device)
 
 
 def make_shadow_step(model, monitor: ReasoningMonitor, *,
